@@ -1,0 +1,111 @@
+"""Batched serving driver: prefill a batch of prompts, decode with a KV cache.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --batch 8 --prompt-len 512 --new-tokens 32            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --reduced --device cpu
+
+Counterpart of ``repro.launch.serve``, with the same flags plus ``--device``
+(default ``cuda``; with no card it raises).  Prefill runs the CUDA
+flash-attention kernel (``attn_impl="pallas"``); decode (one query per step)
+runs the plain attention.  Weights and prompts are random, from fixed seeds.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, List, Optional, Sequence
+
+import torch
+
+from .. import resolve_device
+from ..configs import get_config, list_archs
+from ..models import LM, ModelConfig, decode_step, init_params, param_count, prefill
+from ..train.serve_step import sample_tokens
+
+
+@dataclasses.dataclass
+class ServeResult:
+    cfg: ModelConfig
+    params: LM
+    prompts: torch.Tensor          # (B, S)
+    tokens: torch.Tensor           # (B, new_tokens) generated
+    prefill_logits: torch.Tensor   # (B, V)
+    step_logits: List[torch.Tensor]  # decode step i's logits (B, V), i < new_tokens-1
+    caches: List[Any]              # after the last decode step
+    prefill_s: float
+    decode_s: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
+          temperature: float = 0.0, device="cuda") -> ServeResult:
+    dev = resolve_device(device)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    params = init_params(torch.Generator().manual_seed(0), cfg, dev)
+    B, S = batch, prompt_len
+    prompts = torch.randint(0, cfg.vocab_size, (B, S),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+    max_len = S + new_tokens
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompts}, cfg, max_len)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    prefill_logits = logits
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tok = sample_tokens(logits, gen, temperature)
+    out, step_logits = [tok], []
+    t0 = time.perf_counter()
+    for i in range(new_tokens - 1):
+        logits, caches = decode_step(params, caches, tok, S + i, cfg)
+        tok = sample_tokens(logits, gen, temperature)
+        step_logits.append(logits)
+        out.append(tok)
+    _sync(dev)
+    t_dec = time.perf_counter() - t0
+    return ServeResult(cfg, params, prompts, torch.stack(out, dim=1), prefill_logits,
+                       step_logits, caches, t_prefill, t_dec)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if not cfg.supports_decode:
+        raise SystemExit(f"{cfg.arch_id} is encoder-only: no decode")
+    if cfg.family != "dense":
+        raise SystemExit(f"{cfg.arch_id}: the {cfg.family} family is not yet ported "
+                         "to repro_torch (see ROADMAP.md, Queue 1)")
+
+    res = serve(cfg, args.batch, args.prompt_len, args.new_tokens,
+                args.temperature, args.device)
+    B, S = args.batch, args.prompt_len
+    print(f"[serve] {cfg.arch_id}: {param_count(res.params):,} params")
+    print(f"[serve] prefill {B}x{S}: {res.prefill_s:.2f}s "
+          f"({B*S/res.prefill_s:.0f} tok/s)")
+    print(f"[serve] decode {args.new_tokens} steps: {res.decode_s:.2f}s "
+          f"({B*(args.new_tokens-1)/max(res.decode_s, 1e-9):.0f} tok/s)")
+    print(f"[serve] sample output tokens (row 0): {res.tokens[0][:16].tolist()}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,3 @@
+from .config import ModelConfig, MoEConfig
+from .model import LM, decode_step, init_params, param_count, prefill
+from .transformer import apply_stack, init_caches, init_stack, segment_specs

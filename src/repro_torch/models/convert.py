@@ -1,0 +1,106 @@
+"""Carry weights from the JAX package into the port.
+
+Takes the tree that ``repro.models.init_params`` returns, with its leaves
+already mapped to numpy arrays by the caller, and loads it into the port's
+modules.  This module is the only place that knows how the two layouts
+differ:
+
+- JAX stacks a segment's blocks on a leading repeat axis
+  (``stack[si]["blocks"][bi][...]`` of shape (n, ...)); the port has one
+  module per repeat, ``stack.{si}.{bi}.{r}``.
+- JAX stores dense weights (in, out) and computes ``x @ w``; the port's
+  ``nn.Linear`` holds (out, in), so every dense weight is transposed here.
+- JAX's separate biases (``bq``, ``b_in``, ...) become the bias of the
+  ``nn.Linear`` they add to.
+
+Every leaf is consumed; a missing or extra leaf, or a shape that does not
+fit, raises.  Neither ``jax`` nor ``repro`` is imported.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import resolve_device
+from .config import ModelConfig
+from .model import LM, init_params
+
+__all__ = ["to_state_dict", "load_module", "from_jax"]
+
+_LINEAR = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in", "w_out"}
+_BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv", "b_in": "w_in", "b_out": "w_out"}
+
+
+def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def _port_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """One JAX leaf (no repeat axis) -> (port state-dict name, array)."""
+    *head, leaf = path
+    if leaf in _LINEAR:
+        return ".".join([*head, leaf, "weight"]), arr.T
+    if leaf == "w" and tuple(head) in ((), ("lm_head",)):   # the untied LM head
+        return ".".join([*head, "weight"]), arr.T
+    if leaf in _BIAS_OF:
+        return ".".join([*head, _BIAS_OF[leaf], "bias"]), arr
+    return ".".join(path), arr
+
+
+def to_state_dict(tree: Any) -> Dict[str, np.ndarray]:
+    """Flatten a JAX parameter tree (numpy leaves) into the port's names and
+    layouts, unstacking ``stack`` segments along their repeat axis."""
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(tree):
+        arr = np.asarray(arr)
+        if path[0] == "stack":
+            if len(path) < 5 or path[2] != "blocks":
+                raise KeyError(f"unexpected stack leaf {'/'.join(path)}")
+            _, si, _, bi, *rest = path
+            for r in range(arr.shape[0]):
+                name, a = _port_leaf(tuple(rest), arr[r])
+                out[f"stack.{si}.{bi}.{r}.{name}"] = a
+        else:
+            name, a = _port_leaf(path, arr)
+            out[name] = a
+    return out
+
+
+def load_module(module: nn.Module, tree: Any) -> nn.Module:
+    """Load a JAX subtree (numpy leaves) into ``module``'s parameters, in
+    place.  Raises on a missing, extra or misshapen leaf."""
+    state = to_state_dict(tree)
+    target = module.state_dict()
+    missing, extra = sorted(set(target) - set(state)), sorted(set(state) - set(target))
+    if missing or extra:
+        raise KeyError(f"JAX tree does not match the port: missing {missing}, extra {extra}")
+    device = next(iter(target.values())).device
+    if device.type == "meta":
+        device = torch.device("cpu")
+    loaded = {}
+    for name, arr in state.items():
+        want = target[name]
+        if tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"{name}: JAX shape {arr.shape} vs port {tuple(want.shape)}")
+        t = torch.tensor(np.asarray(arr, dtype=np.float32))   # a copy: JAX's buffers are read-only
+        loaded[name] = t.to(device=device, dtype=want.dtype)
+    module.load_state_dict(loaded, strict=True, assign=True)
+    return module
+
+
+def from_jax(tree: Any, cfg: ModelConfig, device="cuda") -> LM:
+    """A port ``LM`` holding the weights of ``repro.models.init_params``, on
+    ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    model = init_params(None, cfg, device="meta")
+    return load_module(model, tree).to(dev)

@@ -14,6 +14,7 @@ def pytest_configure(config):
     # so collection stays warning-free when the plugin is absent.
     config.addinivalue_line(
         "markers", "timeout(seconds): per-test timeout (pytest-timeout)")
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,60 @@
+"""The port stands alone: no file under src/repro_torch/, and not
+chip_smoke.py, imports ``jax`` or anything of ``repro``."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (both packages in one process, as in every test_torch_* file)
+import numpy as np  # noqa: F401
+import pytest
+import torch  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    """Absolute module names a file imports; relative imports are resolved
+    against the file's package, so one that climbs out of repro_torch shows."""
+    pkg = list(path.relative_to(ROOT / "src").parent.parts) if PKG in path.parents else []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                assert node.level <= len(pkg), f"{path}: relative import leaves the package"
+                base = pkg[:len(pkg) - node.level + 1]
+                yield ".".join(base + ([node.module] if node.module else []))
+            else:
+                yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield node.args[0].value
+
+
+def test_the_scan_sees_every_file():
+    assert (ROOT / "chip_smoke.py").exists()
+    names = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"kernels/ops.py", "models/layers.py", "launch/serve.py"} <= names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_repro_import(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_serve_import_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"

@@ -1,0 +1,219 @@
+"""The port's serving path against the JAX package, on the CPU.
+
+JAX initialises the weights; ``repro_torch.models.convert`` carries them into
+the port; both prefill the same numpy prompts and decode greedily.  Four
+reduced dense configs cover GQA (smollm), MQA + GeGLU + embedding scale
+(gemma), q/k/v bias (qwen) and the sliding-window ring cache with a prompt
+longer than the window (h2o-danube).
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models as jm
+from repro.configs import get_config as jax_get_config
+from repro.train.serve_step import generate as jax_generate
+
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as port_serve
+from repro_torch.models import convert, decode_step, init_params, prefill
+from repro_torch.train.serve_step import generate
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# Two layers' worth of fp32 sums taken in another order than XLA's.
+TOL = 1e-4
+
+CASES = {
+    "smollm-135m": {},
+    "gemma-2b": {},
+    "qwen1.5-110b": {},
+    "h2o-danube-1.8b": {"sliding_window": 16},
+}
+PROMPT_LEN, NEW = 24, 8
+
+
+def _configs(arch):
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **CASES[arch])
+    pcfg = dataclasses.replace(get_config(arch).reduced(), **CASES[arch])
+    return jcfg, pcfg
+
+
+def _setup(arch):
+    jcfg, pcfg = _configs(arch)
+    jparams = jm.init_params(jax.random.key(0), jcfg)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    prompts = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, PROMPT_LEN), np.int32)
+    return jcfg, pcfg, jparams, convert.from_jax(tree, pcfg, "cpu"), prompts
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+@pytest.mark.parametrize("arch", list(CASES))
+def test_prefill_and_decode_match_jax(arch, impl):
+    """Prefill logits, every cache leaf, and two decode steps' logits; the
+    port also runs its flash-attention entry (the plain version on CPU)."""
+    jcfg, pcfg, jparams, model, prompts = _setup(arch)
+    pcfg = dataclasses.replace(pcfg, attn_impl=impl)
+    max_len = PROMPT_LEN + NEW
+    jlogits, jcaches = jm.prefill(jparams, {"tokens": jnp.asarray(prompts)}, jcfg, max_len)
+    plogits, pcaches = prefill(model, {"tokens": torch.from_numpy(prompts)}, pcfg, max_len)
+    np.testing.assert_allclose(plogits.numpy(), np.asarray(jlogits), atol=TOL)
+
+    def check_caches():
+        assert len(pcaches) == len(jcaches)
+        for pseg, jseg in zip(pcaches, jcaches):
+            for pst, jst in zip(pseg, jseg):
+                assert sorted(pst) == sorted(jst) == ["k", "kpos", "v"]
+                np.testing.assert_array_equal(pst["kpos"].numpy(), np.asarray(jst["kpos"]))
+                for leaf in ("k", "v"):
+                    np.testing.assert_allclose(pst[leaf].numpy(), np.asarray(jst[leaf]),
+                                               atol=TOL)
+    check_caches()
+    tok = np.array(jnp.argmax(jlogits, -1), np.int32)
+    for i in range(2):
+        pos = PROMPT_LEN + i
+        jlogits, jcaches = jm.decode_step(jparams, jcaches, jnp.asarray(tok),
+                                          jnp.asarray(pos, jnp.int32), jcfg)
+        plogits, pcaches = decode_step(model, pcaches, torch.from_numpy(tok), pos, pcfg)
+        np.testing.assert_allclose(plogits.numpy(), np.asarray(jlogits), atol=TOL)
+        tok = np.array(jnp.argmax(jlogits, -1), np.int32)
+    check_caches()
+
+
+def test_the_calls_config_picks_the_attention_path(monkeypatch):
+    """Weights built under one config run whichever attention the config of
+    the call names: the kernel entry once per layer for a pallas prefill, and
+    never for a naive prefill or for decode (one query)."""
+    from repro_torch.kernels import ops as pops
+    calls = []
+    real = pops.flash_attention
+    monkeypatch.setattr(pops, "flash_attention", lambda *a, **k: calls.append(1) or real(*a, **k))
+    _, pcfg = _configs("smollm-135m")
+    model = init_params(torch.Generator().manual_seed(0),
+                        dataclasses.replace(pcfg, attn_impl="pallas"), "cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    for impl, expect in (("naive", 0), ("pallas", pcfg.n_layers)):
+        calls.clear()
+        _, caches = prefill(model, {"tokens": tokens}, dataclasses.replace(pcfg, attn_impl=impl), 9)
+        assert len(calls) == expect, impl
+    calls.clear()
+    decode_step(model, caches, tokens[:, 0], 8, dataclasses.replace(pcfg, attn_impl="pallas"))
+    assert calls == []
+
+
+@pytest.mark.parametrize("arch", list(CASES))
+def test_greedy_generate_tokens_identical(arch):
+    jcfg, pcfg, jparams, model, prompts = _setup(arch)
+    jtok = jax_generate(jparams, jcfg, jnp.asarray(prompts), NEW)
+    ptok = generate(model, pcfg, torch.from_numpy(prompts), NEW)
+    np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
+
+
+def test_convert_raises_on_missing_or_extra_leaf():
+    jcfg, pcfg = _configs("qwen1.5-110b")
+    tree = jax.tree_util.tree_map(np.asarray, jm.init_params(jax.random.key(0), jcfg))
+    convert.from_jax(tree, pcfg, "cpu")   # the full tree loads
+    missing = jax.tree_util.tree_map(lambda x: x, tree)
+    del missing["stack"][0]["blocks"][0]["attn"]["bq"]
+    with pytest.raises(KeyError, match="wq.bias"):
+        convert.from_jax(missing, pcfg, "cpu")
+    extra = jax.tree_util.tree_map(lambda x: x, tree)
+    extra["final_norm"]["bias"] = np.zeros_like(extra["final_norm"]["scale"])
+    with pytest.raises(KeyError, match="final_norm.bias"):
+        convert.from_jax(extra, pcfg, "cpu")
+    wrong = jax.tree_util.tree_map(lambda x: x, tree)
+    wrong["embed"]["tok"] = wrong["embed"]["tok"][:, :8]
+    with pytest.raises(ValueError, match="embed.tok"):
+        convert.from_jax(wrong, pcfg, "cpu")
+
+
+@pytest.mark.parametrize("arch", list(CASES))
+def test_own_init_matches_jax_paths_shapes_and_scales(arch):
+    """The port's own init: same leaves and shapes as JAX's tree (through
+    convert's naming), each leaf's std within 10%, constants equal."""
+    jcfg, pcfg = _configs(arch)
+    jstate = convert.to_state_dict(
+        jax.tree_util.tree_map(np.asarray, jm.init_params(jax.random.key(0), jcfg)))
+    pstate = init_params(torch.Generator().manual_seed(0), pcfg, "cpu").state_dict()
+    assert sorted(pstate) == sorted(jstate)
+    for name, t in pstate.items():
+        p, j = t.float().numpy(), np.asarray(jstate[name], np.float32)
+        assert p.shape == j.shape, name
+        if j.std() == 0:
+            np.testing.assert_array_equal(p, j, err_msg=name)
+        else:
+            assert abs(p.std() / j.std() - 1) < 0.1, (name, p.std(), j.std())
+
+
+def test_serve_cli_runs_on_cpu(capsys):
+    res = port_serve.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+                           "--batch", "2", "--prompt-len", "16", "--new-tokens", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[1] for ln in lines] == ["smollm-135m:", "prefill", "decode", "sample"]
+    assert all(ln.startswith("[serve] ") for ln in lines)
+    assert tuple(res.tokens.shape) == (2, 4) and len(res.step_logits) == 3
+
+
+def test_serve_cli_matches_jax_param_count(capsys):
+    port_serve.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
+                     "--batch", "1", "--prompt-len", "8", "--new-tokens", "2"])
+    first = capsys.readouterr().out.splitlines()[0]
+    jcfg = jax_get_config("gemma-2b").reduced()
+    n = jm.param_count(jm.init_params(jax.random.key(0), jcfg))
+    assert first == f"[serve] gemma-2b: {n:,} params"
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("deepseek-moe-16b", "item 7"), ("rwkv6-1.6b", "item 8"),
+    ("recurrentgemma-9b", "item 9"), ("hubert-xlarge", "item 10"), ("paligemma-3b", "item 10")])
+def test_unported_families_name_their_roadmap_item(arch, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        init_params(torch.Generator().manual_seed(0), get_config(arch).reduced(), "cpu")
+
+
+def test_recurrent_decode_states_are_not_ported():
+    from repro_torch.models import kvcache
+    cfg = get_config("recurrentgemma-9b").reduced()
+    for btype, item in (("rglru", "item 9"), ("rwkv6", "item 8")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+            kvcache.init_block_state(cfg, btype, 1, 8, "cpu")
+
+
+def test_serve_cli_rejects_unported_family():
+    with pytest.raises(SystemExit, match="not yet ported"):
+        port_serve.main(["--arch", "rwkv6-1.6b", "--reduced", "--device", "cpu"])
+
+
+def test_cuda_without_card_raises():
+    """No path quietly runs on the CPU when the card was asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_serve.main(["--arch", "smollm-135m", "--reduced", "--batch", "1",
+                         "--prompt-len", "8", "--new-tokens", "2"])
+    cfg = get_config("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(torch.Generator().manual_seed(0), cfg)
+    jcfg = jax_get_config("smollm-135m").reduced()
+    tree = jax.tree_util.tree_map(np.asarray, jm.init_params(jax.random.key(0), jcfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_jax(tree, cfg)
+
+
+def test_serve_cli_as_module_subprocess():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "smollm-135m",
+         "--reduced", "--device", "cpu", "--batch", "1", "--prompt-len", "8",
+         "--new-tokens", "3"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("[serve] ") == 4
