@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Run the PyTorch port's serving paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,21 +7,26 @@ Phases, in order; any failure ends the run with its traceback and a
 non-zero exit:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-   build the CUDA kernel of the path from ``src/repro_torch/kernels/csrc``
-   and print ptxas' report.
+   build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` each, all started together) and print ptxas' reports.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving shapes and a few edge cases, with stated tolerances.
-3. serve: ``repro_torch.launch.serve`` on smollm-135m at full width
-   (batch 8, prompt 512, 32 new tokens, greedy).  The launch counts are set
-   to 0 just before and read just after; then the same tokens are
-   teacher-forced through the plain path (``attn_impl="naive"``) and the
-   prefill logits, every layer's cache and every decode step's logits must
-   agree.
-4. times: each kernel, its plain version and the PyTorch library call
-   (CUDA events), and prefill / decode times, each printed with the card;
-   then ``torch.profiler`` traces one warm prefill and 8 warm decode steps
-   and prints, for each, wall time, the device's busy and idle share, and
-   the kernels that took the most device time.
+   the serving shapes and edge cases (ragged lengths, initial states, a
+   sequence run in two halves, bf16), with stated tolerances.
+3. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
+   32 new tokens, greedy) on smollm-135m, rwkv6-1.6b and recurrentgemma-9b,
+   one model resident at a time.  Every launch count is set to 0 just
+   before each path and read just after; then the same tokens are
+   teacher-forced through the plain path (``attn_impl="naive"``,
+   ``kernel_impl="jnp"``) and the prefill logits, every layer's cache or
+   recurrent state and every decode step's logits must agree within a
+   stated share of their scale (``SERVE_TOL``).  On rwkv6-1.6b, K2 and the
+   plain scans are also held against float64 on the model's own inputs,
+   and the model's sensitivity to one ulp of rounding is measured.
+4. times: each path's prefill and decode times and a ``torch.profiler``
+   trace of one warm prefill and 8 warm decode steps (wall time, the
+   device's busy and idle share, the kernels that took the most device
+   time); then each kernel, its plain version and, where one exists, the
+   PyTorch library call (CUDA events), each printed with the card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -29,24 +34,47 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM data sheet, dense, at the full 700 W: CUDA-core fp32 and HBM rates.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the tolerances of tests/test_kernels.py
-# Serve check, kernel path vs plain path: 30 layers of fp32 sums taken in
-# another order (blocked online softmax vs one einsum and softmax).  Runs on
-# an H100 read at most 1.17e-5 (caches), 4.8e-6 (prefill logits) and 2.6e-6
-# (decode logits); 1e-4 leaves about 10x room over the largest.
-SERVE_RTOL = SERVE_ATOL = 1e-4
+KERNELS = ("flash_attention", "rwkv6_scan", "rglru_scan")
+# Kernel against plain version: the tolerances of tests/test_kernels.py.
+# With bf16 outputs each side rounds y once, so a value may also land one
+# bf16 ulp (2**-8 relative) away: rtol 2**-7 allows that for |y| above 6.
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+RWKV_ATOL = {"float32": 1e-4, "bfloat16": 5e-2}
+BF16_RTOL = 2.0 ** -7
+RGLRU_ATOL = 1e-5
+B, S, NEW = 8, 512, 32
+# Serve check, kernel path vs plain path: for the logits and each cache or
+# state leaf, max |plain - kernel| over max(1, max |kernel|), a normwise
+# error: rounding that a deep stack amplifies grows with a tensor's scale,
+# not with each element's.  Each limit is about 10x the largest reading on
+# an H100:
+# smollm-135m: 30 layers of fp32 sums taken in another order (blocked online
+# softmax vs one einsum and softmax); at most 2.1e-6 (logits, caches): 2e-5.
+# recurrentgemma-9b: at most 7.8e-6 (the local-attention k cache): 1e-4.
+# rwkv6-1.6b: its 24 random layers amplify rounding about a thousandfold:
+# one fp32 ulp of noise on every K2 output moves the logits by 1.5e-3 to
+# 4.1e-3 (``wkv_precision``, over noise draws and weight draws), as far as
+# kernel and plain path differ; at most 1.46e-3 (the WKV state), while
+# ``wkv_precision`` holds K2 within 2x of the plain chunked scan's distance
+# from float64: 1.5e-2.
+SERVE_TOL = {"smollm-135m": 2e-5, "rwkv6-1.6b": 1.5e-2, "recurrentgemma-9b": 1e-4}
 TRACE_DECODE_STEPS, TRACE_TOP = 8, 10
+# wkv_precision: K2 within this factor of the plain chunked scan's distance
+# from float64; the noise draws of its one-ulp experiment.
+K2_PRECISION_FACTOR, NOISE_SEEDS = 2.0, (3, 4, 5, 6)
 
 
 def log(msg: str) -> None:
@@ -119,39 +147,67 @@ def attention_bound(q, k, v, qp, kp, causal=True, window=None):
     flops = 4.0 * hd * H * int(ok.sum())
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, qp, kp)) \
         + q.numel() * q.element_size()
+    return _bound(flops, nbytes)
+
+
+def _bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, ops, ref
-    from repro_torch.launch import serve
-    from repro_torch.models import decode_step, prefill
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
-    # -- 1. device -----------------------------------------------------------------
-    dev = torch.device("cuda", 0)
-    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    card = f"[{smi}]"
-    log(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
-    log(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    info = _build.build("flash_attention")
-    log(f"[build] flash_attention: {info.seconds:.2f}s{' (cached)' if info.cached else ''} "
-        f"-> {info.path.name}")
-    for line in info.log.splitlines():
-        log(f"[build]   {line}")
 
-    # -- 2. kernels against their plain versions, on the card --------------------------
+def rwkv6_bound(r, k, v, logw, u, state, chunk=32):
+    """Least time for the chunked WKV on this card.  Operations, per (b, h)
+    and chunk of n rows (a multiply, add or exponential is one, all fp32):
+    running sums 2nN; A below the diagonal 5N per pair (difference,
+    exponential, two products, sum), on it 3N per row; r and k rescaled 5nN;
+    A @ V 2N per entry of A at or below the diagonal; (r e^c) @ S 2nN^2 and
+    its sum with A @ V nN; the state update 2nN^2 + 2N^2 + N.  Bytes: each
+    input read once, y and the final state written once."""
+    B, S, H, N = r.shape
+    L = min(chunk, S)
+    ops = 0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        pairs = n * (n - 1) // 2
+        ops += (2 * n * N + 5 * N * pairs + 3 * N * n + 5 * n * N + 2 * N * (pairs + n)
+                + 2 * n * N * N + n * N + 2 * n * N * N + 2 * N * N + N)
+    return _bound(B * H * ops, _nbytes(r, k, v, logw, u, state, r, state))
+
+
+def rglru_bound(a, b, h0=None):
+    """Least time for h_t = a_t h_{t-1} + b_t: 2 flops per element; a and b
+    (and h0) read once, h written once."""
+    return _bound(2 * a.numel(), _nbytes(a, b, h0, a))
+
+
+def rwkv_inputs(torch, dev, seed, B, S, H, N, dtype):
+    """The draws of TestRWKV6Scan, on the card: r/k/v in ``dtype``; logw, u
+    and the initial state in fp32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = lambda shape, scale: torch.randn(shape, generator=g, device=dev) * scale
+    r, k, v = (n((B, S, H, N), 0.5).to(dtype) for _ in range(3))
+    logw = -torch.exp(n((B, S, H, N), 0.5) - 2.0)
+    return r, k, v, logw, n((H, N), 0.3), n((B, H, N, N), 0.2)
+
+
+def rglru_inputs(torch, dev, seed, B, S, R):
+    """The draws of TestRGLRUScan, on the card: a in (0, 1), b, h0; fp32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = lambda shape: torch.randn(shape, generator=g, device=dev)
+    return torch.sigmoid(n((B, S, R))), n((B, S, R)) * 0.3, n((B, R)) * 0.2
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# -- phase 2 ---------------------------------------------------------------------------
+
+def check_flash_attention(torch, dev, ops, ref) -> float:
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # name, (B, Sq, Sk, H, K, hd), dtype, kwargs, edit
         ("smollm prefill fp32", (8, 512, 512, 9, 3, 64), f32, {}, None),
@@ -162,7 +218,8 @@ def main() -> int:
          {"window": 64, "softcap": 30.0}, None),
         ("ring holes", (2, 64, 256, 4, 2, 64), f32, {}, "holes"),
         ("fully masked row", (2, 128, 128, 9, 3, 64), f32, {}, "masked_row"),
-        ("gemma-2b hd256 MQA", (2, 256, 256, 8, 1, 256), f32, {}, None),
+        ("recurrentgemma local_attn prefill hd256 MQA", (8, 512, 512, 16, 1, 256), f32,
+         {"window": 2048}, None),
         ("gemma-2b hd256 MQA bf16", (2, 256, 256, 8, 1, 256), bf16, {}, None),
     ]
     main_err = None
@@ -178,119 +235,367 @@ def main() -> int:
         exp = ref.flash_attention_ref(q, k, v, qp, kp, causal=True, **kw)
         assert out.shape == exp.shape and out.dtype == exp.dtype, name
         assert bool(torch.isfinite(out).all()), f"{name}: non-finite output"
-        err = float((out.float() - exp.float()).abs().max())
+        err = max_err(out, exp)
         atol = ATOL[str(dtype).split(".")[1]]
-        log(f"[kernel] flash_attention {name} {shape} {dtype}: max_abs_err {err!r} "
-            f"(atol {atol})")
+        log(f"[kernel] flash_attention {name} {shape} {dtype}: max_abs_err {err!r} (atol {atol})")
         assert err <= atol, f"{name}: max_abs_err {err} > {atol}"
         if edit == "masked_row":
             assert int(torch.count_nonzero(out[1, 7])) == 0, "fully masked row is not 0"
         if i == 0:
             main_err = err
+    return main_err
 
-    # -- 3. serve smollm-135m at full width -------------------------------------------
-    B, S, NEW = 8, 512, 32
-    cfg = get_config("smollm-135m")
-    ops.flash_attention.launches = 0
-    res = serve.main(["--arch", "smollm-135m", "--batch", str(B), "--prompt-len", str(S),
+
+def check_rwkv6(torch, dev, ops, ref) -> float:
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, (B, S, H, N), chunk, dtype, zero initial state
+        ("rwkv6-1.6b prefill fp32", (8, 512, 32, 64), 32, f32, True),
+        ("rwkv6-1.6b prefill, initial state", (8, 512, 32, 64), 32, f32, False),
+        ("rwkv6-1.6b prefill bf16", (8, 512, 32, 64), 32, bf16, False),
+        ("ragged S=50 L=32", (2, 50, 32, 64), 32, f32, False),
+        ("ragged S=50 L=32 bf16", (2, 50, 32, 64), 32, bf16, False),
+        ("one row in the last chunk", (1, 33, 4, 64), 16, f32, False),
+        ("one chunk shorter than L", (2, 20, 4, 64), 32, f32, False),
+    ]
+    main_err = None
+    for i, (name, shape, chunk, dtype, zero) in enumerate(cases):
+        r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 200 + i, *shape, dtype)
+        if zero:
+            s0.zero_()
+        y, s = ops.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, s_ref = ref.rwkv6_scan_ref(r, k, v, logw, u, s0)
+        assert y.dtype == r.dtype and s.dtype == f32 and y.shape == y_ref.shape, name
+        assert bool(torch.isfinite(y.float()).all() and torch.isfinite(s).all()), name
+        atol = RWKV_ATOL[str(dtype).split(".")[1]]
+        rtol = BF16_RTOL if dtype == bf16 else 0.0
+        err = max(max_err(y, y_ref), max_err(s, s_ref))
+        log(f"[kernel] rwkv6_scan {name} (B,S,H,N)={shape} L={chunk} {dtype}: max_abs_err "
+            f"{err!r} (atol {atol}, rtol {rtol})")
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=rtol, atol=atol)
+        torch.testing.assert_close(s, s_ref, rtol=rtol, atol=atol)
+        if i == 0:
+            main_err = err
+    r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 250, 2, 96, 32, 64, f32)
+    y_full, s_full = ops.rwkv6_scan(r, k, v, logw, u, s0)
+    y1, s_mid = ops.rwkv6_scan(r[:, :40], k[:, :40], v[:, :40], logw[:, :40], u, s0)
+    y2, s_end = ops.rwkv6_scan(r[:, 40:], k[:, 40:], v[:, 40:], logw[:, 40:], u, s_mid)
+    torch.cuda.synchronize()
+    err = max(max_err(torch.cat([y1, y2], 1), y_full), max_err(s_end, s_full))
+    log(f"[kernel] rwkv6_scan two halves (40 + 56 steps) vs one run: max_abs_err {err!r} "
+        f"(atol {RWKV_ATOL['float32']})")
+    assert err <= RWKV_ATOL["float32"]
+    return main_err
+
+
+def check_rglru(torch, dev, ops, ref) -> float:
+    cases = [  # name, (B, S, R), with h0
+        ("recurrentgemma-9b prefill, zero h0", (8, 512, 4096), "zeros"),
+        ("recurrentgemma-9b prefill, h0", (8, 512, 4096), True),
+        ("h0=None", (8, 512, 4096), False),
+        ("odd sizes", (3, 77, 40), True),
+        ("S < 8, R not a multiple of 128", (2, 5, 300), False),
+    ]
+    main_err = None
+    for i, (name, shape, h0_kind) in enumerate(cases):
+        a, b, h0 = rglru_inputs(torch, dev, 300 + i, *shape)
+        h0 = None if h0_kind is False else (h0.zero_() if h0_kind == "zeros" else h0)
+        h = ops.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        h_ref = ref.rglru_scan_ref(a, b, h0)
+        assert h.dtype == torch.float32 and h.shape == h_ref.shape, name
+        err = max_err(h, h_ref)
+        log(f"[kernel] rglru_scan {name} (B,S,R)={shape}: max_abs_err {err!r} "
+            f"(atol {RGLRU_ATOL})")
+        assert err <= RGLRU_ATOL, f"{name}: max_abs_err {err} > {RGLRU_ATOL}"
+        if i == 0:
+            main_err = err
+    a, b, h0 = rglru_inputs(torch, dev, 350, 2, 300, 1000)
+    h_full = ops.rglru_scan(a, b, h0)
+    h1 = ops.rglru_scan(a[:, :137], b[:, :137], h0)
+    h2 = ops.rglru_scan(a[:, 137:], b[:, 137:], h1[:, -1].contiguous())
+    torch.cuda.synchronize()
+    err = max_err(torch.cat([h1, h2], 1), h_full)
+    log(f"[kernel] rglru_scan two halves (137 + 163 steps) vs one run: max_abs_err {err!r} "
+        f"(atol {RGLRU_ATOL})")
+    assert err <= RGLRU_ATOL
+    return main_err
+
+
+# -- phases 3 and 4, one model at a time -------------------------------------------------
+
+def wkv_f64(torch, r, k, v, logw, u, s0):
+    """(y, final state) of the WKV recurrence, one step at a time in float64."""
+    r, k, v, logw, u, state = (x.double() for x in (r, k, v, logw, u, s0))
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhnm->bhm", r[:, t], state + u[None, :, :, None] * kv))
+        state = torch.exp(logw[:, t])[..., None] * state + kv
+    return torch.stack(ys, 1), state
+
+
+def wkv_precision(torch, res, prefill) -> None:
+    """Why the rwkv6 serve check needs a looser tolerance.  K2, the plain
+    chunked scan and the plain sequential scan, each on the first and the
+    last layer's own inputs, against float64 (y and the final state); then
+    how far the prefill logits move when every K2 output carries one fp32
+    ulp (2**-23) of relative noise, for each of ``NOISE_SEEDS``.  Fails if
+    K2's y or state is more than ``K2_PRECISION_FACTOR`` times as far from
+    float64 as the plain chunked scan's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as k2
+    from repro_torch.models.rwkv6 import _wkv_chunked
+    real, calls, L = k2.rwkv6_scan_cuda, [], res.cfg.rwkv_chunk
+
+    def noisy(g):
+        def fn(*a, **kw):
+            y, s = real(*a, **kw)
+            return y * (1 + 2.0 ** -23 * torch.randn(y.shape, generator=g, device=y.device)), s
+        return fn
+
+    runs = [("exact", lambda *a, **kw: calls.append(a) or real(*a, **kw))]
+    runs += [(seed, noisy(torch.Generator(device=res.prompts.device).manual_seed(seed)))
+             for seed in NOISE_SEEDS]
+    logits = {}
+    for name, fn in runs:
+        k2.rwkv6_scan_cuda = fn
+        try:
+            logits[name], _ = prefill(res.params, {"tokens": res.prompts}, res.cfg, S + NEW)
+        finally:
+            k2.rwkv6_scan_cuda = real
+    for layer in (0, len(calls) - 1):
+        args = [a.detach() for a in calls[layer]]   # u is a parameter
+        y64, s64 = wkv_f64(torch, *args)
+        rel = {}
+        for name, (y, st) in (("kernel", real(*args, chunk=L)),
+                              ("plain chunked", _wkv_chunked(*args, L)),
+                              ("plain sequential", ref.rwkv6_scan_ref(*args))):
+            rel[name] = tuple(float((a.double() - b).abs().max() / b.abs().max())
+                              for a, b in ((y, y64), (st, s64)))
+        log(f"[precision] rwkv6 layer {layer}: max abs err vs float64 over max |x| of "
+            f"(y, state) (max |y| {float(y64.abs().max())!r}, max |state| "
+            f"{float(s64.abs().max())!r}): {rel}")
+        for i, what in enumerate(("y", "state")):
+            ratio = rel["kernel"][i] / rel["plain chunked"][i]
+            log(f"[precision] rwkv6 layer {layer} {what}: kernel / plain chunked {ratio!r} "
+                f"(limit {K2_PRECISION_FACTOR})")
+            assert ratio <= K2_PRECISION_FACTOR, (layer, what, rel)
+    shifts = [float((logits[seed] - logits["exact"]).abs().max()) for seed in NOISE_SEEDS]
+    log(f"[precision] rwkv6: one fp32 ulp of relative noise on every K2 output moves the "
+        f"prefill logits by max {shifts} (seeds {list(NOISE_SEEDS)}; max |logit| "
+        f"{float(logits['exact'].abs().max())!r})")
+
+
+def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_config,
+             leaves):
+    """Serve ``arch`` at full width with every launch count set to 0 just
+    before and read just after; hold it against the plain path; time it and
+    trace it.  Returns the launch counts."""
+    cfg = get_config(arch)
+    pattern = cfg.pattern_for_layers()
+    expect = {"flash_attention": sum(t in ("attention", "local_attn") for t in pattern),
+              "rwkv6_scan": pattern.count("rwkv6"), "rglru_scan": pattern.count("rglru")}
+    torch.cuda.reset_peak_memory_stats()
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    res = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(S),
                       "--new-tokens", str(NEW), "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = {"flash_attention": ops.flash_attention.launches}
-    log(f"[serve] kernel launches on the main path: {launches}")
-    assert launches["flash_attention"] == cfg.n_layers, \
-        f"expected {cfg.n_layers} flash_attention launches (one per layer, one prefill)"
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    log(f"[serve] {arch}: kernel launches on the main path: {launches} (one prefill)")
+    assert launches == expect, f"{arch}: expected {expect} launches, one per layer"
     assert res.prefill_logits.shape == (B, cfg.vocab_size)
     assert res.tokens.shape == (B, NEW) and len(res.step_logits) == NEW - 1
     assert bool(torch.isfinite(res.prefill_logits).all())
     assert all(bool(torch.isfinite(x).all()) for x in res.step_logits)
 
-    plain = dataclasses.replace(res.cfg, attn_impl="naive")
+    tol = SERVE_TOL[arch]
+    errs, rels = {}, {}
+
+    def close(key, plain_t, kernel_t):
+        """max |plain - kernel| over max(1, max |kernel|) must be <= tol."""
+        err = float((plain_t.float() - kernel_t.float()).abs().max())
+        rel = err / max(1.0, float(kernel_t.float().abs().max()))
+        errs[key], rels[key] = max(errs.get(key, 0.0), err), max(rels.get(key, 0.0), rel)
+        assert rel <= tol, f"{arch} {key}: max abs err {err} is {rel} of its scale > {tol}"
+
+    plain = dataclasses.replace(res.cfg, attn_impl="naive", kernel_impl="jnp")
     logits, caches = prefill(res.params, {"tokens": res.prompts}, plain, S + NEW)
-    errs = {"prefill_logits": float((logits - res.prefill_logits).abs().max())}
-    torch.testing.assert_close(logits, res.prefill_logits, rtol=SERVE_RTOL, atol=SERVE_ATOL)
-    step_err = 0.0
+    close("prefill_logits", logits, res.prefill_logits)
     for i in range(NEW - 1):
         logits, caches = decode_step(res.params, caches, res.tokens[:, i], S + i, plain)
-        torch.testing.assert_close(logits, res.step_logits[i], rtol=SERVE_RTOL, atol=SERVE_ATOL)
-        step_err = max(step_err, float((logits - res.step_logits[i]).abs().max()))
-    errs["decode_logits"] = step_err
-    cache_err = 0.0
+        close("decode_logits", logits, res.step_logits[i])
     for pseg, kseg in zip(caches, res.caches):
         for pst, kst in zip(pseg, kseg):
-            assert torch.equal(pst["kpos"], kst["kpos"])
-            for leaf in ("k", "v"):
-                torch.testing.assert_close(pst[leaf], kst[leaf], rtol=SERVE_RTOL, atol=SERVE_ATOL)
-                cache_err = max(cache_err, float((pst[leaf] - kst[leaf]).abs().max()))
-    errs["caches"] = cache_err
-    log(f"[serve] kernel path vs plain path, max abs err: {errs} "
-        f"(rtol {SERVE_RTOL}, atol {SERVE_ATOL})")
-    log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+            pl, kl = list(leaves(pst)), list(leaves(kst))
+            assert [p for p, _ in pl] == [p for p, _ in kl]
+            for (path, pt), (_, kt) in zip(pl, kl):
+                key = "/".join(path)
+                if key == "kpos":
+                    assert torch.equal(pt, kt)
+                    continue
+                close(key, pt, kt)
+    log(f"[serve] {arch}: kernel path vs plain path after {NEW - 1} decode steps, max abs "
+        f"err: {errs}; over max(1, max |kernel|): {rels} (tol {tol})")
+    log(f"[serve] {arch}: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if "rwkv6" in pattern:
+        wkv_precision(torch, res, prefill)
 
-    # -- 4. times ---------------------------------------------------------------------
-    import torch.nn.functional as F
-    q, k, v, qp, kp = attention_inputs(torch, dev, 100, 8, 512, 512, 9, 3, 64, f32)
-    G = q.shape[2] // k.shape[2]
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in
-                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
-    lib_err = float((F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
-                     - ref.flash_attention_ref(q, k, v, qp, kp)).abs().max())
-    timings = {}
-    for turn in ("plain", "kernel", "kernel", "plain"):   # interleaved on one card
-        fn = (lambda: ops.flash_attention(q, k, v, qp, kp)) if turn == "kernel" \
-            else (lambda: ref.flash_attention_ref(q, k, v, qp, kp))
-        timings.setdefault(turn, []).append(time_ms(fn))
-    kernel_ms, plain_ms = min(timings["kernel"]), min(timings["plain"])
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    bound_ms, bound_by, flops, nbytes = attention_bound(q, k, v, qp, kp)
-    qb, kb, vb = (x.to(bf16) for x in (q, k, v))
-    kernel_bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp))
-    shape = "B=8 S=512 H=9 K=3 hd=64 causal"
-    log(f"[time] flash_attention kernel fp32 {shape}: {kernel_ms!r} ms {card} "
-        f"(runs {timings['kernel']})")
-    log(f"[time] flash_attention kernel bf16 {shape}: {kernel_bf16_ms!r} ms {card}")
-    log(f"[time] flash_attention plain version fp32 {shape}: {plain_ms!r} ms {card} "
-        f"(runs {timings['plain']})")
-    log(f"[time] torch scaled_dot_product_attention fp32 {shape} (kv heads expanded "
-        f"beforehand; max_abs_err vs plain {lib_err!r}): {library_ms!r} ms {card}")
-    log(f"[time] flash_attention bound fp32 {shape}: {bound_ms!r} ms by {bound_by} "
-        f"({flops:.4g} flop, {nbytes:.4g} bytes; H100 SXM peaks at 700 W) {card}")
-
-    params, prompts = res.params, res.prompts
-    kernel_cfg = res.cfg
+    params, prompts, kcfg = res.params, res.prompts, res.cfg
     pre = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill(params, {"tokens": prompts}, kernel_cfg, S + NEW)
+        prefill(params, {"tokens": prompts}, kcfg, S + NEW)
         torch.cuda.synchronize()
         pre.append(time.perf_counter() - t0)
-    log(f"[time] prefill {B}x{S} in serve (first call): {res.prefill_s!r} s {card}")
-    log(f"[time] prefill {B}x{S} warm, median of 3: {statistics.median(pre)!r} s "
+    log(f"[time] {arch} prefill {B}x{S} in serve (first call): {res.prefill_s!r} s {card}")
+    log(f"[time] {arch} prefill {B}x{S} warm, median of 3: {statistics.median(pre)!r} s "
         f"(runs {pre}) {card}")
-    log(f"[time] decode {NEW - 1} steps x batch {B}: {res.decode_s!r} s, "
+    log(f"[time] {arch} decode {NEW - 1} steps x batch {B}: {res.decode_s!r} s, "
         f"{B * (NEW - 1) / res.decode_s!r} tokens/s {card}")
 
     def run_decode(caches, first):
         tok = prompts[:, -1]
         for i in range(TRACE_DECODE_STEPS):
-            logits, caches = decode_step(params, caches, tok, first + i, kernel_cfg)
+            logits, caches = decode_step(params, caches, tok, first + i, kcfg)
             tok = logits.argmax(-1)
 
-    _, caches = prefill(params, {"tokens": prompts}, kernel_cfg, S + NEW)
-    trace("prefill (warm)", lambda: prefill(params, {"tokens": prompts}, kernel_cfg, S + NEW),
-          card)
+    _, caches = prefill(params, {"tokens": prompts}, kcfg, S + NEW)
+    trace(f"{arch} prefill (warm)",
+          lambda: prefill(params, {"tokens": prompts}, kcfg, S + NEW), card)
     run_decode(caches, S)                                   # warm-up
-    trace(f"decode x{TRACE_DECODE_STEPS} (warm)",
+    trace(f"{arch} decode x{TRACE_DECODE_STEPS} (warm)",
           lambda: run_decode(caches, S + TRACE_DECODE_STEPS), card)
+    return launches
 
-    kernels = [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": launches["flash_attention"], "max_abs_err": main_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
-    }]
+
+def time_pair(kernel_fn, plain_fn, iters_plain: int):
+    """Kernel and plain version interleaved on one card (plain, kernel,
+    kernel, plain); the faster of each pair of readings."""
+    runs = {}
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        fn, iters = (kernel_fn, 50) if turn == "kernel" else (plain_fn, iters_plain)
+        runs.setdefault(turn, []).append(time_ms(fn, iters=iters))
+    return min(runs["kernel"]), min(runs["plain"]), runs
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.transformer import leaves
+
+    # -- 1. device and build ---------------------------------------------------------------
+    dev = torch.device("cuda", 0)
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = f"[{smi}]"
+    log(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source, all at once
+        infos = list(pool.map(_build.build, KERNELS))
+    log(f"[build] {len(KERNELS)} libraries in {time.perf_counter() - t0:.2f}s wall")
+    for name, info in zip(KERNELS, infos):
+        log(f"[build] {name}: {info.seconds:.2f}s{' (cached)' if info.cached else ''} "
+            f"-> {info.path.name}")
+        for line in info.log.splitlines():
+            log(f"[build]   {line}")
+
+    # -- 2. kernels against their plain versions, on the card --------------------------------
+    errs = {"flash_attention": check_flash_attention(torch, dev, ops, ref),
+            "rwkv6_scan": check_rwkv6(torch, dev, ops, ref),
+            "rglru_scan": check_rglru(torch, dev, ops, ref)}
+
+    # -- 3 and 4. serve each model at full width, then its times --------------------------------
+    per_path = {}
+    for arch in ("smollm-135m", "rwkv6-1.6b", "recurrentgemma-9b"):
+        per_path[arch] = run_path(arch, card, torch, ops, serve, prefill, decode_step,
+                                  get_config, leaves)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 4. kernel times at the serving shapes ----------------------------------------------
+    import torch.nn.functional as F
+    f32, bf16 = torch.float32, torch.bfloat16
+    times = {}
+    q, k, v, qp, kp = attention_inputs(torch, dev, 100, 8, 512, 512, 9, 3, 64, f32)
+    G = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in
+                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    lib_err = max_err(F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2),
+                      ref.flash_attention_ref(q, k, v, qp, kp))
+    kms, pms, runs = time_pair(lambda: ops.flash_attention(q, k, v, qp, kp),
+                               lambda: ref.flash_attention_ref(q, k, v, qp, kp), 50)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    times["flash_attention"] = (kms, pms, attention_bound(q, k, v, qp, kp), library_ms)
+    qb, kb, vb = (x.to(bf16) for x in (q, k, v))
+    bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp))
+    shape = "B=8 S=512 H=9 K=3 hd=64 causal"
+    log(f"[time] flash_attention kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
+    log(f"[time] flash_attention kernel bf16 {shape}: {bf16_ms!r} ms {card}")
+    log(f"[time] flash_attention plain version fp32 {shape}: {pms!r} ms {card}")
+    log(f"[time] torch scaled_dot_product_attention fp32 {shape} (kv heads expanded "
+        f"beforehand; max_abs_err vs plain {lib_err!r}): {library_ms!r} ms {card}")
+    q, k, v, qp, kp = attention_inputs(torch, dev, 107, 8, 512, 512, 16, 1, 256, f32)
+    hyb_ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp, window=2048))
+    hyb_bound = attention_bound(q, k, v, qp, kp, window=2048)
+    log(f"[time] flash_attention kernel fp32 recurrentgemma local_attn B=8 S=512 H=16 K=1 "
+        f"hd=256 window 2048: {hyb_ms!r} ms, bound {hyb_bound[0]!r} ms by {hyb_bound[1]} {card}")
+    del q, k, v, qp, kp, qt, kt, vt, qb, kb, vb
+
+    r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 200, 8, 512, 32, 64, f32)
+    kms, pms, runs = time_pair(lambda: ops.rwkv6_scan(r, k, v, logw, u, s0),
+                               lambda: ref.rwkv6_scan_ref(r, k, v, logw, u, s0), 10)
+    times["rwkv6_scan"] = (kms, pms, rwkv6_bound(r, k, v, logw, u, s0, chunk=32), None)
+    rb, kb, vb = (x.to(bf16) for x in (r, k, v))
+    bf16_ms = time_ms(lambda: ops.rwkv6_scan(rb, kb, vb, logw, u, s0))
+    shape = "B=8 S=512 H=32 N=64 L=32"
+    log(f"[time] rwkv6_scan kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
+    log(f"[time] rwkv6_scan kernel bf16 r/k/v {shape}: {bf16_ms!r} ms {card}")
+    log(f"[time] rwkv6_scan plain version fp32 {shape}: {pms!r} ms {card}")
+    del r, k, v, logw, u, s0, rb, kb, vb
+
+    a, b, h0 = rglru_inputs(torch, dev, 300, 8, 512, 4096)
+    h0.zero_()                                      # as in a prefill
+    kms, pms, runs = time_pair(lambda: ops.rglru_scan(a, b, h0),
+                               lambda: ref.rglru_scan_ref(a, b, h0), 10)
+    times["rglru_scan"] = (kms, pms, rglru_bound(a, b, h0), None)
+    shape = "B=8 S=512 R=4096"
+    log(f"[time] rglru_scan kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
+    log(f"[time] rglru_scan plain version fp32 {shape}: {pms!r} ms {card}")
+    log("[time] rwkv6_scan, rglru_scan: no single PyTorch call computes either function, "
+        "so library_ms is null")
+    for name, (kms, pms, (bms, by, flops, nbytes), lms) in times.items():
+        log(f"[time] {name} bound: {bms!r} ms by {by} ({flops:.4g} flop, {nbytes:.4g} bytes; "
+            f"H100 SXM peaks at 700 W) {card}")
+
+    sources = {"flash_attention": "src/repro/kernels/flash_attention.py:77",
+               "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:74",
+               "rglru_scan": "src/repro/kernels/rglru_scan.py:44"}
+    kernels = []
+    for name in KERNELS:
+        kms, pms, (bms, by, _, _), lms = times[name]
+        paths = {arch: n[name] for arch, n in per_path.items() if n[name]}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": sources[name],
+            "launches": sum(paths.values()), "launches_per_path": paths,
+            "max_abs_err": errs[name], "ms": kms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lms,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

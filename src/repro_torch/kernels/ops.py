@@ -3,19 +3,21 @@
 Dispatch is by the device of the tensors and nothing else: a CPU tensor runs
 the plain PyTorch version (``ref.py``), a CUDA tensor launches the hand-written
 kernel or the call raises.  There is no fallback from one to the other.
-``flash_attention.launches`` counts kernel launches, so that a run can show
-that its main path went through the kernel.
+Each wrapper's ``launches`` counts its kernel's launches, so that a run can
+show that its main path went through the kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import flash_attention as _fa
 from . import ref
+from . import rglru_scan as _rglru
+from . import rwkv6_scan as _rwkv
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "rwkv6_scan", "rglru_scan"]
 
 
 def flash_attention(
@@ -39,4 +41,33 @@ def flash_attention(
     return out
 
 
+def rwkv6_scan(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state: torch.Tensor, chunk: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV over a sequence.  r/k/v (B,S,H,N); logw (B,S,H,N) fp32;
+    u (H,N); state (B,H,N,N) fp32 -> (y (B,S,H,N) in r's dtype, final state).
+
+    The kernel works in chunks of ``min(chunk, S)`` steps and masks a ragged
+    last chunk itself; the plain version steps one token at a time."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_scan_ref(r, k, v, logw, u, state)
+    out = _rwkv.rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk)
+    rwkv6_scan.launches += 1
+    return out
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t.  a/b (B,S,R) fp32; h0 (B,R) or None
+    (zeros) -> h (B,S,R)."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b, h0)
+    out = _rglru.rglru_scan_cuda(a, b, h0)
+    rglru_scan.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+rwkv6_scan.launches = 0
+rglru_scan.launches = 0

@@ -8,11 +8,11 @@ kernel is held against.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention_ref"]
+__all__ = ["flash_attention_ref", "rwkv6_scan_ref", "rglru_scan_ref"]
 
 
 def flash_attention_ref(
@@ -45,3 +45,38 @@ def flash_attention_ref(
     w = p / l.clamp_min(1e-30)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def rwkv6_scan_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential RWKV-6 WKV recurrence.
+
+    r/k/v (B,S,H,N); logw (B,S,H,N) fp32 log-decay; u (H,N); state (B,H,N,N)
+    fp32.  y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1}
+    + k_t v_t^T.  Returns (y (B,S,H,N) in r's dtype, final state fp32)."""
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, logw))
+    uf = u.float()[None, :, :, None]
+    S = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B,H,N,N)
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, t], S + uf * kv))
+        S = torch.exp(wf[:, t])[..., None] * S + kv
+    return torch.stack(ys, dim=1).to(r.dtype), S
+
+
+def rglru_scan_ref(
+    a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Linear recurrence h_t = a_t * h_{t-1} + b_t, one step at a time, in
+    fp32.  a/b (B,S,R); h0 (B,R) or None (zeros).  Returns h (B,S,R) in a's
+    dtype."""
+    af, bf = a.float(), b.float()
+    h = h0.float() if h0 is not None else torch.zeros_like(bf[:, 0])
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)

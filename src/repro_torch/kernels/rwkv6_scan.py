@@ -1,0 +1,78 @@
+"""ctypes wrapper of the CUDA RWKV-6 WKV scan (``csrc/rwkv6_scan.cu``).
+
+Checks what the kernel takes, allocates y and the final state and launches
+on PyTorch's current stream without synchronising.  The kernel masks a
+ragged last chunk itself, so nothing is padded; inputs that are already
+contiguous (the model's are) are not copied, and ``u`` is cast to fp32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+__all__ = ["rwkv6_scan_cuda", "HEAD_SIZE", "DTYPES", "MAX_CHUNK"]
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_SIZE = 64      # rwkv6-1.6b's; the kernel is built for this one
+MAX_CHUNK = 32      # every config's rwkv_chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    fn = _build.load_library("rwkv6_scan").rwkv6_scan_fwd
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, P, P, P,      # r k v logw u state y s_out
+                   I, I, I, I, I, I,            # dtype B S H N L
+                   P]                           # stream
+    fn.restype = I
+    return fn
+
+
+def rwkv6_scan_cuda(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state: torch.Tensor, chunk: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel; same contract as ``ref.rwkv6_scan_ref``, computed
+    in chunks of ``min(chunk, S)`` steps.
+
+    Raises on anything the kernel does not take: a tensor off the card, r/k/v
+    of a dtype other than float32/bfloat16 (or not one dtype), logw or state
+    not float32, a head size other than ``HEAD_SIZE``, a chunk outside
+    1..``MAX_CHUNK``, mismatched shapes, or a launch that CUDA refuses."""
+    ts = (r, k, v, logw, u, state)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("rwkv6_scan_cuda takes CUDA tensors only")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("r, k, v, logw, u and state must be on one device")
+    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"dtypes {r.dtype}/{k.dtype}/{v.dtype}: need one of {list(DTYPES)}")
+    if logw.dtype != torch.float32 or state.dtype != torch.float32:
+        raise ValueError(f"logw and state must be float32, not {logw.dtype}/{state.dtype}")
+    if r.dim() != 4:
+        raise ValueError(f"r must be (B,S,H,N), not {tuple(r.shape)}")
+    B, S, H, N = r.shape
+    if (k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape
+            or u.shape != (H, N) or state.shape != (B, H, N, N)):
+        raise ValueError(f"shapes r {tuple(r.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+                         f"logw {tuple(logw.shape)} u {tuple(u.shape)} state {tuple(state.shape)}")
+    if N != HEAD_SIZE:
+        raise ValueError(f"head size {N}: the kernel takes {HEAD_SIZE}")
+    L = min(chunk, S)
+    if not 1 <= L <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk}: need 1..{MAX_CHUNK}")
+    r, k, v, logw, state = (t.contiguous() for t in (r, k, v, logw, state))
+    u = u.to(torch.float32).contiguous()
+    y = torch.empty_like(r)
+    s_out = torch.empty_like(state)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+                state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+                DTYPES[r.dtype], B, S, H, N, L, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_fwd launch failed: cudaError_t {err}")
+    return y, s_out

@@ -6,9 +6,12 @@
         --reduced --device cpu
 
 Counterpart of ``repro.launch.serve``, with the same flags plus ``--device``
-(default ``cuda``; with no card it raises).  Prefill runs the CUDA
-flash-attention kernel (``attn_impl="pallas"``); decode (one query per step)
-runs the plain attention.  Weights and prompts are random, from fixed seeds.
+(default ``cuda``; with no card it raises).  Serves the dense, SSM
+(``rwkv6-1.6b``) and hybrid (``recurrentgemma-9b``) families.  Prefill runs
+the CUDA kernels: flash attention (``attn_impl="pallas"``) and the RWKV-6 and
+RG-LRU scans (``kernel_impl="pallas"``); decode (one token per step) runs the
+plain attention and the single-step recurrences.  Weights and prompts are
+random, from fixed seeds; the weights are drawn on the serving device.
 """
 from __future__ import annotations
 
@@ -46,8 +49,8 @@ def _sync(device: torch.device) -> None:
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
           temperature: float = 0.0, device="cuda") -> ServeResult:
     dev = resolve_device(device)
-    cfg = dataclasses.replace(cfg, attn_impl="pallas")
-    params = init_params(torch.Generator().manual_seed(0), cfg, dev)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas", kernel_impl="pallas")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     B, S = batch, prompt_len
     prompts = torch.randint(0, cfg.vocab_size, (B, S),
                             generator=torch.Generator().manual_seed(1)).to(dev)
@@ -91,7 +94,7 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
         cfg = cfg.reduced()
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.arch_id} is encoder-only: no decode")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.frontend is not None:
         raise SystemExit(f"{cfg.arch_id}: the {cfg.family} family is not yet ported "
                          "to repro_torch (see ROADMAP.md, Queue 1)")
 

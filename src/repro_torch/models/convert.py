@@ -9,7 +9,12 @@ differ:
   (``stack[si]["blocks"][bi][...]`` of shape (n, ...)); the port has one
   module per repeat, ``stack.{si}.{bi}.{r}``.
 - JAX stores dense weights (in, out) and computes ``x @ w``; the port's
-  ``nn.Linear`` holds (out, in), so every dense weight is transposed here.
+  ``nn.Linear`` holds (out, in).  A leaf is transposed when it lands in an
+  ``nn.Linear`` of the target module, and only then: the decision follows
+  the module, not the leaf's name (rglru's ``w_gate`` and rwkv6's ``w_r``
+  are ``nn.Linear``s, rwkv6's ``maa_w2`` and rglru's ``conv_w`` are plain
+  parameters in JAX's layout), so that a square matrix is never loaded
+  untransposed where a shape check could not tell.
 - JAX's separate biases (``bq``, ``b_in``, ...) become the bias of the
   ``nn.Linear`` they add to.
 
@@ -18,7 +23,7 @@ fit, raises.  Neither ``jax`` nor ``repro`` is imported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Set, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +35,6 @@ from .model import LM, init_params
 
 __all__ = ["to_state_dict", "load_module", "from_jax"]
 
-_LINEAR = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in", "w_out"}
 _BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv", "b_in": "w_in", "b_out": "w_out"}
 
 
@@ -45,21 +49,25 @@ def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[st
         yield prefix, tree
 
 
-def _port_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
-    """One JAX leaf (no repeat axis) -> (port state-dict name, array)."""
+def _port_leaf(path: Tuple[str, ...], arr: np.ndarray,
+               linears: Set[str]) -> Tuple[str, np.ndarray]:
+    """One JAX leaf (no repeat axis) at the target's ``path`` -> (port
+    state-dict name, array).  ``linears`` names the target's ``nn.Linear``s."""
     *head, leaf = path
-    if leaf in _LINEAR:
-        return ".".join([*head, leaf, "weight"]), arr.T
-    if leaf == "w" and tuple(head) in ((), ("lm_head",)):   # the untied LM head
-        return ".".join([*head, "weight"]), arr.T
-    if leaf in _BIAS_OF:
-        return ".".join([*head, _BIAS_OF[leaf], "bias"]), arr
-    return ".".join(path), arr
+    join = lambda *parts: ".".join(parts)
+    if join(*path) in linears:                       # a dense weight
+        return join(*path, "weight"), arr.T
+    if leaf == "w" and join(*head) in linears:       # {"w": ...}: the untied LM head
+        return join(*head, "weight"), arr.T
+    if leaf in _BIAS_OF and join(*head, _BIAS_OF[leaf]) in linears:
+        return join(*head, _BIAS_OF[leaf], "bias"), arr
+    return join(*path), arr
 
 
-def to_state_dict(tree: Any) -> Dict[str, np.ndarray]:
-    """Flatten a JAX parameter tree (numpy leaves) into the port's names and
-    layouts, unstacking ``stack`` segments along their repeat axis."""
+def to_state_dict(tree: Any, module: nn.Module) -> Dict[str, np.ndarray]:
+    """Flatten a JAX parameter tree (numpy leaves) into the names and layouts
+    of ``module``, unstacking ``stack`` segments along their repeat axis."""
+    linears = {name for name, m in module.named_modules() if isinstance(m, nn.Linear)}
     out: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(tree):
         arr = np.asarray(arr)
@@ -68,10 +76,10 @@ def to_state_dict(tree: Any) -> Dict[str, np.ndarray]:
                 raise KeyError(f"unexpected stack leaf {'/'.join(path)}")
             _, si, _, bi, *rest = path
             for r in range(arr.shape[0]):
-                name, a = _port_leaf(tuple(rest), arr[r])
-                out[f"stack.{si}.{bi}.{r}.{name}"] = a
+                name, a = _port_leaf(("stack", si, bi, str(r), *rest), arr[r], linears)
+                out[name] = a
         else:
-            name, a = _port_leaf(path, arr)
+            name, a = _port_leaf(path, arr, linears)
             out[name] = a
     return out
 
@@ -79,7 +87,7 @@ def to_state_dict(tree: Any) -> Dict[str, np.ndarray]:
 def load_module(module: nn.Module, tree: Any) -> nn.Module:
     """Load a JAX subtree (numpy leaves) into ``module``'s parameters, in
     place.  Raises on a missing, extra or misshapen leaf."""
-    state = to_state_dict(tree)
+    state = to_state_dict(tree, module)
     target = module.state_dict()
     missing, extra = sorted(set(target) - set(state)), sorted(set(state) - set(target))
     if missing or extra:

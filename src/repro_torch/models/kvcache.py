@@ -1,4 +1,5 @@
-"""Decode-time state: full KV caches and sliding-window (ring) caches.
+"""Decode-time state: full KV caches, sliding-window (ring) caches, recurrent
+states.
 
 Counterpart of ``repro.models.kvcache``.  Decode is synchronized across the
 batch (one global position).  Cache trees are built per *segment* (see
@@ -10,25 +11,23 @@ view into its segment's stacked tensor, so a write lands in the stack.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv6_mod
 from .config import ModelConfig
-
-_NOT_PORTED = {
-    "rglru": "ROADMAP Queue 1 item 9 (hybrid family: models/rglru.py)",
-    "rwkv6": "ROADMAP Queue 1 item 8 (SSM family: models/rwkv6.py)",
-}
 
 
 def init_block_state(cfg: ModelConfig, block_type: str, batch: int, max_len: int,
-                     device) -> Dict[str, torch.Tensor]:
+                     device) -> Dict[str, Any]:
     """Fresh decode state for one block.  max_len = cache capacity (full
-    attention) or its bound (window)."""
-    if block_type in _NOT_PORTED:
-        raise NotImplementedError(f"{block_type} decode state is not ported yet: "
-                                  f"{_NOT_PORTED[block_type]}")
+    attention) or its bound (window); recurrent states ignore it."""
+    if block_type == "rglru":
+        return rglru_mod.init_state(cfg, batch, device)
+    if block_type == "rwkv6":
+        return rwkv6_mod.init_state(cfg, batch, device)
     if block_type == "attention":
         cap = max_len if cfg.sliding_window is None else min(cfg.sliding_window, max_len)
     elif block_type == "local_attn":

@@ -6,8 +6,10 @@ Counterpart of ``repro.models.layers``.  Each parameter-bearing layer is an
 ``forward`` is the JAX ``apply_*``; the attention helpers are plain functions
 on tensors with the JAX layouts ((B, S, heads, hd)).  Linear weights live in
 ``nn.Linear``'s (out, in) layout; ``convert.py`` maps JAX's (in, out) weights
-onto them.  Randomness comes from a CPU ``torch.Generator``; a constructor
-given ``generator=None`` leaves its weights uninitialised (for loading).
+onto them.  Randomness comes from a ``torch.Generator`` and is drawn on its
+device (a CUDA generator draws a large model's weights on the card); a
+constructor given ``generator=None`` leaves its weights uninitialised (for
+loading).
 """
 from __future__ import annotations
 
@@ -33,9 +35,11 @@ def _dtype(name: str) -> torch.dtype:
 
 def _normal(shape, std: float, generator: Optional[torch.Generator], device,
             dtype: torch.dtype) -> nn.Parameter:
+    """Normal(0, std) drawn on the generator's device, then placed on
+    ``device``; ``generator=None`` leaves the weight uninitialised."""
     if generator is None:
         return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
-    x = torch.randn(shape, generator=generator) * std
+    x = torch.randn(shape, generator=generator, device=generator.device).mul_(std)
     return nn.Parameter(x.to(device=device, dtype=dtype))
 
 

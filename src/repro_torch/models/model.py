@@ -1,9 +1,10 @@
-"""Model entry points: init / prefill / decode for the dense family.
+"""Model entry points: init / prefill / decode for the dense, SSM (rwkv6) and
+hybrid (RG-LRU + local attention) families.
 
 Counterpart of ``repro.models.model``.  ``init_params`` returns an ``LM``
 module whose children carry the JAX tree's top-level names (``embed``,
 ``stack``, ``final_norm``, ``lm_head``); ``prefill`` and ``decode_step`` are
-functions over it, as in JAX.  Other families and the modality frontends
+functions over it, as in JAX.  The MoE family and the modality frontends
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ from . import transformer as T
 from .config import ModelConfig
 
 def _check_ported(cfg: ModelConfig) -> None:
-    # The MoE, SSM and hybrid families fail in their blocks (transformer.py);
+    # The MoE family fails in its blocks (transformer.py);
     # the audio and vision frontends would otherwise be dropped silently.
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.arch_id}: the {cfg.frontend} frontend is not "
@@ -39,8 +40,9 @@ class LM(nn.Module):
 
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
                 device="cuda") -> LM:
-    """Random weights from a CPU ``torch.Generator``, placed on ``device``.
-    ``generator=None`` leaves them uninitialised (``convert.py`` loads them)."""
+    """Random weights from ``generator``, drawn on its device and placed on
+    ``device``.  ``generator=None`` leaves them uninitialised (``convert.py``
+    loads them)."""
     _check_ported(cfg)
     return LM(cfg, generator, resolve_device(device))
 

@@ -7,9 +7,12 @@ The stack is ``stack[segment][block_type][repeat]``, a nest of
 where JAX runs ``lax.scan`` over stacked parameters.  Caches keep JAX's
 layout (stacked on the repeat axis) and are updated in place.
 
-Block kinds ported so far: ``attention`` (GQA/MQA, optional SWA, dense MLP)
-and ``local_attn``.  The MoE MLP, ``rglru`` and ``rwkv6`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Block kinds: ``attention`` (GQA/MQA, optional SWA, dense MLP),
+``local_attn`` (sliding-window attention + MLP, hybrid), ``rglru`` (RG-LRU
+temporal block + MLP, hybrid) and ``rwkv6`` (time-mix + channel-mix).  The
+MoE MLP raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Recurrent states are nested dicts (rwkv6: ``{"tm": {prev, wkv}, "cm":
+{prev}}``; rglru: ``{h, conv}``), stacked on the repeat axis like the caches.
 """
 from __future__ import annotations
 
@@ -20,12 +23,12 @@ from torch import nn
 
 from . import kvcache as kv
 from . import layers as L
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv6_mod
 from .config import ModelConfig
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 7 (MoE family: models/moe.py)",
-    "rwkv6": "ROADMAP Queue 1 item 8 (SSM family: models/rwkv6.py)",
-    "rglru": "ROADMAP Queue 1 item 9 (hybrid family: models/rglru.py)",
 }
 
 
@@ -47,7 +50,8 @@ def segment_specs(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 # -- init ----------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """``_init_block`` for attention / local_attn: norm1, attn, norm2, mlp."""
+    """``_init_block``: norm1, then tm (rwkv6), rglru (rglru) or attn
+    (attention / local_attn); norm2, then cm (rwkv6) or mlp."""
 
     def __init__(self, cfg: ModelConfig, block_type: str, generator, device):
         super().__init__()
@@ -55,9 +59,17 @@ class Block(nn.Module):
         if kind in _NOT_PORTED:
             raise NotImplementedError(f"{kind} blocks are not ported yet: {_NOT_PORTED[kind]}")
         self.norm1 = L.Norm(cfg.d_model, cfg, device)
-        self.attn = L.Attention(cfg, generator, device)
+        if block_type == "rwkv6":
+            self.tm = rwkv6_mod.TimeMix(cfg, generator, device)
+        elif block_type == "rglru":
+            self.rglru = rglru_mod.RGLRU(cfg, generator, device)
+        else:
+            self.attn = L.Attention(cfg, generator, device)
         self.norm2 = L.Norm(cfg.d_model, cfg, device)
-        self.mlp = L.MLP(cfg, generator, device)
+        if block_type == "rwkv6":
+            self.cm = rwkv6_mod.ChannelMix(cfg, generator, device)
+        else:
+            self.mlp = L.MLP(cfg, generator, device)
 
 
 def init_stack(generator, cfg: ModelConfig, device) -> nn.ModuleList:
@@ -77,9 +89,34 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> List[Any]
         seg = []
         for btype in types:
             one = kv.init_block_state(cfg, btype, batch, max_len, device)
-            seg.append({k: torch.stack([x] * n) for k, x in one.items()})
+            seg.append(_tree_map(lambda x: torch.stack([x] * n), one))
         caches.append(seg)
     return caches
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a nest of dicts."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def leaves(tree, prefix: Tuple[str, ...] = ()):
+    """(path, tensor) of every tensor of a nest of dicts, in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _write(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    """Copy a block's new state into its cache views, leaf by leaf."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write(dst[k], v)
+        else:
+            dst[k].copy_(v)
 
 
 # -- forward ---------------------------------------------------------------------------
@@ -88,6 +125,23 @@ def _apply_block(bp: Block, cfg: ModelConfig, btype: str, x: torch.Tensor,
                  positions: torch.Tensor, state: Optional[Dict[str, torch.Tensor]],
                  mode: str) -> torch.Tensor:
     """Returns x_out; ``state`` (this layer's cache views) is updated in place."""
+    if btype == "rwkv6":
+        h, tm_state = rwkv6_mod.apply_time_mix(bp.tm, bp.norm1(x), cfg,
+                                               state["tm"] if state else None)
+        x = x + h
+        h, cm_state = rwkv6_mod.apply_channel_mix(bp.cm, bp.norm2(x), cfg,
+                                                  state["cm"] if state else None)
+        if state is not None:
+            _write(state, {"tm": tm_state, "cm": cm_state})
+        return x + h
+    if btype == "rglru":
+        h, new_state = rglru_mod.apply_rglru_block(bp.rglru, bp.norm1(x), cfg, state)
+        if state is not None:
+            _write(state, new_state)
+        x = x + h
+        return x + bp.mlp(bp.norm2(x))
+
+    # attention / local_attn
     window = cfg.sliding_window if (btype == "local_attn" or cfg.sliding_window) else None
     causal = not cfg.encoder_only
     xn = bp.norm1(x)
@@ -123,6 +177,6 @@ def apply_stack(stack: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
             for bi, btype in enumerate(types):
                 st = None
                 if caches is not None:
-                    st = {k: t[r] for k, t in caches[si][bi].items()}
+                    st = _tree_map(lambda t: t[r], caches[si][bi])
                 x = _apply_block(stack[si][bi][r], cfg, btype, x, positions, st, mode)
     return x, caches

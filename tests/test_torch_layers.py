@@ -186,7 +186,7 @@ def test_inits_have_jax_shapes_and_scales(arch):
     if not jcfg.tie_embeddings:
         pairs.append((JL.init_lm_head(key, jcfg), PL.init_lm_head(pcfg, gen, "cpu")))
     for jtree, mod in pairs:
-        jstate = convert.to_state_dict(jax.tree_util.tree_map(np.asarray, jtree))
+        jstate = convert.to_state_dict(jax.tree_util.tree_map(np.asarray, jtree), mod)
         pstate = mod.state_dict()
         assert sorted(pstate) == sorted(jstate)
         for name, t in pstate.items():

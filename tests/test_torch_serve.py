@@ -4,7 +4,10 @@ JAX initialises the weights; ``repro_torch.models.convert`` carries them into
 the port; both prefill the same numpy prompts and decode greedily.  Four
 reduced dense configs cover GQA (smollm), MQA + GeGLU + embedding scale
 (gemma), q/k/v bias (qwen) and the sliding-window ring cache with a prompt
-longer than the window (h2o-danube).
+longer than the window (h2o-danube).  Two more cover the SSM family (rwkv6,
+chunks of 16 so that the 24-token prompt ends in a ragged chunk) and the
+hybrid (RG-LRU blocks and local attention over a ring cache shorter than the
+prompt).
 """
 import dataclasses
 import os
@@ -25,11 +28,14 @@ from repro.train.serve_step import generate as jax_generate
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import convert, decode_step, init_params, prefill
+from repro_torch.models.transformer import leaves
 from repro_torch.train.serve_step import generate
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# Two layers' worth of fp32 sums taken in another order than XLA's.
+# Two layers' worth of fp32 sums taken in another order than XLA's.  The
+# largest cache or state error read over these cases is 3.7e-5, on rwkv6's
+# WKV state (|wkv| up to 31); k/v and the other leaves stay under 7.2e-6.
 TOL = 1e-4
 
 CASES = {
@@ -37,6 +43,8 @@ CASES = {
     "gemma-2b": {},
     "qwen1.5-110b": {},
     "h2o-danube-1.8b": {"sliding_window": 16},
+    "rwkv6-1.6b": {"rwkv_chunk": 16},
+    "recurrentgemma-9b": {"sliding_window": 16},
 }
 PROMPT_LEN, NEW = 24, 8
 
@@ -58,10 +66,14 @@ def _setup(arch):
 @pytest.mark.parametrize("impl", ["auto", "pallas"])
 @pytest.mark.parametrize("arch", list(CASES))
 def test_prefill_and_decode_match_jax(arch, impl):
-    """Prefill logits, every cache leaf, and two decode steps' logits; the
-    port also runs its flash-attention entry (the plain version on CPU)."""
+    """Prefill logits, every cache and state leaf, and two decode steps'
+    logits.  ``pallas`` also sets ``kernel_impl``: the port then runs its
+    kernel entries (flash attention, the RWKV-6 and RG-LRU scans), which are
+    the plain versions on the CPU; ``auto`` runs the plain attention and
+    ``kernel_impl="jnp"``."""
     jcfg, pcfg, jparams, model, prompts = _setup(arch)
-    pcfg = dataclasses.replace(pcfg, attn_impl=impl)
+    pcfg = dataclasses.replace(pcfg, attn_impl=impl,
+                               kernel_impl="pallas" if impl == "pallas" else "jnp")
     max_len = PROMPT_LEN + NEW
     jlogits, jcaches = jm.prefill(jparams, {"tokens": jnp.asarray(prompts)}, jcfg, max_len)
     plogits, pcaches = prefill(model, {"tokens": torch.from_numpy(prompts)}, pcfg, max_len)
@@ -71,11 +83,17 @@ def test_prefill_and_decode_match_jax(arch, impl):
         assert len(pcaches) == len(jcaches)
         for pseg, jseg in zip(pcaches, jcaches):
             for pst, jst in zip(pseg, jseg):
-                assert sorted(pst) == sorted(jst) == ["k", "kpos", "v"]
-                np.testing.assert_array_equal(pst["kpos"].numpy(), np.asarray(jst["kpos"]))
-                for leaf in ("k", "v"):
-                    np.testing.assert_allclose(pst[leaf].numpy(), np.asarray(jst[leaf]),
-                                               atol=TOL)
+                pleaves, jleaves = list(leaves(pst)), list(leaves(jst))
+                assert [p for p, _ in pleaves] == [p for p, _ in jleaves]
+                assert [p for p, _ in pleaves] in (
+                    [("k",), ("kpos",), ("v",)], [("conv",), ("h",)],
+                    [("cm", "prev"), ("tm", "prev"), ("tm", "wkv")])
+                for (path, p), (_, j) in zip(pleaves, jleaves):
+                    if path == ("kpos",):
+                        np.testing.assert_array_equal(p.numpy(), np.asarray(j))
+                    else:
+                        np.testing.assert_allclose(p.numpy(), np.asarray(j), atol=TOL,
+                                                   err_msg="/".join(path))
     check_caches()
     tok = np.array(jnp.argmax(jlogits, -1), np.int32)
     for i in range(2):
@@ -109,9 +127,48 @@ def test_the_calls_config_picks_the_attention_path(monkeypatch):
     assert calls == []
 
 
+@pytest.mark.parametrize("arch,scan,kinds", [
+    ("rwkv6-1.6b", "rwkv6_scan", {"rwkv6"}), ("recurrentgemma-9b", "rglru_scan", {"rglru"})])
+def test_the_calls_config_picks_the_scan_path(monkeypatch, arch, scan, kinds):
+    """The ``kernel_impl`` counterpart: the scan entry runs once per rwkv6 or
+    rglru layer in a pallas prefill, and never in a jnp prefill or in decode
+    (one token, the single step)."""
+    from repro_torch.kernels import ops as pops
+    calls = []
+    real = getattr(pops, scan)
+    monkeypatch.setattr(pops, scan, lambda *a, **k: calls.append(1) or real(*a, **k))
+    _, pcfg = _configs(arch)
+    n_layers = sum(t in kinds for t in pcfg.pattern_for_layers())
+    assert n_layers >= 2
+    model = init_params(torch.Generator().manual_seed(0),
+                        dataclasses.replace(pcfg, kernel_impl="pallas"), "cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    for impl, expect in (("jnp", 0), ("pallas", n_layers)):
+        calls.clear()
+        _, caches = prefill(model, {"tokens": tokens},
+                            dataclasses.replace(pcfg, kernel_impl=impl), 9)
+        assert len(calls) == expect, impl
+    calls.clear()
+    decode_step(model, caches, tokens[:, 0], 8, dataclasses.replace(pcfg, kernel_impl="pallas"))
+    assert calls == []
+
+
 @pytest.mark.parametrize("arch", list(CASES))
 def test_greedy_generate_tokens_identical(arch):
     jcfg, pcfg, jparams, model, prompts = _setup(arch)
+    jtok = jax_generate(jparams, jcfg, jnp.asarray(prompts), NEW)
+    ptok = generate(model, pcfg, torch.from_numpy(prompts), NEW)
+    np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_greedy_generate_tokens_identical_through_kernel_entries(arch):
+    """As above, with ``kernel_impl`` and ``attn_impl`` set to ``pallas``: the
+    port's prefill goes through its kernel entries (the plain versions on the
+    CPU), JAX's through its Pallas kernels in interpret mode."""
+    jcfg, pcfg, jparams, model, prompts = _setup(arch)
+    jcfg, pcfg = (dataclasses.replace(c, attn_impl="pallas", kernel_impl="pallas")
+                  for c in (jcfg, pcfg))
     jtok = jax_generate(jparams, jcfg, jnp.asarray(prompts), NEW)
     ptok = generate(model, pcfg, torch.from_numpy(prompts), NEW)
     np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
@@ -140,9 +197,10 @@ def test_own_init_matches_jax_paths_shapes_and_scales(arch):
     """The port's own init: same leaves and shapes as JAX's tree (through
     convert's naming), each leaf's std within 10%, constants equal."""
     jcfg, pcfg = _configs(arch)
+    pmodel = init_params(torch.Generator().manual_seed(0), pcfg, "cpu")
     jstate = convert.to_state_dict(
-        jax.tree_util.tree_map(np.asarray, jm.init_params(jax.random.key(0), jcfg)))
-    pstate = init_params(torch.Generator().manual_seed(0), pcfg, "cpu").state_dict()
+        jax.tree_util.tree_map(np.asarray, jm.init_params(jax.random.key(0), jcfg)), pmodel)
+    pstate = pmodel.state_dict()
     assert sorted(pstate) == sorted(jstate)
     for name, t in pstate.items():
         p, j = t.float().numpy(), np.asarray(jstate[name], np.float32)
@@ -172,24 +230,38 @@ def test_serve_cli_matches_jax_param_count(capsys):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-moe-16b", "item 7"), ("rwkv6-1.6b", "item 8"),
-    ("recurrentgemma-9b", "item 9"), ("hubert-xlarge", "item 10"), ("paligemma-3b", "item 10")])
+    ("deepseek-moe-16b", "item 7"), ("hubert-xlarge", "item 10"), ("paligemma-3b", "item 10")])
 def test_unported_families_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         init_params(torch.Generator().manual_seed(0), get_config(arch).reduced(), "cpu")
 
 
-def test_recurrent_decode_states_are_not_ported():
-    from repro_torch.models import kvcache
-    cfg = get_config("recurrentgemma-9b").reduced()
-    for btype, item in (("rglru", "item 9"), ("rwkv6", "item 8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-            kvcache.init_block_state(cfg, btype, 1, 8, "cpu")
-
-
 def test_serve_cli_rejects_unported_family():
-    with pytest.raises(SystemExit, match="not yet ported"):
-        port_serve.main(["--arch", "rwkv6-1.6b", "--reduced", "--device", "cpu"])
+    for arch in ("deepseek-moe-16b", "paligemma-3b"):   # MoE; a frontend
+        with pytest.raises(SystemExit, match="not yet ported"):
+            port_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_serve_cli_runs_recurrent_families_on_cpu(capsys, arch):
+    res = port_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                           "--batch", "2", "--prompt-len", "20", "--new-tokens", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[1] for ln in lines] == [f"{arch}:", "prefill", "decode", "sample"]
+    assert res.cfg.kernel_impl == res.cfg.attn_impl == "pallas"
+    assert tuple(res.tokens.shape) == (2, 4) and len(res.step_logits) == 3
+    assert all(bool(torch.isfinite(x).all()) for x in [res.prefill_logits, *res.step_logits])
+
+
+def test_serve_draws_weights_with_a_generator_on_its_device(monkeypatch):
+    """The weights are drawn by a generator on the serving device (on the
+    card, not on the host), so the CPU run draws on the CPU."""
+    devices = []
+    real = port_serve.init_params
+    monkeypatch.setattr(port_serve, "init_params",
+                        lambda gen, cfg, dev: devices.append(gen.device) or real(gen, cfg, dev))
+    port_serve.serve(get_config("smollm-135m").reduced(), 1, 8, 2, device="cpu")
+    assert devices == [torch.device("cpu")]
 
 
 def test_cuda_without_card_raises():
