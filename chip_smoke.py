@@ -7,21 +7,25 @@ Phases, in order; any failure ends the run with its traceback and a
 non-zero exit:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-   build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` each, all started together) and print ptxas' reports.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and edge cases (ragged lengths, initial states, a
-   sequence run in two halves, bf16), with stated tolerances.
+   sequence run in two halves, tied router rows, bf16), with stated
+   tolerances.
 3. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
-   32 new tokens, greedy) on smollm-135m, rwkv6-1.6b and recurrentgemma-9b,
-   one model resident at a time.  Every launch count is set to 0 just
-   before each path and read just after; then the same tokens are
-   teacher-forced through the plain path (``attn_impl="naive"``,
+   32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
+   granite-moe-3b-a800m, one model resident at a time.  Every launch count
+   is set to 0 just before each path and read just after; then the same
+   tokens are teacher-forced through the plain path (``attn_impl="naive"``,
    ``kernel_impl="jnp"``) and the prefill logits, every layer's cache or
    recurrent state and every decode step's logits must agree within a
    stated share of their scale (``SERVE_TOL``).  On rwkv6-1.6b, K2 and the
    plain scans are also held against float64 on the model's own inputs,
-   and the model's sensitivity to one ulp of rounding is measured.
+   and the model's sensitivity to one ulp of rounding is measured.  On
+   granite-moe the plain path's routing is teacher-forced too, to the
+   kernel path's experts; each routing decision in which the two paths
+   differ is counted and must be a near-tie on the plain path.
 4. times: each path's prefill and decode times and a ``torch.profiler``
    trace of one warm prefill and 8 warm decode steps (wall time, the
    device's busy and idle share, the kernels that took the most device
@@ -33,6 +37,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -47,7 +52,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data sheet, dense, at the full 700 W: CUDA-core fp32 and HBM rates.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-KERNELS = ("flash_attention", "rwkv6_scan", "rglru_scan")
+KERNELS = ("flash_attention", "rwkv6_scan", "rglru_scan", "moe_router")
 # Kernel against plain version: the tolerances of tests/test_kernels.py.
 # With bf16 outputs each side rounds y once, so a value may also land one
 # bf16 ulp (2**-8 relative) away: rtol 2**-7 allows that for |y| above 6.
@@ -55,6 +60,7 @@ ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 RWKV_ATOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BF16_RTOL = 2.0 ** -7
 RGLRU_ATOL = 1e-5
+ROUTER_ATOL = 1e-5
 B, S, NEW = 8, 512, 32
 # Serve check, kernel path vs plain path: for the logits and each cache or
 # state leaf, max |plain - kernel| over max(1, max |kernel|), a normwise
@@ -70,7 +76,18 @@ B, S, NEW = 8, 512, 32
 # kernel and plain path differ; at most 1.46e-3 (the WKV state), while
 # ``wkv_precision`` holds K2 within 2x of the plain chunked scan's distance
 # from float64: 1.5e-2.
-SERVE_TOL = {"smollm-135m": 2e-5, "rwkv6-1.6b": 1.5e-2, "recurrentgemma-9b": 1e-4}
+# granite-moe-3b-a800m, with the plain path's routing teacher-forced to the
+# kernel path's experts: its random 32 layers (experts drawn with std
+# 1/sqrt(40), as JAX draws them) carry activations far above 1; at most
+# 2.56e-5 (the v cache): 2.5e-4.
+SERVE_TOL = {"smollm-135m": 2e-5, "rwkv6-1.6b": 1.5e-2, "recurrentgemma-9b": 1e-4,
+             "granite-moe-3b-a800m": 2.5e-4}
+ARCHS = tuple(SERVE_TOL)
+# A routing decision in which the kernel path picks another expert than the
+# plain path must be a near-tie: the two experts' plain probabilities at
+# most this far apart (the paths' inputs differ by rounding).  On an H100,
+# 41 of 385,024 decisions differed, with gaps up to 1.18e-6: 1e-5.
+FLIP_GAP = 1e-5
 TRACE_DECODE_STEPS, TRACE_TOP = 8, 10
 # wkv_precision: K2 within this factor of the plain chunked scan's distance
 # from float64; the noise draws of its one-ulp experiment.
@@ -118,9 +135,33 @@ def trace(name: str, fn, card: str) -> None:
     log(f"[trace] {name}: wall {wall_us / 1e3!r} ms, device busy {busy_us / 1e3!r} ms, "
         f"idle share {1 - busy_us / wall_us!r}, {sum(e.count for e in kernels)} kernel "
         f"launches {card}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]:
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]
+    ours = [e for e in kernels if e not in top and any(f"{n}_" in e.key for n in KERNELS)]
+    for e in top + ours:   # the top kernels, then this repo's kernels below them
         log(f"[trace]   {e.self_device_time_total / 1e3:10.4f} ms  {e.count:5d}x  "
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
+
+
+def device_ms(fn, match: str = "", iters: int = 50) -> float:
+    """Mean device time per call of ``fn`` (``torch.profiler``): the summed
+    time of the kernels whose name contains ``match`` (every kernel for
+    ""), over ``iters`` calls after a warm-up.  Unlike ``time_ms`` it leaves
+    out the host's time between launches, which paces a call whose kernels
+    take a few microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and match in e.key)
+    assert us > 0, f"no device time for {match!r}"
+    return us / iters / 1e3
 
 
 def attention_inputs(torch, dev, seed, B, Sq, Sk, H, K, hd, dtype, q0=None):
@@ -184,6 +225,15 @@ def rglru_bound(a, b, h0=None):
     return _bound(2 * a.numel(), _nbytes(a, b, h0, a))
 
 
+def moe_router_bound(logits, top_k):
+    """Least time for softmax -> top-k -> renormalise.  Operations per row:
+    max, subtract, exponential, sum and divide over the E logits, k rounds
+    of E compares, the k-term sum and k divides.  Bytes: the logits read
+    once, the fp32 weights and int32 indices written once."""
+    T, E = logits.shape
+    return _bound(T * ((5 + top_k) * E + 2 * top_k), _nbytes(logits) + T * top_k * 8)
+
+
 def rwkv_inputs(torch, dev, seed, B, S, H, N, dtype):
     """The draws of TestRWKV6Scan, on the card: r/k/v in ``dtype``; logw, u
     and the initial state in fp32."""
@@ -221,6 +271,7 @@ def check_flash_attention(torch, dev, ops, ref) -> float:
         ("recurrentgemma local_attn prefill hd256 MQA", (8, 512, 512, 16, 1, 256), f32,
          {"window": 2048}, None),
         ("gemma-2b hd256 MQA bf16", (2, 256, 256, 8, 1, 256), bf16, {}, None),
+        ("granite-moe prefill", (8, 512, 512, 24, 8, 64), f32, {}, None),
     ]
     main_err = None
     for i, (name, shape, dtype, kw, edit) in enumerate(cases):
@@ -322,6 +373,55 @@ def check_rglru(torch, dev, ops, ref) -> float:
     return main_err
 
 
+def check_moe_router(torch, dev, ops, ref) -> float:
+    """K4 against ``ref.moe_router_ref``: equal indices, weights within
+    ``ROUTER_ATOL``.  On random logits an index may differ only where the
+    two candidates' plain probabilities are within one fp32 ulp (the two
+    softmaxes sum in other orders); each such case is printed and counted.
+    Rows that tie (all zero) must match exactly."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, (T, E, k), dtype, rows set to zero
+        ("granite-moe prefill", (4096, 40, 8), f32, None),
+        ("granite-moe decode, 248 padded rows", (256, 40, 8), f32, slice(8, None)),
+        ("deepseek-moe", (4096, 64, 6), f32, None),
+        ("all rows zero", (512, 64, 6), f32, slice(None)),
+        ("odd T, E=250", (77, 250, 8), f32, None),
+        ("k = E", (64, 8, 8), f32, None),
+        ("granite-moe prefill bf16", (4096, 40, 8), bf16, None),
+    ]
+    main_err, near_ties = None, 0
+    for i, (name, (T, E, k), dtype, zero) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(400 + i)
+        logits = (torch.randn((T, E), generator=g, device=dev) * 2.0).to(dtype)
+        if zero is not None:
+            logits[zero] = 0
+        w, idx = ops.moe_router(logits, k)
+        torch.cuda.synchronize()
+        w_ref, idx_ref = ref.moe_router_ref(logits, k)
+        assert w.shape == (T, k) and w.dtype == f32 and idx.dtype == torch.int32, name
+        diff = idx != idx_ref
+        if zero is not None:
+            assert not bool(diff[zero].any()), f"{name}: tied rows differ"
+            assert bool((idx[zero] == torch.arange(k, device=dev)).all()), name
+        probs = torch.softmax(logits.float(), dim=-1)
+        for r, j in diff.nonzero().tolist():
+            a, b = probs[r, idx[r, j]], probs[r, idx_ref[r, j]]
+            m = torch.maximum(a, b)
+            ulp = float(m - torch.nextafter(m, torch.zeros_like(m)))
+            log(f"[kernel] moe_router {name}: row {r} slot {j} picks {int(idx[r, j])} where "
+                f"plain picks {int(idx_ref[r, j])}; plain probs {float(a)!r} {float(b)!r}")
+            assert abs(float(a - b)) <= ulp, f"{name}: index differs beyond one ulp"
+            near_ties += 1
+        err = max_err(w, w_ref)
+        log(f"[kernel] moe_router {name} (T,E,k)={(T, E, k)} {dtype}: max_abs_err {err!r} "
+            f"(atol {ROUTER_ATOL}), {int(diff.any(-1).sum())} rows with another index")
+        assert err <= ROUTER_ATOL, f"{name}: max_abs_err {err} > {ROUTER_ATOL}"
+        if i == 0:
+            main_err = err
+    log(f"[kernel] moe_router: {near_ties} index differences, each within one fp32 ulp")
+    return main_err
+
+
 # -- phases 3 and 4, one model at a time -------------------------------------------------
 
 def wkv_f64(torch, r, k, v, logw, u, s0):
@@ -387,6 +487,72 @@ def wkv_precision(torch, res, prefill) -> None:
         f"{float(logits['exact'].abs().max())!r})")
 
 
+@contextlib.contextmanager
+def patched(obj, name: str, fn):
+    """``obj.<name>`` replaced by ``fn`` inside the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+class RoutingCheck:
+    """Teacher-forces the plain path's MoE routing to the kernel path's.
+
+    ``record`` stands in for ``moe._route`` on the kernel path and keeps
+    each call's experts.  ``forced`` stands in for it on the plain path: it
+    routes by the plain version, compares the experts with the kernel
+    path's same call, and returns the kernel path's experts with weights
+    gathered from the plain probabilities and renormalised, so that one
+    near-tie decided the other way does not change which tokens every later
+    layer sees.  For each token row whose experts differ, the gap is the
+    plain probability of the plain path's expert less that of the kernel
+    path's, at the first slot where they differ."""
+
+    def __init__(self, torch, moe_mod):
+        self.torch, self.real = torch, moe_mod._route
+        self.kernel_idx, self.gaps, self.calls = [], [], 0
+
+    def record(self, logits, moe, kernel_impl="jnp"):
+        out = self.real(logits, moe, kernel_impl)
+        self.kernel_idx.append(out[1])
+        return out
+
+    def forced(self, logits, moe, kernel_impl="jnp"):
+        torch = self.torch
+        _, idx, probs = self.real(logits, moe, "jnp")
+        kidx = self.kernel_idx[self.calls]
+        diff = idx != kidx
+        rows = diff.any(-1)
+        if bool(rows.any()):
+            j = diff[rows].int().argmax(-1)               # the first slot that differs
+            n = torch.arange(len(j), device=j.device)
+            p = probs[rows]
+            self.gaps.append((self.calls, p[n, idx[rows][n, j].long()]
+                              - p[n, kidx[rows][n, j].long()]))
+        self.calls += 1
+        w = probs.gather(-1, kidx.long())
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), kidx, probs
+
+    def report(self, arch: str, n_layers: int) -> None:
+        """Count the decisions that differ; each must be a near-tie."""
+        assert self.calls == len(self.kernel_idx), (self.calls, len(self.kernel_idx))
+        rows = sum(int(k.shape[0] * k.shape[1]) for k in self.kernel_idx)
+        n = sum(len(g) for _, g in self.gaps)
+        n_prefill = sum(len(g) for c, g in self.gaps if c < n_layers)
+        gaps = [float(x) for _, g in self.gaps for x in g.tolist()]
+        log(f"[serve] {arch}: routing decisions (layer, token row) that differ between the "
+            f"paths: {n} of {rows} ({n_prefill} in prefill, {n - n_prefill} in decode); "
+            f"plain-probability gaps: max {max(gaps, default=0.0)!r}, min "
+            f"{min(gaps, default=0.0)!r} (limit {FLIP_GAP})")
+        for c, g in self.gaps[:20]:
+            step = "prefill" if c < n_layers else f"decode step {c // n_layers}"
+            log(f"[serve]   {step} layer {c % n_layers}: {len(g)} rows, gaps {g.tolist()}")
+        assert all(0.0 <= x <= FLIP_GAP for x in gaps), f"{arch}: a routing flip beyond {FLIP_GAP}"
+
+
 def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_config,
              leaves):
     """Serve ``arch`` at full width with every launch count set to 0 just
@@ -394,17 +560,27 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
     trace it.  Returns the launch counts."""
     cfg = get_config(arch)
     pattern = cfg.pattern_for_layers()
-    expect = {"flash_attention": sum(t in ("attention", "local_attn") for t in pattern),
-              "rwkv6_scan": pattern.count("rwkv6"), "rglru_scan": pattern.count("rglru")}
+    n_attn = sum(t in ("attention", "local_attn") for t in pattern)
+    n_moe = n_attn if cfg.family == "moe" else 0
+    # K1 in prefill only; the router in every MoE layer of prefill and of each decode step
+    expect = {"flash_attention": n_attn, "rwkv6_scan": pattern.count("rwkv6"),
+              "rglru_scan": pattern.count("rglru"), "moe_router": n_moe * NEW}
+    routing, hook = None, contextlib.nullcontext()
+    if n_moe:
+        from repro_torch.models import moe as moe_mod
+        routing = RoutingCheck(torch, moe_mod)
+        hook = patched(moe_mod, "_route", routing.record)
     torch.cuda.reset_peak_memory_stats()
     for name in KERNELS:
         getattr(ops, name).launches = 0
-    res = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(S),
-                      "--new-tokens", str(NEW), "--device", "cuda"])
-    torch.cuda.synchronize()
+    with hook:
+        res = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(S),
+                          "--new-tokens", str(NEW), "--device", "cuda"])
+        torch.cuda.synchronize()
     launches = {name: getattr(ops, name).launches for name in KERNELS}
-    log(f"[serve] {arch}: kernel launches on the main path: {launches} (one prefill)")
-    assert launches == expect, f"{arch}: expected {expect} launches, one per layer"
+    log(f"[serve] {arch}: kernel launches on the main path: {launches} (one prefill, "
+        f"{NEW - 1} decode steps)")
+    assert launches == expect, f"{arch}: expected {expect} launches"
     assert res.prefill_logits.shape == (B, cfg.vocab_size)
     assert res.tokens.shape == (B, NEW) and len(res.step_logits) == NEW - 1
     assert bool(torch.isfinite(res.prefill_logits).all())
@@ -421,11 +597,14 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
         assert rel <= tol, f"{arch} {key}: max abs err {err} is {rel} of its scale > {tol}"
 
     plain = dataclasses.replace(res.cfg, attn_impl="naive", kernel_impl="jnp")
-    logits, caches = prefill(res.params, {"tokens": res.prompts}, plain, S + NEW)
-    close("prefill_logits", logits, res.prefill_logits)
-    for i in range(NEW - 1):
-        logits, caches = decode_step(res.params, caches, res.tokens[:, i], S + i, plain)
-        close("decode_logits", logits, res.step_logits[i])
+    with patched(moe_mod, "_route", routing.forced) if routing else contextlib.nullcontext():
+        logits, caches = prefill(res.params, {"tokens": res.prompts}, plain, S + NEW)
+        close("prefill_logits", logits, res.prefill_logits)
+        for i in range(NEW - 1):
+            logits, caches = decode_step(res.params, caches, res.tokens[:, i], S + i, plain)
+            close("decode_logits", logits, res.step_logits[i])
+    if routing:
+        routing.report(arch, n_moe)
     for pseg, kseg in zip(caches, res.caches):
         for pst, kst in zip(pseg, kseg):
             pl, kl = list(leaves(pst)), list(leaves(kst))
@@ -469,6 +648,14 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
     trace(f"{arch} decode x{TRACE_DECODE_STEPS} (warm)",
           lambda: run_decode(caches, S + TRACE_DECODE_STEPS), card)
     return launches
+
+
+def topk_chain(torch, logits, k):
+    """The router as unfused PyTorch calls: softmax, ``topk``, renormalise.
+    A yardstick only: ``topk`` does not promise an order among equal
+    values, so the port does not use it."""
+    w, idx = torch.topk(torch.softmax(logits.float(), dim=-1), k)
+    return w / w.sum(-1, keepdim=True).clamp_min(1e-9), idx
 
 
 def time_pair(kernel_fn, plain_fn, iters_plain: int):
@@ -517,11 +704,12 @@ def main() -> int:
     # -- 2. kernels against their plain versions, on the card --------------------------------
     errs = {"flash_attention": check_flash_attention(torch, dev, ops, ref),
             "rwkv6_scan": check_rwkv6(torch, dev, ops, ref),
-            "rglru_scan": check_rglru(torch, dev, ops, ref)}
+            "rglru_scan": check_rglru(torch, dev, ops, ref),
+            "moe_router": check_moe_router(torch, dev, ops, ref)}
 
     # -- 3 and 4. serve each model at full width, then its times --------------------------------
     per_path = {}
-    for arch in ("smollm-135m", "rwkv6-1.6b", "recurrentgemma-9b"):
+    for arch in ARCHS:
         per_path[arch] = run_path(arch, card, torch, ops, serve, prefill, decode_step,
                                   get_config, leaves)
         gc.collect()
@@ -554,6 +742,12 @@ def main() -> int:
     hyb_bound = attention_bound(q, k, v, qp, kp, window=2048)
     log(f"[time] flash_attention kernel fp32 recurrentgemma local_attn B=8 S=512 H=16 K=1 "
         f"hd=256 window 2048: {hyb_ms!r} ms, bound {hyb_bound[0]!r} ms by {hyb_bound[1]} {card}")
+    q, k, v, qp, kp = attention_inputs(torch, dev, 109, 8, 512, 512, 24, 8, 64, f32)
+    moe_ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp))
+    moe_bound = attention_bound(q, k, v, qp, kp)
+    log(f"[time] flash_attention kernel fp32 granite-moe B=8 S=512 H=24 K=8 hd=64 causal: "
+        f"{moe_ms!r} ms, bound {moe_bound[0]!r} ms by {moe_bound[1]}, plain "
+        f"{time_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp))!r} ms {card}")
     del q, k, v, qp, kp, qt, kt, vt, qb, kb, vb
 
     r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 200, 8, 512, 32, 64, f32)
@@ -576,15 +770,42 @@ def main() -> int:
     shape = "B=8 S=512 R=4096"
     log(f"[time] rglru_scan kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
     log(f"[time] rglru_scan plain version fp32 {shape}: {pms!r} ms {card}")
-    log("[time] rwkv6_scan, rglru_scan: no single PyTorch call computes either function, "
-        "so library_ms is null")
+    for i, (label, (T, E, k)) in enumerate((("granite-moe prefill", (4096, 40, 8)),
+                                            ("granite-moe decode", (256, 40, 8)),
+                                            ("deepseek-moe", (4096, 64, 6)))):
+        g = torch.Generator(device=dev).manual_seed(400 + i)
+        logits = torch.randn((T, E), generator=g, device=dev) * 2.0
+        kernel, plain = (lambda: ops.moe_router(logits, k)), (lambda: ref.moe_router_ref(logits, k))
+        chain = lambda: topk_chain(torch, logits, k)
+        # a few microseconds of device work a call: the host paces CUDA events
+        # around back-to-back calls, so the device time comes from the profiler
+        runs = {}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            runs.setdefault(turn, []).append(
+                device_ms(kernel, "moe_router_kernel") if turn == "kernel" else device_ms(plain))
+        kms, pms = min(runs["kernel"]), min(runs["plain"])
+        bound = moe_router_bound(logits, k)
+        if i == 0:
+            times["moe_router"] = (kms, pms, bound, None)
+        shape = f"{label} T={T} E={E} k={k}"
+        log(f"[time] moe_router kernel fp32 {shape}: {kms!r} ms device time a launch, bound "
+            f"{bound[0]!r} ms by {bound[1]} {card} (runs {runs})")
+        log(f"[time] moe_router plain version fp32 {shape}: {pms!r} ms device time a call {card}")
+        log(f"[time] softmax -> topk -> renormalise, PyTorch calls unfused (not used by the "
+            f"port), fp32 {shape}: {device_ms(chain)!r} ms device time a call {card}")
+        log(f"[time] moe_router per call, paced by the host (CUDA events over 50 back-to-back "
+            f"calls), fp32 {shape}: kernel wrapper {time_ms(kernel)!r} ms, plain version "
+            f"{time_ms(plain)!r} ms, unfused PyTorch calls {time_ms(chain)!r} ms {card}")
+    log("[time] rwkv6_scan, rglru_scan, moe_router: no single PyTorch call computes any of "
+        "these functions, so library_ms is null")
     for name, (kms, pms, (bms, by, flops, nbytes), lms) in times.items():
         log(f"[time] {name} bound: {bms!r} ms by {by} ({flops:.4g} flop, {nbytes:.4g} bytes; "
             f"H100 SXM peaks at 700 W) {card}")
 
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:77",
                "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:74",
-               "rglru_scan": "src/repro/kernels/rglru_scan.py:44"}
+               "rglru_scan": "src/repro/kernels/rglru_scan.py:44",
+               "moe_router": "src/repro/kernels/moe_router.py:45"}
     kernels = []
     for name in KERNELS:
         kms, pms, (bms, by, _, _), lms = times[name]

@@ -13,11 +13,12 @@ from typing import Optional, Tuple
 import torch
 
 from . import flash_attention as _fa
+from . import moe_router as _router
 from . import ref
 from . import rglru_scan as _rglru
 from . import rwkv6_scan as _rwkv
 
-__all__ = ["flash_attention", "rwkv6_scan", "rglru_scan"]
+__all__ = ["flash_attention", "rwkv6_scan", "rglru_scan", "moe_router"]
 
 
 def flash_attention(
@@ -68,6 +69,19 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax over experts -> top-k -> renormalise.  logits (T, E) (fp32 or
+    bf16 on the card), computed in fp32 -> (weights (T, k) fp32, idx (T, k)
+    int32); the lowest index wins among equal probabilities.  Any T is
+    taken: the kernel masks the rows past T itself, so nothing is padded."""
+    if logits.device.type == "cpu":
+        return ref.moe_router_ref(logits, top_k)
+    out = _router.moe_router_cuda(logits, top_k)
+    moe_router.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 rwkv6_scan.launches = 0
 rglru_scan.launches = 0
+moe_router.launches = 0

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention_ref", "rwkv6_scan_ref", "rglru_scan_ref"]
+__all__ = ["flash_attention_ref", "rwkv6_scan_ref", "rglru_scan_ref", "moe_router_ref"]
 
 
 def flash_attention_ref(
@@ -80,3 +80,18 @@ def rglru_scan_ref(
         h = af[:, t] * h + bf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def moe_router_ref(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax over experts -> top-k -> renormalise (DeepSeek convention).
+
+    logits (T, E) of any float dtype, computed in fp32 -> (weights (T, k)
+    fp32, idx (T, k) int32).  Equal probabilities go to the lowest index
+    first, as ``lax.top_k`` and the kernel's argmax-and-mask rounds do: a
+    stable descending sort keeps equal values in index order (``topk`` does
+    not promise an order among them)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[..., :top_k], idx[..., :top_k]
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return w, idx.to(torch.int32)

@@ -6,12 +6,15 @@
         --reduced --device cpu
 
 Counterpart of ``repro.launch.serve``, with the same flags plus ``--device``
-(default ``cuda``; with no card it raises).  Serves the dense, SSM
-(``rwkv6-1.6b``) and hybrid (``recurrentgemma-9b``) families.  Prefill runs
-the CUDA kernels: flash attention (``attn_impl="pallas"``) and the RWKV-6 and
-RG-LRU scans (``kernel_impl="pallas"``); decode (one token per step) runs the
-plain attention and the single-step recurrences.  Weights and prompts are
-random, from fixed seeds; the weights are drawn on the serving device.
+(default ``cuda``; with no card it raises).  Serves the dense, MoE
+(``granite-moe-3b-a800m``, ``deepseek-moe-16b``), SSM (``rwkv6-1.6b``) and
+hybrid (``recurrentgemma-9b``) families.  Prefill runs the CUDA kernels:
+flash attention (``attn_impl="pallas"``) and the RWKV-6 and RG-LRU scans
+(``kernel_impl="pallas"``); decode (one token per step) runs the plain
+attention and the single-step recurrences.  Every MoE layer routes through
+the CUDA router kernel (``kernel_impl="pallas"``) in prefill and in decode.
+Weights and prompts are random, from fixed seeds; the weights are drawn on
+the serving device.
 """
 from __future__ import annotations
 
@@ -94,7 +97,7 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
         cfg = cfg.reduced()
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.arch_id} is encoder-only: no decode")
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.frontend is not None:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend is not None:
         raise SystemExit(f"{cfg.arch_id}: the {cfg.family} family is not yet ported "
                          "to repro_torch (see ROADMAP.md, Queue 1)")
 

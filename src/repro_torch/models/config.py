@@ -73,7 +73,7 @@ class ModelConfig:
     opt_moment_dtype: str = "float32"     # AdamW m/v dtype (bf16 halves opt state)
     attn_impl: str = "auto"               # auto | naive | chunked | pallas
     attn_chunk: int = 512                 # q-block for chunked attention
-    kernel_impl: str = "jnp"              # jnp | pallas: RWKV6/RG-LRU scan path
+    kernel_impl: str = "jnp"              # jnp | pallas: RWKV6/RG-LRU scans, MoE router
     scan_layers: bool = True              # lax.scan over (stacked) layer params
     source: str = ""                      # citation (paper / model card)
 

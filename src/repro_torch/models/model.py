@@ -1,11 +1,12 @@
-"""Model entry points: init / prefill / decode for the dense, SSM (rwkv6) and
-hybrid (RG-LRU + local attention) families.
+"""Model entry points: init / prefill / decode for the dense, MoE, SSM
+(rwkv6) and hybrid (RG-LRU + local attention) families.
 
 Counterpart of ``repro.models.model``.  ``init_params`` returns an ``LM``
 module whose children carry the JAX tree's top-level names (``embed``,
 ``stack``, ``final_norm``, ``lm_head``); ``prefill`` and ``decode_step`` are
-functions over it, as in JAX.  The MoE family and the modality frontends
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+functions over it, as in JAX, and drop the stack's MoE aux loss as JAX's
+do.  The modality frontends raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -20,8 +21,7 @@ from . import transformer as T
 from .config import ModelConfig
 
 def _check_ported(cfg: ModelConfig) -> None:
-    # The MoE family fails in its blocks (transformer.py);
-    # the audio and vision frontends would otherwise be dropped silently.
+    # The audio and vision frontends would otherwise be dropped silently.
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.arch_id}: the {cfg.frontend} frontend is not "
                                   "ported yet (ROADMAP Queue 1 item 10)")
@@ -65,7 +65,7 @@ def prefill(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     caches = T.init_caches(cfg, B, max_len, x.device)
-    x, caches = T.apply_stack(params.stack, cfg, x, positions, caches, mode="prefill")
+    x, caches, _ = T.apply_stack(params.stack, cfg, x, positions, caches, mode="prefill")
     return _logits(params, x[:, -1:], cfg)[:, 0], caches
 
 
@@ -77,5 +77,5 @@ def decode_step(params: LM, caches: List[Any], tokens: torch.Tensor, pos: int,
     x = params.embed.embed_tokens(tokens[:, None], cfg)
     B = x.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.int32, device=x.device)
-    x, caches = T.apply_stack(params.stack, cfg, x, positions, caches, mode="decode")
+    x, caches, _ = T.apply_stack(params.stack, cfg, x, positions, caches, mode="decode")
     return _logits(params, x, cfg)[:, 0], caches

@@ -7,10 +7,10 @@ The stack is ``stack[segment][block_type][repeat]``, a nest of
 where JAX runs ``lax.scan`` over stacked parameters.  Caches keep JAX's
 layout (stacked on the repeat axis) and are updated in place.
 
-Block kinds: ``attention`` (GQA/MQA, optional SWA, dense MLP),
-``local_attn`` (sliding-window attention + MLP, hybrid), ``rglru`` (RG-LRU
-temporal block + MLP, hybrid) and ``rwkv6`` (time-mix + channel-mix).  The
-MoE MLP raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Block kinds: ``attention`` (GQA/MQA, optional SWA, dense MLP, or the MoE
+layer for the moe family), ``local_attn`` (sliding-window attention + MLP,
+hybrid), ``rglru`` (RG-LRU temporal block + MLP, hybrid) and ``rwkv6``
+(time-mix + channel-mix).
 Recurrent states are nested dicts (rwkv6: ``{"tm": {prev, wkv}, "cm":
 {prev}}``; rglru: ``{h, conv}``), stacked on the repeat axis like the caches.
 """
@@ -23,13 +23,10 @@ from torch import nn
 
 from . import kvcache as kv
 from . import layers as L
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv6_mod
 from .config import ModelConfig
-
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 7 (MoE family: models/moe.py)",
-}
 
 
 # -- static structure -------------------------------------------------------------
@@ -51,13 +48,11 @@ def segment_specs(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 class Block(nn.Module):
     """``_init_block``: norm1, then tm (rwkv6), rglru (rglru) or attn
-    (attention / local_attn); norm2, then cm (rwkv6) or mlp."""
+    (attention / local_attn); norm2, then cm (rwkv6), moe (attention blocks
+    of the moe family) or mlp."""
 
     def __init__(self, cfg: ModelConfig, block_type: str, generator, device):
         super().__init__()
-        kind = "moe" if cfg.family == "moe" else block_type
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{kind} blocks are not ported yet: {_NOT_PORTED[kind]}")
         self.norm1 = L.Norm(cfg.d_model, cfg, device)
         if block_type == "rwkv6":
             self.tm = rwkv6_mod.TimeMix(cfg, generator, device)
@@ -68,6 +63,8 @@ class Block(nn.Module):
         self.norm2 = L.Norm(cfg.d_model, cfg, device)
         if block_type == "rwkv6":
             self.cm = rwkv6_mod.ChannelMix(cfg, generator, device)
+        elif block_type in ("attention", "local_attn") and cfg.family == "moe":
+            self.moe = moe_mod.MoELayer(cfg, generator, device)
         else:
             self.mlp = L.MLP(cfg, generator, device)
 
@@ -123,8 +120,10 @@ def _write(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
 
 def _apply_block(bp: Block, cfg: ModelConfig, btype: str, x: torch.Tensor,
                  positions: torch.Tensor, state: Optional[Dict[str, torch.Tensor]],
-                 mode: str) -> torch.Tensor:
-    """Returns x_out; ``state`` (this layer's cache views) is updated in place."""
+                 mode: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (x_out, aux_loss); the aux loss is None for a block without
+    MoE (JAX's zero, without a launch on the card).  ``state`` (this layer's
+    cache views) is updated in place."""
     if btype == "rwkv6":
         h, tm_state = rwkv6_mod.apply_time_mix(bp.tm, bp.norm1(x), cfg,
                                                state["tm"] if state else None)
@@ -133,13 +132,13 @@ def _apply_block(bp: Block, cfg: ModelConfig, btype: str, x: torch.Tensor,
                                                   state["cm"] if state else None)
         if state is not None:
             _write(state, {"tm": tm_state, "cm": cm_state})
-        return x + h
+        return x + h, None
     if btype == "rglru":
         h, new_state = rglru_mod.apply_rglru_block(bp.rglru, bp.norm1(x), cfg, state)
         if state is not None:
             _write(state, new_state)
         x = x + h
-        return x + bp.mlp(bp.norm2(x))
+        return x + bp.mlp(bp.norm2(x)), None
 
     # attention / local_attn
     window = cfg.sliding_window if (btype == "local_attn" or cfg.sliding_window) else None
@@ -159,24 +158,30 @@ def _apply_block(bp: Block, cfg: ModelConfig, btype: str, x: torch.Tensor,
         B, S, H, hd = out.shape
         h = bp.attn.wo(out.reshape(B, S, H * hd))
     x = x + h
-    return x + bp.mlp(bp.norm2(x))
+    if cfg.family == "moe":
+        h2, aux = moe_mod.apply_moe_layer(bp.moe, bp.norm2(x), cfg)
+        return x + h2, aux
+    return x + bp.mlp(bp.norm2(x)), None
 
 
 def apply_stack(stack: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, caches: Optional[List[Any]] = None,
-                mode: str = "train") -> Tuple[torch.Tensor, Optional[List[Any]]]:
+                mode: str = "train") -> Tuple[torch.Tensor, Optional[List[Any]], torch.Tensor]:
     """Run all segments. mode: train | prefill | decode.
 
-    train:   caches must be None; returns (x, None)
-    prefill: caches are fresh; returns (x, caches filled in place)
+    train:   caches must be None; returns (x, None, aux)
+    prefill: caches are fresh; returns (x, caches filled in place, aux)
     decode:  x is (B, 1, D); caches updated in ring fashion, in place
-    (JAX also returns the MoE aux loss; no ported block has one.)
+    aux is the sum of the blocks' MoE aux losses (0 without MoE blocks).
     """
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (types, n) in enumerate(segment_specs(cfg)):
         for r in range(n):
             for bi, btype in enumerate(types):
                 st = None
                 if caches is not None:
                     st = _tree_map(lambda t: t[r], caches[si][bi])
-                x = _apply_block(stack[si][bi][r], cfg, btype, x, positions, st, mode)
-    return x, caches
+                x, aux = _apply_block(stack[si][bi][r], cfg, btype, x, positions, st, mode)
+                if aux is not None:
+                    aux_total = aux_total + aux
+    return x, caches, aux_total

@@ -40,8 +40,8 @@ def test_the_scan_sees_every_file():
     assert (ROOT / "chip_smoke.py").exists()
     names = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
     assert {"kernels/ops.py", "kernels/rwkv6_scan.py", "kernels/rglru_scan.py",
-            "models/layers.py", "models/rwkv6.py", "models/rglru.py",
-            "launch/serve.py"} <= names
+            "kernels/moe_router.py", "models/layers.py", "models/rwkv6.py",
+            "models/rglru.py", "models/moe.py", "launch/serve.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -1,0 +1,335 @@
+"""The port's MoE layer and router against the JAX package's, on the CPU.
+
+On a CPU tensor ``repro_torch.kernels.ops.moe_router`` runs its plain
+version (``ref.moe_router_ref``); it is held against the JAX Pallas router
+(interpret mode, as tests/test_kernels.py runs it) and against
+``repro.kernels.ref.moe_router_ref`` on the cases of ``TestMoERouter``.
+``models/moe.py``'s functions are held against ``repro.models.moe`` on the
+same numpy inputs and weights.  The reduced configs take ``n_experts`` 16
+(granite, top 8) and 8 (deepseek, top 6, two shared experts), so that top-k
+makes a choice and a group of 32 tokens overflows an expert's capacity (20
+and 30 slots).  The CUDA kernel itself is held against the plain version by
+the ``gpu`` tests, which skip without a card.
+"""
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import init_params as jax_init_params
+from repro.models import moe as jmoe
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import moe_router as prouter
+from repro_torch.kernels import ops as pops
+from repro_torch.kernels import ref as pref
+from repro_torch.models import convert
+from repro_torch.models import moe as pmoe
+
+# Router: the weights of tests/test_kernels.py::TestMoERouter (1e-5); the
+# two softmaxes sum in other orders, a few fp32 ulps (probs below 1).
+ROUTER_ATOL, PROB_ATOL = 1e-5, 1e-6
+# Layer outputs of order 1 (up to 3.5): fp32 sums in another order than
+# XLA's; bf16 rounds at other places, and each side rounds the output once,
+# so a value may also land one bf16 ulp (2**-8 relative) away: rtol 2**-7.
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+REDUCED = {"granite-moe-3b-a800m": 16, "deepseek-moe-16b": 8}   # n_experts
+
+
+def _rand(seed, *shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _cfgs(arch, dtype="float32", impl="einsum"):
+    out = []
+    for get in (jax_get_config, get_config):
+        cfg = get(arch).reduced(n_experts=REDUCED[arch])
+        out.append(dataclasses.replace(cfg, param_dtype=dtype, activation_dtype=dtype,
+                                       moe=dataclasses.replace(cfg.moe, impl=impl)))
+    return out
+
+
+def _tree(cfg, seed=0):
+    """MoE layer weights, numpy, fan-in scaled so that outputs are of order 1."""
+    D, E, Fe = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
+    tree = {"router": _rand(seed, D, E, scale=D ** -0.5),
+            "experts": {"w_gate": _rand(seed + 1, E, D, Fe, scale=D ** -0.5),
+                        "w_up": _rand(seed + 2, E, D, Fe, scale=D ** -0.5),
+                        "w_down": _rand(seed + 3, E, Fe, D, scale=Fe ** -0.5)}}
+    if cfg.moe.n_shared:
+        Fs = cfg.moe.n_shared * Fe
+        tree["shared"] = {"w_gate": _rand(seed + 4, D, Fs, scale=D ** -0.5),
+                          "w_up": _rand(seed + 5, D, Fs, scale=D ** -0.5),
+                          "w_down": _rand(seed + 6, Fs, D, scale=Fs ** -0.5)}
+    return tree
+
+
+def _j(a, dtype="float32"):
+    return jnp.asarray(a).astype(getattr(jnp, dtype))
+
+
+def _t(a, dtype="float32"):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(getattr(torch, dtype))
+
+
+# -- the router: plain version against JAX's kernel and ref --------------------------
+
+def _router_all(logits, k, dtype="float32"):
+    """(port, JAX Pallas interpret, JAX ref) as numpy (w, idx) pairs."""
+    pw, pi = pops.moe_router(_t(logits, dtype), k)
+    assert pw.dtype == torch.float32 and pi.dtype == torch.int32 and pw.shape == (len(logits), k)
+    outs = [(pw.numpy(), pi.numpy())]
+    for w, i in (jops.moe_router(_j(logits, dtype), k, block_t=64),
+                 jref.moe_router_ref(_j(logits, dtype), k)):
+        outs.append((np.asarray(w), np.asarray(i)))
+    return outs
+
+
+@pytest.mark.parametrize("T,E,k", [(64, 8, 2), (100, 64, 6), (256, 40, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_router_shape_sweep(T, E, k, dtype):
+    (pw, pi), *others = _router_all(_rand(10, T, E, scale=2.0), k, dtype)
+    for w, i in others:
+        np.testing.assert_array_equal(pi, i)
+        np.testing.assert_allclose(pw, w, atol=ROUTER_ATOL)
+
+
+@pytest.mark.parametrize("E,k", [(40, 8), (64, 6), (8, 8)])
+def test_router_zero_rows_tie_to_the_lowest_indices(E, k):
+    """Every expert ties on an all-zero row (decode's padded group): the
+    lowest k indices, each with weight 1/k, in JAX and in the port."""
+    logits = _rand(11, 16, E)
+    logits[3:12] = 0.0
+    (pw, pi), *others = _router_all(logits, k)
+    np.testing.assert_array_equal(pi[3:12], np.broadcast_to(np.arange(k), (9, k)))
+    np.testing.assert_allclose(pw[3:12], 1.0 / k, atol=ROUTER_ATOL)
+    for w, i in others:
+        np.testing.assert_array_equal(pi, i)
+        np.testing.assert_allclose(pw, w, atol=ROUTER_ATOL)
+
+
+def test_router_weights_normalized_sorted_unique():
+    w, idx = pops.moe_router(_t(_rand(12, 32, 16, scale=3.0)), 4)
+    torch.testing.assert_close(w.sum(-1), torch.ones(32), rtol=0, atol=1e-5)
+    assert bool((w.diff(dim=-1) <= 1e-7).all())
+    assert all(len(set(row)) == 4 for row in idx.tolist())
+
+
+# -- dispatch ------------------------------------------------------------------------
+
+def test_cpu_dispatches_to_the_plain_version_without_counting():
+    logits = _t(_rand(13, 20, 40))
+    before = pops.moe_router.launches
+    w, idx = pops.moe_router(logits, 8)
+    assert pops.moe_router.launches == before
+    w_ref, idx_ref = pref.moe_router_ref(logits, 8)
+    torch.testing.assert_close(w, w_ref, rtol=0, atol=0)
+    assert torch.equal(idx, idx_ref)
+
+
+def test_non_cpu_tensors_never_run_the_plain_version():
+    """A tensor off the CPU goes to the kernel, which refuses what is not on
+    the card: here a meta tensor, as no card is needed to show it."""
+    before = pops.moe_router.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        pops.moe_router(torch.empty((8, 40), device="meta"), 8)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        prouter.moe_router_cuda(_t(_rand(14, 8, 40)), 8)
+    assert pops.moe_router.launches == before
+
+
+# -- models/moe.py against repro.models.moe --------------------------------------------
+
+@pytest.mark.parametrize("kernel_impl", ["jnp", "pallas"])
+def test_route_matches_jax(kernel_impl):
+    jcfg, pcfg = _cfgs("granite-moe-3b-a800m")
+    logits = _rand(15, 3, 32, jcfg.moe.n_experts, scale=2.0)
+    logits[2, 5:] = 0.0                      # padded rows: every expert ties
+    jw, ji, jp = jmoe._route(_j(logits), jcfg.moe)
+    pw, pi, pp = pmoe._route(_t(logits), pcfg.moe, kernel_impl)
+    assert pi.dtype == torch.int32 and pi.shape == (3, 32, jcfg.moe.top_k)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(pw.numpy(), np.asarray(jw), atol=PROB_ATOL)
+    np.testing.assert_allclose(pp.numpy(), np.asarray(jp), atol=PROB_ATOL)
+
+
+@pytest.mark.parametrize("arch", list(REDUCED))
+def test_dispatch_tensors_drop_overflowing_tokens_as_jax(arch):
+    """Routed to a few experts, most (token, k) pairs overflow capacity:
+    their slot row is all zero in both (``jax.nn.one_hot`` of an index >= C
+    is zero; ``F.one_hot`` would raise)."""
+    jcfg, pcfg = _cfgs(arch)
+    moe, S = jcfg.moe, jcfg.moe.group_size
+    rng = np.random.default_rng(16)
+    idx = np.stack([rng.permutation(moe.n_experts)[:moe.top_k] for _ in range(2 * S)])
+    idx[::2] = np.arange(moe.top_k)            # half the tokens pick the same k experts
+    idx = idx.reshape(2, S, moe.top_k).astype(np.int32)
+    w = np.abs(_rand(17, 2, S, moe.top_k))
+    jd, jc = jmoe._dispatch_tensors(_j(w), jnp.asarray(idx), moe, S)
+    pd, pc = pmoe._dispatch_tensors(_t(w), torch.from_numpy(idx), pcfg.moe, S)
+    C = jd.shape[-1]
+    assert C < S * moe.top_k / moe.n_experts * 2 and float(jd.sum()) < idx.size
+    np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("G,N,E", [(3, 40, 16), (2, 256, 8), (1, 7, 3)])
+def test_rank_within_expert_matches_jax(G, N, E):
+    e_flat = np.random.default_rng(18).integers(0, E, (G, N)).astype(np.int32)
+    expect = np.asarray(jmoe._rank_within_expert(jnp.asarray(e_flat)))
+    got = pmoe._rank_within_expert(torch.from_numpy(e_flat).long())
+    np.testing.assert_array_equal(got.numpy(), expect)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["einsum", "scatter"])
+@pytest.mark.parametrize("arch", list(REDUCED))
+@pytest.mark.parametrize("B,S", [(2, 32), (3, 17)])
+def test_apply_moe_layer_matches_jax(arch, impl, dtype, B, S):
+    """Output and aux loss; 64 tokens fill two groups of 32, 51 are padded
+    to them.  The tokens share a mean, which favours some experts in every
+    group, as unbalanced routing does: the router picks k of E and capacity
+    drops tokens (checked)."""
+    jcfg, pcfg = _cfgs(arch, dtype, impl)
+    tree = _tree(jcfg)
+    x = (_rand(19, B, S, jcfg.d_model) + _rand(24, jcfg.d_model)) * 0.5 ** 0.5
+    layer = convert.load_module(pmoe.MoELayer(pcfg, None, "cpu"), tree)
+    jout, jaux = jmoe.apply_moe_layer(jax.tree_util.tree_map(lambda a: _j(a, dtype), tree),
+                                      _j(x, dtype), jcfg)
+    with torch.no_grad():
+        pout, paux = pmoe.apply_moe_layer(layer, _t(x, dtype), pcfg)
+    assert pout.dtype == getattr(torch, dtype) and paux.dtype == torch.float32
+    np.testing.assert_allclose(pout.float().numpy(), np.asarray(jout, np.float32),
+                               rtol=RTOL[dtype], atol=ATOL[dtype])
+    np.testing.assert_allclose(float(paux), float(jaux), rtol=1e-5)
+
+    moe = jcfg.moe
+    g = moe.group_size
+    assert moe.top_k < moe.n_experts
+    xg = np.pad(x.reshape(B * S, -1), ((0, -B * S % g), (0, 0))).reshape(-1, g, x.shape[-1])
+    top_w, top_idx, _ = jmoe._route(_j(xg) @ _j(tree["router"]), moe)
+    dispatch, _ = jmoe._dispatch_tensors(top_w, top_idx, moe, g)
+    assert float(dispatch.sum()) < top_idx.size, "no token was dropped"
+
+
+@pytest.mark.parametrize("arch", list(REDUCED))
+def test_apply_stack_returns_the_summed_aux_loss_as_jax(arch):
+    """The stack's output and the sum of its MoE layers' aux losses, on JAX's
+    weights, without caches (JAX's train mode).  With JAX's expert init (std
+    1/sqrt(E)) the residual stream reaches ~50, so the output is held
+    normwise: fp32 rounding, 1e-5 of its largest value."""
+    from repro.models import transformer as jT
+    from repro_torch.models import transformer as pT
+    jcfg, pcfg = _cfgs(arch)
+    tree = jax.tree_util.tree_map(np.asarray, jax_init_params(jax.random.key(0), jcfg))
+    model = convert.from_jax(tree, pcfg, "cpu")
+    B, S = 2, 24
+    x = _rand(25, B, S, jcfg.d_model)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    jx, _, jaux = jT.apply_stack(tree["stack"], jcfg, _j(x), jnp.asarray(pos), None, "train")
+    with torch.no_grad():
+        px, caches, paux = pT.apply_stack(model.stack, pcfg, _t(x), torch.from_numpy(pos.copy()))
+    assert caches is None and paux.dtype == torch.float32
+    jx = np.asarray(jx)
+    assert np.abs(px.numpy() - jx).max() <= 1e-5 * max(1.0, np.abs(jx).max())
+    np.testing.assert_allclose(float(paux), float(jaux), rtol=1e-5)
+    assert float(paux) > 0
+
+
+def test_convert_loads_moe_leaves_in_their_layouts():
+    """``router`` and ``experts`` are plain parameters in JAX's layout and
+    load untransposed; ``shared`` lands in ``nn.Linear``s and is transposed.
+    Each is held against JAX's ``x @ w`` on one model's leaves."""
+    jcfg, pcfg = _cfgs("deepseek-moe-16b")
+    tree = jax.tree_util.tree_map(np.asarray, jax_init_params(jax.random.key(0), jcfg))
+    model = convert.from_jax(tree, pcfg, "cpu")
+    jblock = jax.tree_util.tree_map(lambda a: a[1], tree["stack"][0]["blocks"][0]["moe"])
+    layer = model.stack[0][0][1].moe
+    D = jcfg.d_model
+    x = _rand(20, 5, D)
+    np.testing.assert_allclose((_t(x) @ layer.router).detach().numpy(),
+                               x @ jblock["router"], atol=1e-5)
+    for name in ("w_gate", "w_up", "w_down"):
+        w, jw = layer.experts[name].detach().numpy(), jblock["experts"][name]
+        assert w.shape == jw.shape
+        xe = _rand(21, jw.shape[0], 5, jw.shape[1])
+        np.testing.assert_allclose(np.einsum("ebd,edf->ebf", xe, w),
+                                   np.einsum("ebd,edf->ebf", xe, jw), atol=1e-5)
+    for name in ("w_gate", "w_up", "w_down"):
+        lin, jw = getattr(layer.shared, name), jblock["shared"][name]
+        xs = _rand(22, 5, jw.shape[0])
+        np.testing.assert_allclose(lin(_t(xs)).detach().numpy(), xs @ jw, atol=1e-5)
+
+
+# -- the bound chip_smoke.py reports -----------------------------------------------------
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("T,E,k,dtype", [(4096, 40, 8, "float32"), (4096, 64, 6, "float32"),
+                                         (77, 250, 8, "bfloat16")])
+def test_chip_smoke_moe_router_bound(T, E, k, dtype):
+    """Bytes: the logits read once, weights and indices written once.
+    Operations per row: max, subtract, exponential, sum and divide over E,
+    k rounds of E compares, and the k-term sum and k divides."""
+    smoke = _smoke()
+    logits = torch.zeros((T, E), dtype=getattr(torch, dtype))
+    ms, by, flops, nbytes = smoke.moe_router_bound(logits, k)
+    assert flops == T * ((5 + k) * E + 2 * k)
+    assert nbytes == T * E * logits.element_size() + T * k * 8
+    assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
+
+
+# -- on the card -------------------------------------------------------------------
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,k,dtype,zero", [
+    (4096, 40, 8, "float32", False),     # granite-moe prefill
+    (256, 40, 8, "float32", True),       # granite-moe decode: 248 padded rows
+    (4096, 64, 6, "float32", False),     # deepseek-moe
+    (77, 250, 8, "float32", False),      # 8 values a lane, the last lane part-filled
+    (64, 8, 8, "float32", False),        # k = E
+    (4096, 40, 8, "bfloat16", False),
+])
+def test_moe_router_kernel_matches_plain_version_on_card(cuda_device, T, E, k, dtype, zero):
+    logits = _t(_rand(23, T, E, scale=2.0), dtype).to(cuda_device)
+    if zero:
+        logits[8:] = 0
+    before = pops.moe_router.launches
+    w, idx = pops.moe_router(logits, k)
+    torch.cuda.synchronize()
+    assert pops.moe_router.launches == before + 1
+    w_ref, idx_ref = pref.moe_router_ref(logits, k)
+    assert w.dtype == torch.float32 and idx.dtype == torch.int32
+    assert torch.equal(idx, idx_ref)
+    torch.testing.assert_close(w, w_ref, rtol=0, atol=ROUTER_ATOL)
+
+
+@pytest.mark.gpu
+def test_moe_router_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((8, 40), device=cuda_device)
+    for bad, k in ((torch.zeros((8, 300), device=cuda_device), 8), (x, 9), (x, 0),
+                   (x.half(), 8), (x[:0], 8), (x[0], 8)):
+        with pytest.raises(ValueError):
+            prouter.moe_router_cuda(bad, k)

@@ -7,7 +7,9 @@ reduced dense configs cover GQA (smollm), MQA + GeGLU + embedding scale
 longer than the window (h2o-danube).  Two more cover the SSM family (rwkv6,
 chunks of 16 so that the 24-token prompt ends in a ragged chunk) and the
 hybrid (RG-LRU blocks and local attention over a ring cache shorter than the
-prompt).
+prompt).  Two cover the MoE family: granite (16 experts, top 8) and deepseek
+(8 experts, top 6, two shared experts), reduced so that top-k makes a choice
+and capacity drops tokens.
 """
 import dataclasses
 import os
@@ -45,13 +47,18 @@ CASES = {
     "h2o-danube-1.8b": {"sliding_window": 16},
     "rwkv6-1.6b": {"rwkv_chunk": 16},
     "recurrentgemma-9b": {"sliding_window": 16},
+    "granite-moe-3b-a800m": {},
+    "deepseek-moe-16b": {},
 }
+REDUCED = {"granite-moe-3b-a800m": {"n_experts": 16}, "deepseek-moe-16b": {"n_experts": 8}}
+MOE = list(REDUCED)
 PROMPT_LEN, NEW = 24, 8
 
 
 def _configs(arch):
-    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **CASES[arch])
-    pcfg = dataclasses.replace(get_config(arch).reduced(), **CASES[arch])
+    red = REDUCED.get(arch, {})
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(**red), **CASES[arch])
+    pcfg = dataclasses.replace(get_config(arch).reduced(**red), **CASES[arch])
     return jcfg, pcfg
 
 
@@ -68,9 +75,9 @@ def _setup(arch):
 def test_prefill_and_decode_match_jax(arch, impl):
     """Prefill logits, every cache and state leaf, and two decode steps'
     logits.  ``pallas`` also sets ``kernel_impl``: the port then runs its
-    kernel entries (flash attention, the RWKV-6 and RG-LRU scans), which are
-    the plain versions on the CPU; ``auto`` runs the plain attention and
-    ``kernel_impl="jnp"``."""
+    kernel entries (flash attention, the RWKV-6 and RG-LRU scans, the MoE
+    router), which are the plain versions on the CPU; ``auto`` runs the
+    plain attention and ``kernel_impl="jnp"``."""
     jcfg, pcfg, jparams, model, prompts = _setup(arch)
     pcfg = dataclasses.replace(pcfg, attn_impl=impl,
                                kernel_impl="pallas" if impl == "pallas" else "jnp")
@@ -153,6 +160,26 @@ def test_the_calls_config_picks_the_scan_path(monkeypatch, arch, scan, kinds):
     assert calls == []
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_the_calls_config_picks_the_router_path(monkeypatch, arch):
+    """The router entry runs once per MoE layer in a pallas prefill and in
+    every pallas decode step (routing has no single-token variant), and
+    never under ``kernel_impl="jnp"``."""
+    from repro_torch.kernels import ops as pops
+    calls = []
+    real = pops.moe_router
+    monkeypatch.setattr(pops, "moe_router", lambda *a, **k: calls.append(1) or real(*a, **k))
+    _, pcfg = _configs(arch)
+    model = init_params(torch.Generator().manual_seed(0), pcfg, "cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    for impl in ("jnp", "pallas"):
+        cfg = dataclasses.replace(pcfg, kernel_impl=impl)
+        calls.clear()
+        _, caches = prefill(model, {"tokens": tokens}, cfg, 10)
+        decode_step(model, caches, tokens[:, 0], 8, cfg)
+        assert len(calls) == (2 * pcfg.n_layers if impl == "pallas" else 0), impl
+
+
 @pytest.mark.parametrize("arch", list(CASES))
 def test_greedy_generate_tokens_identical(arch):
     jcfg, pcfg, jparams, model, prompts = _setup(arch)
@@ -161,7 +188,7 @@ def test_greedy_generate_tokens_identical(arch):
     np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b", *MOE])
 def test_greedy_generate_tokens_identical_through_kernel_entries(arch):
     """As above, with ``kernel_impl`` and ``attn_impl`` set to ``pallas``: the
     port's prefill goes through its kernel entries (the plain versions on the
@@ -229,21 +256,20 @@ def test_serve_cli_matches_jax_param_count(capsys):
     assert first == f"[serve] gemma-2b: {n:,} params"
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("deepseek-moe-16b", "item 7"), ("hubert-xlarge", "item 10"), ("paligemma-3b", "item 10")])
+@pytest.mark.parametrize("arch,item", [("hubert-xlarge", "item 10"), ("paligemma-3b", "item 10")])
 def test_unported_families_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         init_params(torch.Generator().manual_seed(0), get_config(arch).reduced(), "cpu")
 
 
 def test_serve_cli_rejects_unported_family():
-    for arch in ("deepseek-moe-16b", "paligemma-3b"):   # MoE; a frontend
-        with pytest.raises(SystemExit, match="not yet ported"):
-            port_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not yet ported"):   # a frontend
+        port_serve.main(["--arch", "paligemma-3b", "--reduced", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
-def test_serve_cli_runs_recurrent_families_on_cpu(capsys, arch):
+def _serve_cli_on_cpu(capsys, arch):
+    """The CLI at reduced size through the kernel entries (plain versions on
+    the CPU): its four lines, and finite logits of the expected shapes."""
     res = port_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                            "--batch", "2", "--prompt-len", "20", "--new-tokens", "4"])
     lines = capsys.readouterr().out.splitlines()
@@ -251,6 +277,16 @@ def test_serve_cli_runs_recurrent_families_on_cpu(capsys, arch):
     assert res.cfg.kernel_impl == res.cfg.attn_impl == "pallas"
     assert tuple(res.tokens.shape) == (2, 4) and len(res.step_logits) == 3
     assert all(bool(torch.isfinite(x).all()) for x in [res.prefill_logits, *res.step_logits])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_serve_cli_runs_recurrent_families_on_cpu(capsys, arch):
+    _serve_cli_on_cpu(capsys, arch)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_serve_cli_runs_moe_family_on_cpu(capsys, arch):
+    _serve_cli_on_cpu(capsys, arch)
 
 
 def test_serve_draws_weights_with_a_generator_on_its_device(monkeypatch):
