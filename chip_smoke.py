@@ -8,7 +8,9 @@ non-zero exit:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
    build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` each, all started together) and print ptxas' reports.
+   ``nvcc`` each, all started together) and print ptxas' reports; K1's
+   tiles, shared memory and blocks an SM for each (dtype, head_dim), and the
+   HMMA (tensor-core) instructions in each of its kernels' SASS.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and edge cases (ragged lengths, initial states, a
    sequence run in two halves, tied router rows, bf16), with stated
@@ -30,7 +32,10 @@ non-zero exit:
    trace of one warm prefill and 8 warm decode steps (wall time, the
    device's busy and idle share, the kernels that took the most device
    time); then each kernel, its plain version and, where one exists, the
-   PyTorch library call (CUDA events), each printed with the card.
+   PyTorch library call (CUDA events), each printed with the card.  K1 is
+   timed at the smollm, granite-moe and recurrentgemma shapes, in fp32 and
+   bf16, beside ``scaled_dot_product_attention`` (and the CUDA kernel it
+   launched, by its profiler name) and both of its bounds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -41,6 +46,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,8 +55,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM data sheet, dense, at the full 700 W: CUDA-core fp32 and HBM rates.
+# H100 SXM data sheet, dense, at the full 700 W: CUDA-core fp32, tensor-core
+# TF32 and bf16, and HBM rates.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 KERNELS = ("flash_attention", "rwkv6_scan", "rglru_scan", "moe_router")
 # Kernel against plain version: the tolerances of tests/test_kernels.py.
@@ -142,26 +151,44 @@ def trace(name: str, fn, card: str) -> None:
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
 
 
-def device_ms(fn, match: str = "", iters: int = 50) -> float:
-    """Mean device time per call of ``fn`` (``torch.profiler``): the summed
-    time of the kernels whose name contains ``match`` (every kernel for
-    ""), over ``iters`` calls after a warm-up.  Unlike ``time_ms`` it leaves
-    out the host's time between launches, which paces a call whose kernels
-    take a few microseconds."""
-    import torch
+def device_ms(torch, fn, match: str = "", iters: int = 50) -> float:
+    """Mean device time per call of ``fn`` (``torch.profiler``): the time of
+    the kernels whose name contains ``match`` (every kernel for ""), over
+    ``iters`` calls after a warm-up.  Unlike ``time_ms`` it leaves out the
+    host's time between launches, which paces a call whose kernels take a
+    few microseconds."""
+    ms = per_call_ms(device_kernels(torch, fn, iters), iters, match)
+    assert ms > 0, f"no device time for {match!r}"
+    return ms
+
+
+def device_kernels(torch, fn, calls: int = 10) -> list:
+    """(name, launches kept, total device ms) of each CUDA kernel that
+    ``calls`` warm calls of ``fn`` launch, from ``torch.profiler``; fails on
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and match in e.key)
-    assert us > 0, f"no device time for {match!r}"
-    return us / iters / 1e3
+    found = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    assert found, "the profiler saw no kernel"
+    return found
+
+
+def per_call_ms(kernels, calls: int, match: str = "") -> float:
+    """Device ms a call from ``device_kernels``' records of ``calls`` calls:
+    each kernel's mean over the launches the profiler kept, times its
+    launches a call (ceil(kept / calls)).  Late in a process that has
+    profiled some 10^5 launches, torch.profiler drops kernel records (on an
+    H100, 1 to 3 in 10 of a later run), so a total divided by the calls
+    reads low."""
+    return sum(ms / n * math.ceil(n / calls) for name, n, ms in kernels if match in name)
 
 
 def attention_inputs(torch, dev, seed, B, Sq, Sk, H, K, hd, dtype, q0=None):
@@ -177,7 +204,13 @@ def attention_inputs(torch, dev, seed, B, Sq, Sk, H, K, hd, dtype, q0=None):
 def attention_bound(q, k, v, qp, kp, causal=True, window=None):
     """Least time for the function on this card: operations (4*hd per allowed
     (query, key) pair, counted from these positions) over the fp32 CUDA-core
-    peak, or bytes (each input read once, the output written once) over HBM."""
+    peak, or bytes (each input read once, the output written once) over HBM.
+    Then the bound of K1's tensor-core scheme: fp32 runs each product as
+    three TF32 products (3 x operations over the TF32 peak); bf16 runs
+    Q K^T once and P V twice (P as bf16 hi + lo), 1.5 x operations over the
+    bf16 peak; or bytes, whichever is larger.  Returns (ms, bound_by, flops,
+    bytes, tensor-core ms, its bound_by)."""
+    import torch
     d = qp[:, :, None] - kp[:, None, :]
     ok = kp[:, None, :] >= 0
     if causal:
@@ -188,7 +221,13 @@ def attention_bound(q, k, v, qp, kp, causal=True, window=None):
     flops = 4.0 * hd * H * int(ok.sum())
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, qp, kp)) \
         + q.numel() * q.element_size()
-    return _bound(flops, nbytes)
+    if q.dtype == torch.bfloat16:
+        t_ops = 1.5 * flops / PEAK_BF16_FLOPS
+    else:
+        t_ops = 3.0 * flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return _bound(flops, nbytes) + (max(t_ops, t_bytes) * 1e3,
+                                    "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _bound(flops, nbytes):
@@ -255,6 +294,36 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def report_k1_build(torch, fa, nvcc: str, lib: Path, card: str) -> None:
+    """K1's keys per tile, shared memory and blocks an SM for each (dtype,
+    head_dim), as the card reports them; then the instructions in each of
+    its kernels' SASS (``cuobjdump -sass``), HMMA (tensor core) and LDSM
+    (ldmatrix) counted apart."""
+    import re
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in fa.HEAD_DIMS:
+            log(f"[build] flash_attention {str(dtype)[6:]} hd {hd}: "
+                f"{fa.tile_config(dtype, hd)} {card}")
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+        if m:
+            fn = ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
+            counts[fn] = {"instructions": 0, "HMMA": 0, "LDSM": 0}
+            continue
+        op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+        if fn and op:
+            counts[fn]["instructions"] += 1
+            for name in ("HMMA", "LDSM"):
+                counts[fn][name] += op.group(1) == name
+    for (dtype, hd), c in sorted(counts.items()):
+        log(f"[build] flash_attention {dtype} hd {hd} SASS: {c}")
+    assert counts and all(c["HMMA"] > 0 for c in counts.values()), "K1 runs no HMMA"
+
+
 # -- phase 2 ---------------------------------------------------------------------------
 
 def check_flash_attention(torch, dev, ops, ref) -> float:
@@ -272,6 +341,20 @@ def check_flash_attention(torch, dev, ops, ref) -> float:
          {"window": 2048}, None),
         ("gemma-2b hd256 MQA bf16", (2, 256, 256, 8, 1, 256), bf16, {}, None),
         ("granite-moe prefill", (8, 512, 512, 24, 8, 64), f32, {}, None),
+        # tile edges: lengths off the 64-row block and the 32/64-key tile,
+        # queries short of the last keys (chunked prefill), hd 128/256 in bf16,
+        # and a q whose pointer and strides are not 16-byte multiples
+        ("tile edges S=77", (2, 77, 77, 4, 2, 64), f32, {}, None),
+        ("tile edges S=77 bf16", (2, 77, 77, 4, 2, 64), bf16, {}, None),
+        ("chunked prefill, queries at 54..149 of 300 keys", (2, 96, 300, 4, 2, 64), f32, {},
+         "chunked"),
+        ("chunked prefill bf16", (2, 96, 300, 4, 2, 64), bf16, {}, "chunked"),
+        ("hd256 short block, window, queries at 17..49 of 200 keys", (2, 33, 200, 8, 1, 256),
+         f32, {"window": 24}, "chunked"),
+        ("hd128 bf16 ragged", (2, 130, 170, 4, 2, 128), bf16, {}, None),
+        ("hd256 bf16 ragged", (2, 130, 170, 8, 1, 256), bf16, {}, None),
+        ("unaligned q view", (2, 100, 100, 4, 2, 64), f32, {}, "unaligned"),
+        ("unaligned q view bf16", (2, 100, 100, 4, 2, 64), bf16, {}, "unaligned"),
     ]
     main_err = None
     for i, (name, shape, dtype, kw, edit) in enumerate(cases):
@@ -281,6 +364,11 @@ def check_flash_attention(torch, dev, ops, ref) -> float:
             kp[:, 96:200] = -1
         if edit == "masked_row":
             qp[1, 7] = -1
+        if edit == "chunked":
+            qp -= 150
+        if edit == "unaligned":   # the same values, one element into a wider row
+            q = torch.nn.functional.pad(q, (1, 0))[..., 1:]
+            assert q.data_ptr() % 16 and q.stride(2) * q.element_size() % 16
         out = ops.flash_attention(q, k, v, qp, kp, causal=True, **kw)
         torch.cuda.synchronize()
         exp = ref.flash_attention_ref(q, k, v, qp, kp, causal=True, **kw)
@@ -668,6 +756,55 @@ def time_pair(kernel_fn, plain_fn, iters_plain: int):
     return min(runs["kernel"]), min(runs["plain"]), runs
 
 
+# K1's timed shapes: label, (B, Sq, Sk, H, K, hd), window, seed (the phase-2
+# case of the same shape).  With S=512 recurrentgemma's window of 2048 masks
+# nothing beyond causal, so SDPA with is_causal computes the same function.
+ATTN_SHAPES = (
+    ("smollm", (8, 512, 512, 9, 3, 64), None, 100),
+    ("granite-moe", (8, 512, 512, 24, 8, 64), None, 109),
+    ("recurrentgemma local_attn", (8, 512, 512, 16, 1, 256), 2048, 107),
+)
+
+
+def time_attention(torch, dev, ops, ref, card, label, shape, window, seed) -> dict:
+    """K1 at one serving shape: fp32 kernel and plain version interleaved,
+    the bf16 kernel, PyTorch's ``scaled_dot_product_attention`` on the same
+    fp32 inputs (kv heads expanded beforehand, not timed) and the kernels it
+    launched, and both bounds."""
+    import torch.nn.functional as F
+    q, k, v, qp, kp = attention_inputs(torch, dev, seed, *shape, torch.float32)
+    G = shape[3] // shape[4]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in
+                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    plain = lambda: ref.flash_attention_ref(q, k, v, qp, kp, window=window)
+    lib_err = max_err(sdpa().transpose(1, 2), plain())
+    kms, pms, runs = time_pair(lambda: ops.flash_attention(q, k, v, qp, kp, window=window),
+                               plain, 20)
+    library_ms = time_ms(sdpa)
+    lib_kernels = [(name, n, ms / n) for name, n, ms in device_kernels(torch, sdpa)]
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp, window=window))
+    bound = attention_bound(q, k, v, qp, kp, window=window)
+    bound_bf16 = attention_bound(qb, kb, vb, qp, kp, window=window)
+    B, S, _, H, K, hd = shape
+    where = f"{label} B={B} S={S} H={H} K={K} hd={hd}" + (f" window {window}" if window else "")
+    log(f"[time] flash_attention kernel fp32 {where}: {kms!r} ms {card} (runs {runs})")
+    log(f"[time] flash_attention kernel bf16 {where}: {bf16_ms!r} ms {card}")
+    log(f"[time] flash_attention plain version fp32 {where}: {pms!r} ms {card}")
+    log(f"[time] torch scaled_dot_product_attention fp32 {where} (kv heads expanded "
+        f"beforehand; max_abs_err vs plain {lib_err!r}): {library_ms!r} ms {card}; its "
+        f"kernels (name, launches the profiler kept of 10, device ms a launch): {lib_kernels}")
+    log(f"[time] flash_attention bounds {where}: fp32 {bound[0]!r} ms by {bound[1]} on the "
+        f"CUDA cores, {bound[4]!r} ms by {bound[5]} as 3xTF32 on the tensor cores; bf16 "
+        f"{bound_bf16[4]!r} ms by {bound_bf16[5]} on the tensor cores ({bound[2]:.4g} flop, "
+        f"{bound[3]:.4g} bytes fp32) {card}")
+    return {"ms": kms, "bf16_ms": bf16_ms, "plain_ms": pms, "library_ms": library_ms,
+            "library_kernels": [name for name, _, _ in lib_kernels], "bound": bound[:4],
+            "bound_ms": bound[0], "tensor_core_bound_ms": bound[4],
+            "bf16_tensor_core_bound_ms": bound_bf16[4]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -676,6 +813,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
     from repro_torch.models import decode_step, prefill
     from repro_torch.models.transformer import leaves
@@ -700,6 +838,8 @@ def main() -> int:
             f"-> {info.path.name}")
         for line in info.log.splitlines():
             log(f"[build]   {line}")
+    report_k1_build(torch, fa, _build._nvcc(), infos[KERNELS.index("flash_attention")].path,
+                    card)
 
     # -- 2. kernels against their plain versions, on the card --------------------------------
     errs = {"flash_attention": check_flash_attention(torch, dev, ops, ref),
@@ -716,39 +856,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 4. kernel times at the serving shapes ----------------------------------------------
-    import torch.nn.functional as F
     f32, bf16 = torch.float32, torch.bfloat16
     times = {}
-    q, k, v, qp, kp = attention_inputs(torch, dev, 100, 8, 512, 512, 9, 3, 64, f32)
-    G = q.shape[2] // k.shape[2]
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in
-                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
-    lib_err = max_err(F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2),
-                      ref.flash_attention_ref(q, k, v, qp, kp))
-    kms, pms, runs = time_pair(lambda: ops.flash_attention(q, k, v, qp, kp),
-                               lambda: ref.flash_attention_ref(q, k, v, qp, kp), 50)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    times["flash_attention"] = (kms, pms, attention_bound(q, k, v, qp, kp), library_ms)
-    qb, kb, vb = (x.to(bf16) for x in (q, k, v))
-    bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp))
-    shape = "B=8 S=512 H=9 K=3 hd=64 causal"
-    log(f"[time] flash_attention kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
-    log(f"[time] flash_attention kernel bf16 {shape}: {bf16_ms!r} ms {card}")
-    log(f"[time] flash_attention plain version fp32 {shape}: {pms!r} ms {card}")
-    log(f"[time] torch scaled_dot_product_attention fp32 {shape} (kv heads expanded "
-        f"beforehand; max_abs_err vs plain {lib_err!r}): {library_ms!r} ms {card}")
-    q, k, v, qp, kp = attention_inputs(torch, dev, 107, 8, 512, 512, 16, 1, 256, f32)
-    hyb_ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp, window=2048))
-    hyb_bound = attention_bound(q, k, v, qp, kp, window=2048)
-    log(f"[time] flash_attention kernel fp32 recurrentgemma local_attn B=8 S=512 H=16 K=1 "
-        f"hd=256 window 2048: {hyb_ms!r} ms, bound {hyb_bound[0]!r} ms by {hyb_bound[1]} {card}")
-    q, k, v, qp, kp = attention_inputs(torch, dev, 109, 8, 512, 512, 24, 8, 64, f32)
-    moe_ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp))
-    moe_bound = attention_bound(q, k, v, qp, kp)
-    log(f"[time] flash_attention kernel fp32 granite-moe B=8 S=512 H=24 K=8 hd=64 causal: "
-        f"{moe_ms!r} ms, bound {moe_bound[0]!r} ms by {moe_bound[1]}, plain "
-        f"{time_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp))!r} ms {card}")
-    del q, k, v, qp, kp, qt, kt, vt, qb, kb, vb
+    attn = {label: time_attention(torch, dev, ops, ref, card, label, shape, window, seed)
+            for label, shape, window, seed in ATTN_SHAPES}
+    k1 = attn[ATTN_SHAPES[0][0]]
+    times["flash_attention"] = (k1["ms"], k1["plain_ms"], k1["bound"], k1["library_ms"])
 
     r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 200, 8, 512, 32, 64, f32)
     kms, pms, runs = time_pair(lambda: ops.rwkv6_scan(r, k, v, logw, u, s0),
@@ -782,7 +895,8 @@ def main() -> int:
         runs = {}
         for turn in ("plain", "kernel", "kernel", "plain"):
             runs.setdefault(turn, []).append(
-                device_ms(kernel, "moe_router_kernel") if turn == "kernel" else device_ms(plain))
+                device_ms(torch, kernel, "moe_router_kernel") if turn == "kernel"
+                else device_ms(torch, plain))
         kms, pms = min(runs["kernel"]), min(runs["plain"])
         bound = moe_router_bound(logits, k)
         if i == 0:
@@ -792,7 +906,7 @@ def main() -> int:
             f"{bound[0]!r} ms by {bound[1]} {card} (runs {runs})")
         log(f"[time] moe_router plain version fp32 {shape}: {pms!r} ms device time a call {card}")
         log(f"[time] softmax -> topk -> renormalise, PyTorch calls unfused (not used by the "
-            f"port), fp32 {shape}: {device_ms(chain)!r} ms device time a call {card}")
+            f"port), fp32 {shape}: {device_ms(torch, chain)!r} ms device time a call {card}")
         log(f"[time] moe_router per call, paced by the host (CUDA events over 50 back-to-back "
             f"calls), fp32 {shape}: kernel wrapper {time_ms(kernel)!r} ms, plain version "
             f"{time_ms(plain)!r} ms, unfused PyTorch calls {time_ms(chain)!r} ms {card}")
@@ -816,7 +930,12 @@ def main() -> int:
             "launches": sum(paths.values()), "launches_per_path": paths,
             "max_abs_err": errs[name], "ms": kms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "library_ms": lms,
+            # only K1 runs on the tensor cores: the bound of its scheme (3xTF32)
+            "tensor_core_bound_ms": k1["tensor_core_bound_ms"]
+            if name == "flash_attention" else None,
         })
+    kernels[KERNELS.index("flash_attention")]["shapes"] = {
+        label: {key: val for key, val in r.items() if key != "bound"} for label, r in attn.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -15,7 +15,7 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_cuda", "HEAD_DIMS", "DTYPES"]
+__all__ = ["flash_attention_cuda", "tile_config", "HEAD_DIMS", "DTYPES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
@@ -79,3 +79,24 @@ def flash_attention_cuda(
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles_fn():
+    fn = _build.load_library("flash_attention").flash_attention_tiles
+    I, P = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [I, I, P, P, P]   # dtype hd -> block_keys smem_bytes blocks_per_sm
+    fn.restype = I
+    return fn
+
+
+def tile_config(dtype: torch.dtype, head_dim: int) -> dict:
+    """The kernel's keys per tile, dynamic shared memory a block and blocks
+    an SM can hold for one (dtype, head_dim), as the card reports them."""
+    if dtype not in DTYPES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"no kernel for {dtype}, head_dim {head_dim}")
+    out = [ctypes.c_int() for _ in range(3)]
+    err = _tiles_fn()(DTYPES[dtype], head_dim, *(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_tiles failed: cudaError_t {err}")
+    return dict(zip(("block_keys", "smem_bytes", "blocks_per_sm"), (x.value for x in out)))

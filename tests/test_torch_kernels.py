@@ -6,6 +6,9 @@ tests/test_kernels.py runs it) and against ``repro.kernels.ref``, on the
 cases of ``TestFlashAttention``.  The CUDA kernel itself is held against the
 plain version by the ``gpu`` tests, which skip without a card.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,6 +155,12 @@ def test_non_cpu_tensor_never_runs_the_plain_version():
     assert pops.flash_attention.launches == before
 
 
+def test_tile_config_refuses_what_has_no_kernel():
+    for dtype, hd in ((torch.float16, 64), (torch.float32, 96)):
+        with pytest.raises(ValueError, match="no kernel"):
+            pfa.tile_config(dtype, hd)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(6, 1, 8, 8, 1, 1, 64))
     qp, kp = (torch.from_numpy(a) for a in _positions(1, 8, 8))
@@ -159,16 +168,21 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         pfa.flash_attention_cuda(q, k, v, qp, kp)
 
 
-@pytest.mark.parametrize("window,holes", [(None, False), (4, False), (None, True)])
-def test_chip_smoke_bound_counts_only_allowed_pairs(window, holes):
-    """The bound that chip_smoke.py reports counts 4*hd flops per (query, key)
-    pair the mask allows and each input read once, the output written once."""
-    import importlib.util
-    from pathlib import Path
+def _load_chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("window,holes", [(None, False), (4, False), (None, True)])
+def test_chip_smoke_bound_counts_only_allowed_pairs(window, holes):
+    """The bound that chip_smoke.py reports counts 4*hd flops per (query, key)
+    pair the mask allows and each input read once, the output written once;
+    the tensor-core bound of K1's scheme takes 3 TF32 products for fp32 and
+    1 + 2 bf16 products of half the work each for bf16."""
+    smoke = _load_chip_smoke()
     B, S, H, K, hd = 2, 16, 3, 1, 64
     q, k, v = (torch.from_numpy(a) for a in _inputs(7, B, S, S, H, K, hd))
     qp, kp = (torch.from_numpy(a) for a in _positions(B, S, S))
@@ -176,13 +190,199 @@ def test_chip_smoke_bound_counts_only_allowed_pairs(window, holes):
         kp[:, 3:7] = -1
     pairs = sum(1 for i in range(S) for j in range(S)
                 if j <= i and (window is None or i - j < window) and not (holes and 3 <= j < 7))
-    ms, by, flops, nbytes = smoke.attention_bound(q, k, v, qp, kp, window=window)
+    ms, by, flops, nbytes, tc_ms, tc_by = smoke.attention_bound(q, k, v, qp, kp, window=window)
     assert flops == 4 * hd * H * B * pairs
     assert nbytes == 4 * (2 * q.numel() + k.numel() + v.numel() + qp.numel() + kp.numel())
     assert ms == pytest.approx(1e3 * max(flops / smoke.PEAK_FP32_FLOPS,
                                          nbytes / smoke.PEAK_HBM_BYTES))
     assert by == ("operations" if flops / smoke.PEAK_FP32_FLOPS >= nbytes / smoke.PEAK_HBM_BYTES
                   else "bytes")
+    t_ops, t_bytes = 3 * flops / smoke.PEAK_TF32_FLOPS, nbytes / smoke.PEAK_HBM_BYTES
+    assert tc_ms == pytest.approx(1e3 * max(t_ops, t_bytes))
+    assert tc_by == ("operations" if t_ops >= t_bytes else "bytes")
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    _, _, flops_b, nbytes_b, tc_b, _ = smoke.attention_bound(qb, kb, vb, qp, kp, window=window)
+    assert flops_b == flops
+    assert nbytes_b == 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (qp.numel() + kp.numel())
+    assert tc_b == pytest.approx(1e3 * max(1.5 * flops / smoke.PEAK_BF16_FLOPS,
+                                           nbytes_b / smoke.PEAK_HBM_BYTES))
+
+
+def test_chip_smoke_device_time_survives_dropped_profiler_records():
+    """Late in a long run torch.profiler keeps only some kernel records;
+    chip_smoke's per-call device time averages over the launches it kept."""
+    smoke = _load_chip_smoke()
+    calls = 10
+    kept = [("router_kernel", 7, 7 * 0.005),            # 1 launch a call, 3 records lost
+            ("sort_kernel", 17, 17 * 0.002),            # 2 launches a call, 3 lost
+            ("softmax_kernel", 10, 10 * 0.001)]         # 1 launch a call, none lost
+    assert smoke.per_call_ms(kept, calls, "router") == pytest.approx(0.005)
+    assert smoke.per_call_ms(kept, calls) == pytest.approx(0.005 + 2 * 0.002 + 0.001)
+
+
+# -- the kernel's arithmetic, emulated on the CPU -----------------------------------
+# The CUDA kernel runs both products on the tensor cores.  fp32: each operand
+# x is split into big = tf32(x) and small = tf32(x - big), rounded as
+# cvt.rna.tf32 rounds (to nearest, ties away from zero, to 10 mantissa bits),
+# and a product is small*big + big*small + big*big accumulated in fp32.
+# bf16: S = Q K^T from exact bf16 products in fp32; P (fp32) is split into
+# bf16 hi + lo and O += lo V + hi V.  The online softmax runs over key tiles
+# with the kernel's -inf / m_use rules.  Matrix sums are taken in another
+# order than the tensor cores take them, which is rounding of fp32 sums.
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: add 0x1000 to the fp32 bit pattern, clear the low 13 bits."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _split_tf32(x):
+    big = _rna_tf32(x)
+    return big, _rna_tf32(x - big)
+
+
+def _tc_product(a, b, scheme):
+    """a @ b on the tensor cores: 'split' (3xTF32), 'tf32' (one TF32
+    product, no split) or 'bf16' (exact bf16 products, fp32 sums)."""
+    if scheme == "split":
+        (ab, as_), (bb, bs) = _split_tf32(a), _split_tf32(b)
+        return as_ @ bb + ab @ bs + ab @ bb
+    if scheme == "tf32":
+        return _rna_tf32(a) @ _rna_tf32(b)
+    return a @ b
+
+
+def _emulate_kernel(q, k, v, qp, kp, causal=True, window=None, softcap=None,
+                    scheme="split", block_k=32):
+    """The kernel's arithmetic in fp32 on the CPU, tile by tile; inputs as
+    the kernel takes them (fp32 for 'split'/'tf32', bf16 for 'bf16')."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    qh = q.float().permute(0, 2, 1, 3)                                # (B,H,Sq,hd)
+    kh = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)    # (B,H,Sk,hd)
+    vh = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    m = torch.full((B, H, Sq, 1), -torch.inf)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, hd))
+    for k0 in range(0, k.shape[1], block_k):
+        ks, vs = kh[:, :, k0:k0 + block_k], vh[:, :, k0:k0 + block_k]
+        kpt = kp[:, k0:k0 + block_k]
+        s = _tc_product(qh, ks.transpose(-1, -2), scheme) * np.float32(1 / np.sqrt(hd))
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        d = qp[:, :, None] - kpt[:, None, :]
+        ok = (kpt[:, None, :] >= 0) & ((d >= 0) if causal else True)
+        if window is not None:
+            ok = ok & (d < window)
+        s = s.masked_fill(~ok[:, None], -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)          # no key seen yet
+        alpha = torch.exp(m - m_use)                                  # 0 while m is -inf
+        p = torch.exp(s - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if scheme == "bf16":
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = lo @ vs + hi @ vs
+        else:
+            pv = _tc_product(p, vs, scheme)
+        o = o * alpha + pv
+        m = m_new
+    out = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def test_rna_tf32_rounds_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10                                   # tf32 ulp at 1
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 4,
+                      1 + 3 * one_ulp / 4, 3.0, 0.0], dtype=torch.float32)
+    expect = [1 + one_ulp, -(1 + one_ulp), 1.0, 1 + one_ulp, 3.0, 0.0]
+    assert _rna_tf32(x).tolist() == expect
+    big, small = _split_tf32(torch.from_numpy(
+        np.random.default_rng(0).standard_normal(4096).astype(np.float32)))
+    assert torch.all(_rna_tf32(big) == big) and torch.all(_rna_tf32(small) == small)
+
+
+def test_3xtf32_split_keeps_fp32_products():
+    """One TF32 product loses about 2^-11 of each operand; the split drops
+    only small*small, about 2^-22."""
+    rng = np.random.default_rng(1)
+    a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((64, 256), (256, 64)))
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+    err_split = float((_tc_product(a, b, "split").double() - exact).abs().max()) / scale
+    err_tf32 = float((_tc_product(a, b, "tf32").double() - exact).abs().max()) / scale
+    err_fp32 = float(((a @ b).double() - exact).abs().max()) / scale
+    assert err_split < 4 * err_fp32 + 2.0 ** -22
+    assert err_tf32 > 100 * err_split
+
+
+_EMULATION_CASES = {  # name: (B, Sq, Sk, H, K, hd), kwargs, edit
+    "causal hd64 GQA": ((2, 96, 96, 4, 2, 64), {}, None),
+    "window+softcap hd64": ((2, 80, 80, 2, 2, 64), {"window": 24, "softcap": 20.0}, None),
+    "ring holes": ((1, 40, 96, 2, 1, 64), {}, "holes"),
+    "chunked offset queries": ((2, 40, 100, 4, 2, 64), {}, "offset"),
+    "causal hd256 MQA": ((1, 70, 70, 4, 1, 256), {}, None),
+    "non-causal hd128": ((1, 50, 60, 2, 1, 128), {"causal": False}, None),
+}
+
+
+def _emulation_inputs(name, dtype):
+    shape, kw, edit = _EMULATION_CASES[name]
+    B, Sq, Sk, H, K, hd = shape
+    arrays = _inputs(11, B, Sq, Sk, H, K, hd)
+    qp, kp = _positions(B, Sq, Sk, q0=Sk - Sq - 25 if edit == "offset" else None)
+    if edit == "holes":
+        kp[:, 20:50] = -1
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    return (q, k, v, torch.from_numpy(qp), torch.from_numpy(kp)), dict(kw)
+
+
+@pytest.mark.parametrize("name", list(_EMULATION_CASES))
+def test_emulated_3xtf32_kernel_meets_fp32_atol(name):
+    """The fp32 kernel's scheme against both plain versions at ATOL 2e-5."""
+    args, kw = _emulation_inputs(name, torch.float32)
+    causal = kw.pop("causal", True)
+    emu = _emulate_kernel(*args, causal=causal, **kw)
+    exp = pref.flash_attention_ref(*args, causal=causal, **kw)
+    jexp = np.asarray(jref.flash_attention_ref(*(jnp.asarray(a.numpy()) for a in args),
+                                               causal=causal, **kw))
+    np.testing.assert_allclose(emu.numpy(), exp.numpy(), rtol=0, atol=ATOL["float32"])
+    np.testing.assert_allclose(emu.numpy(), jexp, rtol=0, atol=ATOL["float32"])
+
+
+@pytest.mark.parametrize("name", list(_EMULATION_CASES))
+def test_emulated_bf16_kernel_meets_bf16_atol(name):
+    """bf16: exact products for S, P split into bf16 hi + lo for P V."""
+    args, kw = _emulation_inputs(name, torch.bfloat16)
+    causal = kw.pop("causal", True)
+    emu = _emulate_kernel(*args, causal=causal, scheme="bf16", **kw)
+    exp = pref.flash_attention_ref(*args, causal=causal, **kw)
+    torch.testing.assert_close(emu.float(), exp.float(), rtol=0, atol=ATOL["bfloat16"])
+
+
+@pytest.mark.parametrize("name", ["causal hd64 GQA", "causal hd256 MQA"])
+def test_single_tf32_product_misses_fp32_atol(name):
+    """Why the split exists: one TF32 product per matmul is off by far more
+    than the fp32 tolerance, where the 3xTF32 scheme meets it."""
+    args, kw = _emulation_inputs(name, torch.float32)
+    exp = pref.flash_attention_ref(*args, **kw)
+    err_tf32 = float((_emulate_kernel(*args, scheme="tf32", **kw) - exp).abs().max())
+    err_split = float((_emulate_kernel(*args, **kw) - exp).abs().max())
+    assert err_tf32 > 10 * ATOL["float32"]
+    assert err_split <= ATOL["float32"]
+
+
+def test_emulated_fully_masked_row_is_zero():
+    args, kw = _emulation_inputs("causal hd64 GQA", torch.float32)
+    q, k, v, qp, kp = args
+    qp[1, 9] = -4                                    # before every key
+    out = _emulate_kernel(q, k, v, qp, kp)
+    assert torch.count_nonzero(out[1, 9]) == 0
+    torch.testing.assert_close(out, pref.flash_attention_ref(q, k, v, qp, kp),
+                               rtol=0, atol=ATOL["float32"])
 
 
 # -- on the card -------------------------------------------------------------------
@@ -229,3 +429,47 @@ def test_kernel_ring_holes_and_masked_row_on_card(cuda_device):
     torch.testing.assert_close(out, pref.flash_attention_ref(q, k, v, qp, kp),
                                rtol=0, atol=ATOL["float32"])
     assert torch.count_nonzero(out[1, 3]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,q0,H,K,hd,window", [
+    (77, 77, None, 4, 2, 64, None),     # lengths off the 64-row block and the key tile
+    (96, 300, 150, 4, 2, 64, None),     # chunked prefill: queries at 150..245, keys past them
+    (33, 200, 120, 8, 1, 256, 64),      # hd 256: one short block, window, offset
+    (130, 170, None, 4, 2, 128, None),  # hd 128, ragged
+    (130, 170, None, 8, 1, 256, None),  # hd 256, ragged
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_tile_edges_on_card(cuda_device, Sq, Sk, q0, H, K, hd, window, dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+               for a in _inputs(9, 2, Sq, Sk, H, K, hd))
+    qp, kp = (torch.from_numpy(a).to(cuda_device) for a in _positions(2, Sq, Sk, q0=q0))
+    out = pops.flash_attention(q, k, v, qp, kp, causal=True, window=window)
+    torch.cuda.synchronize()
+    exp = pref.flash_attention_ref(q, k, v, qp, kp, True, window)
+    torch.testing.assert_close(out.float(), exp.float(), rtol=0, atol=ATOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_unaligned_view_on_card(cuda_device, dtype):
+    """q a view 1 element into a wider tensor: neither its pointer nor its
+    strides are 16-byte multiples, so the tiles are filled by plain copies."""
+    B, S, H, K, hd = 2, 100, 4, 2, 64
+    wide, k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+                  for a in _inputs(10, B, S, S, H, K, hd + 1))
+    q, k, v = wide[..., 1:], k[..., :hd].contiguous(), v[..., :hd].contiguous()
+    qp, kp = (torch.from_numpy(a).to(cuda_device) for a in _positions(B, S, S))
+    out = pops.flash_attention(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), pref.flash_attention_ref(q, k, v, qp, kp).float(),
+                               rtol=0, atol=ATOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", pfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_config_fits_the_card(cuda_device, dtype, hd):
+    cfg = pfa.tile_config(getattr(torch, dtype), hd)
+    assert cfg["block_keys"] in (16, 32, 64)
+    assert 0 < cfg["smem_bytes"] <= 232448 and cfg["blocks_per_sm"] >= 1
