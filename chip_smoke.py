@@ -13,8 +13,8 @@ non-zero exit:
    HMMA (tensor-core) instructions in each of its kernels' SASS.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and edge cases (ragged lengths, initial states, a
-   sequence run in two halves, tied router rows, bf16), with stated
-   tolerances.
+   sequence run in two halves, a sequence whose chunks are all K2's
+   parallelism, tied router rows, bf16), with stated tolerances.
 3. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
    32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
    granite-moe-3b-a800m, one model resident at a time.  Every launch count
@@ -31,11 +31,16 @@ non-zero exit:
 4. times: each path's prefill and decode times and a ``torch.profiler``
    trace of one warm prefill and 8 warm decode steps (wall time, the
    device's busy and idle share, the kernels that took the most device
-   time); then each kernel, its plain version and, where one exists, the
+   time; this repo's kernel launches the trace kept against those made,
+   with busy time and idle share marked as bounds where records were
+   dropped); then each kernel, its plain version and, where one exists, the
    PyTorch library call (CUDA events), each printed with the card.  K1 is
    timed at the smollm, granite-moe and recurrentgemma shapes, in fp32 and
    bf16, beside ``scaled_dot_product_attention`` (and the CUDA kernel it
-   launched, by its profiler name) and both of its bounds.
+   launched, by its profiler name) and both of its bounds.  K2 is timed
+   in fp32 and bf16 beside its bound and its two-kernel design's floor,
+   and each of its two kernels is reported: registers and spills, shared
+   memory, blocks an SM and device time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -62,6 +67,9 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 KERNELS = ("flash_attention", "rwkv6_scan", "rglru_scan", "moe_router")
+# CUDA kernels a wrapper call launches, each named <kernel>_...: K2 runs its
+# chunk-states kernel, then its outputs kernel.
+KERNELS_PER_CALL = {"flash_attention": 1, "rwkv6_scan": 2, "rglru_scan": 1, "moe_router": 1}
 # Kernel against plain version: the tolerances of tests/test_kernels.py.
 # With bf16 outputs each side rounds y once, so a value may also land one
 # bf16 ulp (2**-8 relative) away: rtol 2**-7 allows that for |y| above 6.
@@ -122,28 +130,60 @@ def time_ms(fn, warmup: int = 5, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def trace(name: str, fn, card: str) -> None:
+def trace_summary(records, wall_us: float, calls: dict) -> dict:
+    """What one trace says, from its kernel records (name, launches kept,
+    device us) and the wrapper calls made under it ({kernel: calls}): the
+    device's busy time (the kept records summed: one stream, so they do not
+    overlap) and idle share, and for each kernel of this repo the launches
+    kept against those made (``KERNELS_PER_CALL`` a call).  Late in a long
+    process torch.profiler drops kernel records; where it dropped some of
+    this repo's, it may have dropped others too, so busy time is then a
+    lower bound and the idle share an upper bound (``dropped``)."""
+    busy_us = sum(us for _, _, us in records)
+    kept = {n: sum(c for key, c, _ in records if f"{n}_" in key) for n in calls}
+    expected = {n: calls[n] * KERNELS_PER_CALL[n] for n in calls}
+    return {"busy_us": busy_us, "idle_share": 1 - busy_us / wall_us, "kept": kept,
+            "expected": expected, "dropped": any(kept[n] < expected[n] for n in calls)}
+
+
+def trace_head(name: str, wall_us: float, records, calls: dict, card: str) -> str:
+    """The first ``[trace]`` line of a trace (``trace_summary``); busy time
+    and idle share are marked as bounds where records were dropped."""
+    t = trace_summary(records, wall_us, calls)
+    ours = {n: f"{t['kept'][n]} of {t['expected'][n]}" for n in calls if t["expected"][n]}
+    busy, idle = f"{t['busy_us'] / 1e3!r} ms", f"{t['idle_share']!r}"
+    if t["dropped"]:
+        busy, idle = f"at least {busy}", f"at most {idle}"
+    dropped = "; the profiler dropped records" if t["dropped"] else ""
+    return (f"[trace] {name}: wall {wall_us / 1e3!r} ms, device busy {busy}, idle share {idle}, "
+            f"{sum(c for _, c, _ in records)} kernel launches kept; this repo's kernels, launches "
+            f"kept of made: {ours}{dropped} {card}")
+
+
+def trace(name: str, fn, card: str, ops) -> None:
     """Run ``fn`` once under ``torch.profiler``; print wall time, the device's
     busy time and idle share, and the kernels with the most device time.
-    Busy time sums the traced kernels (one stream, so they do not overlap);
-    a trace with no device time fails."""
+    The launches of this repo's kernels that the trace kept are held against
+    the ``ops.<name>.launches`` made during it (``trace_head``).  A trace
+    with no device time fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = {n: getattr(ops, n).launches for n in KERNELS}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    calls = {n: getattr(ops, n).launches - before[n] for n in KERNELS}
     # device-side events only: a CPU op's device time repeats its kernels'
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     assert busy_us > 0, f"{name}: the trace holds no device time"
-    log(f"[trace] {name}: wall {wall_us / 1e3!r} ms, device busy {busy_us / 1e3!r} ms, "
-        f"idle share {1 - busy_us / wall_us!r}, {sum(e.count for e in kernels)} kernel "
-        f"launches {card}")
+    log(trace_head(name, wall_us, [(e.key, e.count, e.self_device_time_total) for e in kernels],
+                   calls, card))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]
     ours = [e for e in kernels if e not in top and any(f"{n}_" in e.key for n in KERNELS)]
     for e in top + ours:   # the top kernels, then this repo's kernels below them
@@ -258,6 +298,20 @@ def rwkv6_bound(r, k, v, logw, u, state, chunk=32):
     return _bound(B * H * ops, _nbytes(r, k, v, logw, u, state, r, state))
 
 
+def rwkv6_design_floor(r, k, v, logw, u, state, chunk=32):
+    """Least time of K2's two-kernel design on this card: the bytes it must
+    move over HBM.  The states kernel reads k, v, logw and the initial state
+    and writes the state entering each chunk after the first (the
+    workspace) and the final state; the outputs kernel reads r, k, v, logw,
+    u, the initial state (for chunk 0) and the workspace, and writes y.
+    Returns (ms, bytes)."""
+    B, S, H, N = r.shape
+    ws = B * H * (-(-S // min(chunk, S)) - 1) * N * N * 4
+    nbytes = (_nbytes(k, v, logw, state) + ws + _nbytes(state)
+              + _nbytes(r, k, v, logw, u, state) + ws + _nbytes(r))
+    return nbytes / PEAK_HBM_BYTES * 1e3, nbytes
+
+
 def rglru_bound(a, b, h0=None):
     """Least time for h_t = a_t h_{t-1} + b_t: 2 flops per element; a and b
     (and h0) read once, h written once."""
@@ -294,6 +348,44 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def sass_instructions(nvcc: str, lib: Path) -> dict:
+    """Each kernel's instructions in ``lib``'s SASS (``cuobjdump -sass``),
+    keyed by its mangled name (``parse_sass``)."""
+    return parse_sass(subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", str(lib)],
+                                     capture_output=True, text=True, timeout=120,
+                                     check=True).stdout)
+
+
+def parse_sass(sass: str) -> dict:
+    """{kernel: [(address, opcode with its modifiers, branch target or None)]}
+    from a ``cuobjdump -sass`` listing."""
+    import re
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)\s*([^;]*)", line)
+        if fn and m:
+            tgt = re.match(r"0x([0-9a-f]+)", m.group(3).strip()) if m.group(2) == "BRA" else None
+            out[fn].append((int(m.group(1), 16), m.group(2),
+                            int(tgt.group(1), 16) if tgt else None))
+    return out
+
+
+def sass_loops(ins) -> tuple:
+    """One kernel's instructions (``parse_sass``) counted as (instructions,
+    MUFU.EX2, LDS): all of them, then each loop (a branch back to an earlier
+    address closes one)."""
+    def count(xs):
+        return (len(xs), sum(op == "MUFU.EX2" for _, op, _ in xs),
+                sum(op.startswith("LDS") for _, op, _ in xs))
+    return count(ins), [count([x for x in ins if tgt <= x[0] <= at])
+                        for at, op, tgt in ins if op == "BRA" and tgt is not None and tgt < at]
+
+
 def report_k1_build(torch, fa, nvcc: str, lib: Path, card: str) -> None:
     """K1's keys per tile, shared memory and blocks an SM for each (dtype,
     head_dim), as the card reports them; then the instructions in each of
@@ -304,24 +396,70 @@ def report_k1_build(torch, fa, nvcc: str, lib: Path, card: str) -> None:
         for hd in fa.HEAD_DIMS:
             log(f"[build] flash_attention {str(dtype)[6:]} hd {hd}: "
                 f"{fa.tile_config(dtype, hd)} {card}")
-    cuobjdump = Path(nvcc).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : \S*fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+    counts = {}
+    for fn, ins in sass_instructions(nvcc, lib).items():
+        m = re.search(r"fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
         if m:
-            fn = ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
-            counts[fn] = {"instructions": 0, "HMMA": 0, "LDSM": 0}
-            continue
-        op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
-        if fn and op:
-            counts[fn]["instructions"] += 1
-            for name in ("HMMA", "LDSM"):
-                counts[fn][name] += op.group(1) == name
+            ops = [op.split(".")[0] for _, op, _ in ins]
+            counts["float32" if m.group(1) == "f" else "bfloat16", int(m.group(2))] = {
+                "instructions": len(ops), "HMMA": ops.count("HMMA"), "LDSM": ops.count("LDSM")}
     for (dtype, hd), c in sorted(counts.items()):
         log(f"[build] flash_attention {dtype} hd {hd} SASS: {c}")
     assert counts and all(c["HMMA"] > 0 for c in counts.values()), "K1 runs no HMMA"
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Registers, spill stores and loads and stack frame of each entry
+    function in ``nvcc -Xptxas -v``'s log, keyed by its mangled name."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn].update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def report_k2_build(torch, ops, rw, nvcc: str, lib: Path, build_log: str, card: str) -> dict:
+    """For each of K2's kernels (``rw.PASSES``) and dtype: registers and
+    spills (ptxas), dynamic shared memory and blocks an SM (the card), its
+    SASS instructions and its innermost loop with the most exponentials
+    (``sass_loops``), and device ms a call at the serving shape
+    (``device_kernels``, B=8 S=512 H=32 N=64 L=32).  Returns {dtype: {pass:
+    ms}}."""
+    ptx = ptxas_kernels(build_log)
+    sass = {fn: sass_loops(ins) for fn, ins in sass_instructions(nvcc, lib).items()}
+    dev = torch.device("cuda", 0)
+    out = {}
+    for dtype, tag in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
+        name = str(dtype)[6:]
+        r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 200, 8, 512, 32, 64, dtype)
+        found = device_kernels(torch, lambda: ops.rwkv6_scan(r, k, v, logw, u, s0))
+        occ = rw.occupancy(dtype, 32)
+        out[name] = {}
+        for pas in rw.PASSES:
+            kernel = f"rwkv6_scan_{pas}_kernel"
+            regs = [c for fn, c in ptx.items() if f"{kernel}I{tag}E" in fn]
+            code = [c for fn, c in sass.items() if f"{kernel}I{tag}E" in fn]
+            assert len(regs) == 1 and len(code) == 1, f"no single {kernel} for {name}"
+            loop = max(code[0][1], key=lambda x: (x[1], -x[0]), default=None)
+            out[name][pas] = per_call_ms(found, 10, kernel)
+            assert out[name][pas] > 0, f"no device time for {kernel}"
+            log(f"[build] rwkv6_scan {pas} kernel {name}: {regs[0]}, {occ[pas]['smem_bytes']} B "
+                f"of dynamic shared memory (L=32), {occ[pas]['blocks_per_sm']} blocks an SM; "
+                f"SASS (instructions, MUFU.EX2, LDS) {code[0][0]}, the innermost loop with the "
+                f"most exponentials {loop}; {out[name][pas]!r} ms device time a call at B=8 "
+                f"S=512 H=32 N=64 L=32 {card}")
+    return out
 
 
 # -- phase 2 ---------------------------------------------------------------------------
@@ -395,6 +533,7 @@ def check_rwkv6(torch, dev, ops, ref) -> float:
         ("ragged S=50 L=32 bf16", (2, 50, 32, 64), 32, bf16, False),
         ("one row in the last chunk", (1, 33, 4, 64), 16, f32, False),
         ("one chunk shorter than L", (2, 20, 4, 64), 32, f32, False),
+        ("chunks are all the parallelism", (1, 2051, 2, 64), 32, f32, False),
     ]
     main_err = None
     for i, (name, shape, chunk, dtype, zero) in enumerate(cases):
@@ -731,10 +870,10 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
 
     _, caches = prefill(params, {"tokens": prompts}, kcfg, S + NEW)
     trace(f"{arch} prefill (warm)",
-          lambda: prefill(params, {"tokens": prompts}, kcfg, S + NEW), card)
+          lambda: prefill(params, {"tokens": prompts}, kcfg, S + NEW), card, ops)
     run_decode(caches, S)                                   # warm-up
     trace(f"{arch} decode x{TRACE_DECODE_STEPS} (warm)",
-          lambda: run_decode(caches, S + TRACE_DECODE_STEPS), card)
+          lambda: run_decode(caches, S + TRACE_DECODE_STEPS), card, ops)
     return launches
 
 
@@ -814,6 +953,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.launch import serve
     from repro_torch.models import decode_step, prefill
     from repro_torch.models.transformer import leaves
@@ -867,13 +1007,18 @@ def main() -> int:
     kms, pms, runs = time_pair(lambda: ops.rwkv6_scan(r, k, v, logw, u, s0),
                                lambda: ref.rwkv6_scan_ref(r, k, v, logw, u, s0), 10)
     times["rwkv6_scan"] = (kms, pms, rwkv6_bound(r, k, v, logw, u, s0, chunk=32), None)
+    floor_ms, floor_bytes = rwkv6_design_floor(r, k, v, logw, u, s0, chunk=32)
     rb, kb, vb = (x.to(bf16) for x in (r, k, v))
     bf16_ms = time_ms(lambda: ops.rwkv6_scan(rb, kb, vb, logw, u, s0))
     shape = "B=8 S=512 H=32 N=64 L=32"
     log(f"[time] rwkv6_scan kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
     log(f"[time] rwkv6_scan kernel bf16 r/k/v {shape}: {bf16_ms!r} ms {card}")
     log(f"[time] rwkv6_scan plain version fp32 {shape}: {pms!r} ms {card}")
+    log(f"[time] rwkv6_scan two-kernel design's floor fp32 {shape}: {floor_ms!r} ms by bytes "
+        f"({floor_bytes:.4g} bytes, workspace included) {card}")
     del r, k, v, logw, u, s0, rb, kb, vb
+    k2_info = infos[KERNELS.index("rwkv6_scan")]
+    k2_passes = report_k2_build(torch, ops, rw, _build._nvcc(), k2_info.path, k2_info.log, card)
 
     a, b, h0 = rglru_inputs(torch, dev, 300, 8, 512, 4096)
     h0.zero_()                                      # as in a prefill
@@ -934,6 +1079,8 @@ def main() -> int:
             "tensor_core_bound_ms": k1["tensor_core_bound_ms"]
             if name == "flash_attention" else None,
         })
+    k2 = kernels[KERNELS.index("rwkv6_scan")]
+    k2.update(bf16_ms=bf16_ms, pass_ms=k2_passes)
     kernels[KERNELS.index("flash_attention")]["shapes"] = {
         label: {key: val for key, val in r.items() if key != "bound"} for label, r in attn.items()}
     print(json.dumps({"kernels": kernels}))

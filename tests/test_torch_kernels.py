@@ -220,6 +220,76 @@ def test_chip_smoke_device_time_survives_dropped_profiler_records():
     assert smoke.per_call_ms(kept, calls) == pytest.approx(0.005 + 2 * 0.002 + 0.001)
 
 
+@pytest.mark.parametrize("lost", [0, 5])
+def test_chip_smoke_trace_marks_dropped_records_as_bounds(lost):
+    """A trace's launches of this repo's kernels are held against the
+    wrapper calls made under it (K2 launches two kernels a call); where the
+    profiler kept fewer, busy time and idle share are printed as bounds."""
+    smoke = _load_chip_smoke()
+    records = [("(anonymous namespace)::rwkv6_scan_states_kernel<float>(Params)", 24, 400.0),
+               ("(anonymous namespace)::rwkv6_scan_outputs_kernel<float>(Params)", 24 - lost,
+                600.0),
+               ("ampere_sgemm_128x64_nn", 200, 9000.0)]
+    calls = {"flash_attention": 0, "rwkv6_scan": 24, "rglru_scan": 0, "moe_router": 0}
+    t = smoke.trace_summary(records, 20000.0, calls)
+    assert t["busy_us"] == 10000.0 and t["idle_share"] == pytest.approx(0.5)
+    assert t["kept"]["rwkv6_scan"] == 48 - lost and t["expected"]["rwkv6_scan"] == 48
+    assert t["expected"]["flash_attention"] == 0 and t["dropped"] == bool(lost)
+    line = smoke.trace_head("rwkv6 prefill (warm)", 20000.0, records, calls, "[H100, 700 W]")
+    assert f"'rwkv6_scan': '{48 - lost} of 48'" in line and "flash_attention" not in line
+    assert ("device busy at least 10.0 ms, idle share at most 0.5" in line) == bool(lost)
+    assert ("device busy 10.0 ms, idle share 0.5," in line) == (not lost)
+    assert line.endswith("[H100, 700 W]") and ("dropped" in line) == bool(lost)
+
+
+def test_chip_smoke_reads_ptxas_registers_and_spills():
+    smoke = _load_chip_smoke()
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124rwkv6_scan_states_kernelIfEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124rwkv6_scan_states_kernelIfEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125rwkv6_scan_outputs_kernelI13__nv_bfloat16EEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125rwkv6_scan_outputs_kernelI13__nv_bfloat16EEvNS_6ParamsE
+    40 bytes stack frame, 52 bytes spill stores, 76 bytes spill loads
+ptxas info    : Used 85 registers, used 1 barriers, 420 bytes cmem[0]
+"""
+    out = smoke.ptxas_kernels(log)
+    assert out == {
+        "_ZN12_GLOBAL__N_124rwkv6_scan_states_kernelIfEEvNS_6ParamsE":
+            {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 56},
+        "_ZN12_GLOBAL__N_125rwkv6_scan_outputs_kernelI13__nv_bfloat16EEvNS_6ParamsE":
+            {"stack": 40, "spill_stores": 52, "spill_loads": 76, "registers": 85}}
+
+
+def test_chip_smoke_counts_sass_loops():
+    """Loops are closed by a branch back to an earlier address; each is
+    counted with its exponentials and shared loads."""
+    smoke = _load_chip_smoke()
+    sass = """
+        Function : _ZN12_GLOBAL__N_125rwkv6_scan_outputs_kernelIfEEvNS_6ParamsE
+        /*0000*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0010*/                   LDS R4, [R1] ;
+        /*0020*/                   MUFU.EX2 R5, R4 ;
+        /*0030*/                   FFMA R6, R5, R4, R6 ;
+        /*0040*/               @P1 BRA 0x10 ;
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0060*/                   LDS.128 R8, [R1+0x10] ;
+        /*0070*/              @!P0 BRA `(.L_x_3) ;
+        /*0080*/                   BRA 0x0 ;
+        /*0090*/                   EXIT ;
+        Function : other_kernel
+        /*0000*/                   EXIT ;
+"""
+    out = smoke.parse_sass(sass)
+    k = out["_ZN12_GLOBAL__N_125rwkv6_scan_outputs_kernelIfEEvNS_6ParamsE"]
+    assert k[1] == (0x10, "LDS", None) and k[4] == (0x40, "BRA", 0x10)
+    assert k[6] == (0x60, "LDS.128", None) and k[7] == (0x70, "BRA", None)
+    assert smoke.sass_loops(k) == ((10, 1, 2), [(4, 1, 1), (9, 1, 2)])
+    assert out["other_kernel"] == [(0, "EXIT", None)]
+    assert smoke.sass_loops(out["other_kernel"]) == ((1, 0, 0), [])
+
+
 # -- the kernel's arithmetic, emulated on the CPU -----------------------------------
 # The CUDA kernel runs both products on the tensor cores.  fp32: each operand
 # x is split into big = tf32(x) and small = tf32(x - big), rounded as

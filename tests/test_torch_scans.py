@@ -94,6 +94,67 @@ def test_rwkv6_state_chaining():
     torch.testing.assert_close(s_end, s_full, rtol=0, atol=1e-4)
 
 
+# -- K2's two-kernel split, emulated on the CPU ---------------------------------------
+
+def _two_pass_emulation(r, k, v, logw, u, s0, chunk):
+    """K2's two CUDA kernels in plain PyTorch, fp32, in chunks of min(chunk, S)
+    rows.  Pass 1 (the states kernel) carries the state through the chunks
+    in order and keeps the state entering each; pass 2 (the outputs kernel)
+    then computes every chunk's y at once from the state entering it.  The
+    rows past S in the last chunk read r = k = v = 0 and logw = 0."""
+    B, S, H, N = r.shape
+    L = min(chunk, S)
+    nc = -(-S // L)
+    rc, kc, vc, wc = (torch.nn.functional.pad(a.float(), (0, 0, 0, 0, 0, nc * L - S))
+                      .reshape(B, nc, L, H, N).permute(0, 3, 1, 2, 4)      # (B,H,nc,L,N)
+                      for a in (r, k, v, logw))
+    cum = wc.cumsum(3)
+    cum_excl = cum - wc
+    last = cum[:, :, :, -1]                                                  # (B,H,nc,N)
+    k_dec = kc * torch.exp(last[:, :, :, None] - cum)
+    entering, state = [], s0.float()
+    for c in range(nc):                                                      # pass 1
+        entering.append(state)
+        state = (torch.exp(last[:, :, c])[..., None] * state
+                 + k_dec[:, :, c].transpose(-1, -2) @ vc[:, :, c])
+    entering = torch.stack(entering, 2)                                      # (B,H,nc,N,N)
+    below = torch.tril(torch.ones((L, L), dtype=torch.bool), diagonal=-1)    # pass 2
+    ratio = (cum_excl[..., :, None, :] - cum[..., None, :, :]).masked_fill(
+        ~below[..., None], float("-inf"))
+    A = (rc[..., :, None, :] * kc[..., None, :, :] * torch.exp(ratio)).sum(-1)
+    A = A + torch.diag_embed((rc * u.float()[None, :, None, None, :] * kc).sum(-1))
+    y = A @ vc + (rc * torch.exp(cum_excl)) @ entering
+    return y.permute(0, 2, 3, 1, 4).reshape(B, nc * L, H, N)[:, :S].to(r.dtype), state
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk,dtype,zero_state", [
+    (2, 50, 3, 16, 16, "float32", False),     # ragged last chunk
+    (1, 33, 2, 16, 16, "float32", False),     # one row in the last chunk
+    (2, 20, 2, 16, 32, "float32", False),     # one chunk shorter than L
+    (2, 64, 2, 32, 32, "float32", False),     # chunks of 32
+    (1, 96, 2, 16, 32, "float32", True),      # zero initial state, 3 chunks
+    (2, 50, 2, 16, 16, "bfloat16", False),    # bf16 r/k/v, ragged
+])
+def test_two_pass_split_matches_jax(B, S, H, N, chunk, dtype, zero_state):
+    """The chunk-state pass and the output pass, computed apart, give the JAX
+    Pallas kernel's (interpret mode) and the JAX sequential reference's y
+    and final state."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(11, B, S, H, N)
+    if zero_state:
+        s0 = np.zeros_like(s0)
+    td = getattr(torch, dtype)
+    y, s = _two_pass_emulation(*(torch.from_numpy(a).to(td) for a in (r, k, v)),
+                               *(torch.from_numpy(a) for a in (logw, u, s0)), chunk)
+    assert y.dtype == td and s.dtype == torch.float32
+    jr, jk, jv = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in (r, k, v))
+    jw, ju, js = (jnp.asarray(a) for a in (logw, u, s0))
+    for y_j, s_j in (jops.rwkv6_scan(jr, jk, jv, jw, ju, js, chunk=chunk),
+                     jref.rwkv6_scan_ref(jr, jk, jv, jw, ju, js)):
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(y_j, np.float32),
+                                   atol=RWKV_ATOL[dtype])
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=RWKV_ATOL[dtype])
+
+
 @pytest.mark.parametrize("B,S,R", [(1, 32, 16), (3, 77, 40), (2, 128, 64)])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_rglru_shape_sweep(B, S, R, with_h0):
@@ -193,6 +254,29 @@ def test_chip_smoke_rwkv6_bound(S, chunk):
                   else "bytes")
 
 
+@pytest.mark.parametrize("S,chunk", [(512, 32), (50, 32), (20, 32)])
+def test_chip_smoke_rwkv6_design_floor(S, chunk):
+    """K2's design floor: the states kernel reads k, v, logw and the initial
+    state and writes the workspace and the final state; the outputs kernel
+    reads r, k, v, logw, u, the initial state and the workspace, writes y."""
+    smoke = _smoke()
+    B, H, N = 1, 2, 16
+    ts = [torch.from_numpy(a) for a in _rwkv_inputs(6, B, S, H, N)]
+    ms, nbytes = smoke.rwkv6_design_floor(*ts, chunk=chunk)
+    x, st, ws = 4 * B * S * H * N, 4 * B * H * N * N, 4 * B * H * N * N * (-(-S // chunk) - 1)
+    assert nbytes == (3 * x + st + ws + st) + (4 * x + 4 * H * N + st + ws + x)
+    assert ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
+
+
+def test_k2_kernel_names_match_the_trace_filter():
+    """chip_smoke finds K2's kernels by the prefix ``rwkv6_scan_`` and counts
+    two launches a call: one kernel of each of ``PASSES`` in the source."""
+    src = (Path(prw.__file__).parent / "csrc" / "rwkv6_scan.cu").read_text()
+    for name in prw.PASSES:
+        assert f"rwkv6_scan_{name}_kernel" in src
+    assert _smoke().KERNELS_PER_CALL["rwkv6_scan"] == len(prw.PASSES) == 2
+
+
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_chip_smoke_rglru_bound(with_h0):
     smoke = _smoke()
@@ -220,6 +304,7 @@ def cuda_device():
     (2, 50, 3, 64, 32),       # ragged last chunk
     (2, 20, 2, 64, 32),       # one chunk shorter than L
     (1, 33, 4, 64, 16),       # one row in the last chunk
+    (1, 2051, 2, 64, 32),     # B*H = 2: the chunks are all the parallelism
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rwkv6_kernel_matches_plain_version_on_card(cuda_device, B, S, H, N, chunk, dtype):
