@@ -14,7 +14,12 @@ non-zero exit:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and edge cases (ragged lengths, initial states, a
    sequence run in two halves, a sequence whose chunks are all K2's
-   parallelism, tied router rows, bf16), with stated tolerances.
+   parallelism, tied router rows, bf16), with stated tolerances.  Then K4's
+   times, while the profiler is fresh: at granite-moe's prefill and decode
+   shapes and deepseek-moe's, its device time a launch, the wrapper's time
+   a call paced by the host, the bound, and beside them the card's launch
+   floor (a one-element fill kernel's device time, a one-element in-place
+   op's time a call).
 3. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
    32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
    granite-moe-3b-a800m, one model resident at a time.  Every launch count
@@ -31,10 +36,11 @@ non-zero exit:
 4. times: each path's prefill and decode times and a ``torch.profiler``
    trace of one warm prefill and 8 warm decode steps (wall time, the
    device's busy and idle share, the kernels that took the most device
-   time; this repo's kernel launches the trace kept against those made,
-   with busy time and idle share marked as bounds where records were
-   dropped); then each kernel, its plain version and, where one exists, the
-   PyTorch library call (CUDA events), each printed with the card.  K1 is
+   time and the MoE dispatch's scans; this repo's kernel launches the
+   trace kept against those made, with busy time and idle share marked as
+   bounds where records were dropped); then each kernel, its plain
+   version and, where one exists, the PyTorch library call (CUDA events),
+   each printed with the card.  K1 is
    timed at the smollm, granite-moe and recurrentgemma shapes, in fp32 and
    bf16, beside ``scaled_dot_product_attention`` (and the CUDA kernel it
    launched, by its profiler name) and both of its bounds.  K2 is timed
@@ -106,6 +112,9 @@ ARCHS = tuple(SERVE_TOL)
 # 41 of 385,024 decisions differed, with gaps up to 1.18e-6: 1e-5.
 FLIP_GAP = 1e-5
 TRACE_DECODE_STEPS, TRACE_TOP = 8, 10
+# PyTorch kernels a trace also prints when they are not in its top: the
+# scans of the MoE dispatch's slot positions (``models/moe.py``).
+TRACE_ALSO = ("tensor_kernel_scan",)
 # wkv_precision: K2 within this factor of the plain chunked scan's distance
 # from float64; the noise draws of its one-ulp experiment.
 K2_PRECISION_FACTOR, NOISE_SEEDS = 2.0, (3, 4, 5, 6)
@@ -185,8 +194,9 @@ def trace(name: str, fn, card: str, ops) -> None:
     log(trace_head(name, wall_us, [(e.key, e.count, e.self_device_time_total) for e in kernels],
                    calls, card))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]
-    ours = [e for e in kernels if e not in top and any(f"{n}_" in e.key for n in KERNELS)]
-    for e in top + ours:   # the top kernels, then this repo's kernels below them
+    ours = [e for e in kernels if e not in top and (any(f"{n}_" in e.key for n in KERNELS)
+                                                    or any(n in e.key for n in TRACE_ALSO))]
+    for e in top + ours:   # the top kernels, then this repo's kernels and TRACE_ALSO below them
         log(f"[trace]   {e.self_device_time_total / 1e3:10.4f} ms  {e.count:5d}x  "
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
 
@@ -406,6 +416,22 @@ def report_k1_build(torch, fa, nvcc: str, lib: Path, card: str) -> None:
     for (dtype, hd), c in sorted(counts.items()):
         log(f"[build] flash_attention {dtype} hd {hd} SASS: {c}")
     assert counts and all(c["HMMA"] > 0 for c in counts.values()), "K1 runs no HMMA"
+
+
+def router_sass(nvcc: str, lib: Path) -> dict:
+    """For each instantiation of the router kernel in ``lib`` (by its
+    template arguments: dtype and values a lane), its SASS instructions and
+    the warp-wide ones among them: REDUX (redux.sync), VOTE (ballots), SHFL
+    (shuffles)."""
+    import re
+    out = {}
+    for fn, ins in sass_instructions(nvcc, lib).items():
+        m = re.search(r"moe_router_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
+        if m:
+            ops = [op.split(".")[0] for _, op, _ in ins]
+            out["float32" if m.group(1) == "f" else "bfloat16", int(m.group(2))] = {
+                "instructions": len(ops), **{o: ops.count(o) for o in ("REDUX", "VOTE", "SHFL")}}
+    return dict(sorted(out.items()))
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -944,6 +970,84 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed) -> di
             "bf16_tensor_core_bound_ms": bound_bf16[4]}
 
 
+# K4's timed shapes: label, (T, E, k); the draws of phase 2's case of the
+# same shape (seed 400 + position).
+ROUTER_SHAPES = (
+    ("granite-moe prefill", (4096, 40, 8)),
+    ("granite-moe decode", (256, 40, 8)),
+    ("deepseek-moe", (4096, 64, 6)),
+)
+# calls a host-paced reading averages over
+HOST_CALLS = 2000
+
+
+def router_logits(torch, dev, T, E, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((T, E), generator=g, device=dev) * 2.0
+
+
+def paced_ms(torch, fn) -> float:
+    """ms a call of ``fn`` paced by the host: ``time.perf_counter`` around
+    ``HOST_CALLS`` back-to-back calls and the synchronise after them, after
+    50 of warm-up.  Where a call's host work takes longer than its kernels,
+    as the router's does, this is the host's time a call."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / HOST_CALLS * 1e3
+
+
+def launch_floor(torch, dev, card) -> dict:
+    """What no call of a kernel of a few microseconds goes below on this card
+    and host: the profiler's device time of a one-element fill kernel, and
+    a one-element in-place PyTorch op's time a call paced by the host
+    (``paced_ms``, as the router's wrapper is timed)."""
+    x = torch.zeros(1, device=dev)
+    fill = device_ms(torch, lambda: x.fill_(1.0))
+    op = paced_ms(torch, lambda: x.add_(1.0))
+    log(f"[time] launch floor: one-element fill kernel {fill!r} ms device time a launch; "
+        f"one-element in-place op (add_) {op!r} ms a call paced by the host {card}")
+    return {"fill_device_ms": fill, "inplace_op_ms": op}
+
+
+def time_router(torch, dev, ops, ref, card, label, shape, seed) -> dict:
+    """K4 at one shape: its device time a launch in turns with the plain
+    version's a call (profiler; a few microseconds of work, which CUDA
+    events around back-to-back calls would read as the host's time), the
+    unfused PyTorch chain's, each one's time a call paced by the host
+    (``paced_ms``), and the bound."""
+    T, E, k = shape
+    logits = router_logits(torch, dev, T, E, seed)
+    kernel, plain = (lambda: ops.moe_router(logits, k)), (lambda: ref.moe_router_ref(logits, k))
+    chain = lambda: topk_chain(torch, logits, k)
+    runs = {}
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        runs.setdefault(turn, []).append(
+            device_ms(torch, kernel, "moe_router_kernel") if turn == "kernel"
+            else device_ms(torch, plain))
+    kms, pms = min(runs["kernel"]), min(runs["plain"])
+    chain_ms = device_ms(torch, chain)
+    host = {"kernel": paced_ms(torch, kernel), "plain": paced_ms(torch, plain),
+            "chain": paced_ms(torch, chain)}
+    bound = moe_router_bound(logits, k)
+    where = f"{label} T={T} E={E} k={k}"
+    log(f"[time] moe_router kernel fp32 {where}: {kms!r} ms device time a launch, bound "
+        f"{bound[0]!r} ms by {bound[1]} {card} (runs {runs})")
+    log(f"[time] moe_router plain version fp32 {where}: {pms!r} ms device time a call {card}")
+    log(f"[time] softmax -> topk -> renormalise, PyTorch calls unfused (not used by the "
+        f"port), fp32 {where}: {chain_ms!r} ms device time a call {card}")
+    log(f"[time] moe_router per call, paced by the host (perf_counter over {HOST_CALLS} "
+        f"back-to-back calls), fp32 {where}: kernel wrapper {host['kernel']!r} ms, plain "
+        f"version {host['plain']!r} ms, unfused PyTorch calls {host['chain']!r} ms {card}")
+    return {"ms": kms, "plain_ms": pms, "chain_ms": chain_ms, "host_ms": host["kernel"],
+            "plain_host_ms": host["plain"], "chain_host_ms": host["chain"],
+            "bound": bound, "bound_ms": bound[0]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -980,12 +1084,23 @@ def main() -> int:
             log(f"[build]   {line}")
     report_k1_build(torch, fa, _build._nvcc(), infos[KERNELS.index("flash_attention")].path,
                     card)
+    k4_sass = router_sass(_build._nvcc(), infos[KERNELS.index("moe_router")].path)
+    for (dtype, vpl), c in k4_sass.items():
+        log(f"[build] moe_router {dtype}, {vpl} values a lane, SASS: {c}")
+    assert k4_sass and all(c["REDUX"] > 0 for c in k4_sass.values()), "K4 runs no redux.sync"
 
     # -- 2. kernels against their plain versions, on the card --------------------------------
     errs = {"flash_attention": check_flash_attention(torch, dev, ops, ref),
             "rwkv6_scan": check_rwkv6(torch, dev, ops, ref),
             "rglru_scan": check_rglru(torch, dev, ops, ref),
             "moe_router": check_moe_router(torch, dev, ops, ref)}
+    # K4's few microseconds a launch are read from the profiler, here, before
+    # the serves' traces: late in the run a profiling session has come back
+    # with no kernel record, and the one after it with a reading off by half.
+    floor = launch_floor(torch, dev, card)
+    router = {label: time_router(torch, dev, ops, ref, card, label, shape, 400 + i)
+              for i, (label, shape) in enumerate(ROUTER_SHAPES)}
+    r0 = router[ROUTER_SHAPES[0][0]]
 
     # -- 3 and 4. serve each model at full width, then its times --------------------------------
     per_path = {}
@@ -1028,33 +1143,7 @@ def main() -> int:
     shape = "B=8 S=512 R=4096"
     log(f"[time] rglru_scan kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
     log(f"[time] rglru_scan plain version fp32 {shape}: {pms!r} ms {card}")
-    for i, (label, (T, E, k)) in enumerate((("granite-moe prefill", (4096, 40, 8)),
-                                            ("granite-moe decode", (256, 40, 8)),
-                                            ("deepseek-moe", (4096, 64, 6)))):
-        g = torch.Generator(device=dev).manual_seed(400 + i)
-        logits = torch.randn((T, E), generator=g, device=dev) * 2.0
-        kernel, plain = (lambda: ops.moe_router(logits, k)), (lambda: ref.moe_router_ref(logits, k))
-        chain = lambda: topk_chain(torch, logits, k)
-        # a few microseconds of device work a call: the host paces CUDA events
-        # around back-to-back calls, so the device time comes from the profiler
-        runs = {}
-        for turn in ("plain", "kernel", "kernel", "plain"):
-            runs.setdefault(turn, []).append(
-                device_ms(torch, kernel, "moe_router_kernel") if turn == "kernel"
-                else device_ms(torch, plain))
-        kms, pms = min(runs["kernel"]), min(runs["plain"])
-        bound = moe_router_bound(logits, k)
-        if i == 0:
-            times["moe_router"] = (kms, pms, bound, None)
-        shape = f"{label} T={T} E={E} k={k}"
-        log(f"[time] moe_router kernel fp32 {shape}: {kms!r} ms device time a launch, bound "
-            f"{bound[0]!r} ms by {bound[1]} {card} (runs {runs})")
-        log(f"[time] moe_router plain version fp32 {shape}: {pms!r} ms device time a call {card}")
-        log(f"[time] softmax -> topk -> renormalise, PyTorch calls unfused (not used by the "
-            f"port), fp32 {shape}: {device_ms(torch, chain)!r} ms device time a call {card}")
-        log(f"[time] moe_router per call, paced by the host (CUDA events over 50 back-to-back "
-            f"calls), fp32 {shape}: kernel wrapper {time_ms(kernel)!r} ms, plain version "
-            f"{time_ms(plain)!r} ms, unfused PyTorch calls {time_ms(chain)!r} ms {card}")
+    times["moe_router"] = (r0["ms"], r0["plain_ms"], r0["bound"], None)
     log("[time] rwkv6_scan, rglru_scan, moe_router: no single PyTorch call computes any of "
         "these functions, so library_ms is null")
     for name, (kms, pms, (bms, by, flops, nbytes), lms) in times.items():
@@ -1079,6 +1168,10 @@ def main() -> int:
             "tensor_core_bound_ms": k1["tensor_core_bound_ms"]
             if name == "flash_attention" else None,
         })
+    kernels[KERNELS.index("moe_router")].update(
+        host_ms=r0["host_ms"], launch_floor=floor,
+        shapes={label: {key: val for key, val in r.items() if key != "bound"}
+                for label, r in router.items()})
     k2 = kernels[KERNELS.index("rwkv6_scan")]
     k2.update(bf16_ms=bf16_ms, pass_ms=k2_passes)
     kernels[KERNELS.index("flash_attention")]["shapes"] = {

@@ -11,26 +11,42 @@
 // What bounds it on this card.  Per row, about E exponentials and (k + 3) E
 // compares and adds against 4E (fp32) bytes read and 8k bytes written.  At
 // granite-moe's prefill shape (T=4096, E=40, k=8) that is ~0.92 MB, 0.27 us
-// at 3.35 TB/s, and ~2 MFLOP, 0.03 us at 67 TFLOP/s: bytes bound it, and at
-// this size the launch itself (a few us) takes longer than either.
+// at 3.35 TB/s, and ~2 MFLOP, 0.03 us at 67 TFLOP/s.  Neither is what takes
+// the time: every row is one warp's chain of dependent steps, and all rows
+// run at once (at most ~31 warps an SM at prefill, 2 at decode), so the
+// kernel lasts the launch plus one row's chain.
 //
-// What the design does about it.  The (T,E) probabilities never go back to
-// device memory, which is the TPU kernel's saving over an unfused softmax
-// followed by top_k.  One warp owns one row, eight rows to a block; each lane
-// keeps ceil(E/32) (rounded up to 1, 2, 4 or 8) of the row's values in
-// registers.  The max and the sum are warp shuffles, and each top-k round is
-// a shuffle argmax over (value, index) pairs.  Rows >= T are masked by the
-// kernel, so nothing is padded; the TPU's 256-row blocks are not carried
-// over.
+// What the design does about it: it shortens the chain.  One warp owns one
+// row; each lane keeps ceil(E/32) (rounded up to 1, 2, 4 or 8) values in
+// registers, expert j*32 + lane in slot j.
+// - The row's max is one redux.sync (__reduce_max_sync) on the logits'
+//   bits mapped to an unsigned order, not five shuffle levels.
+// - Each probability p/s (the rounded quotient, as JAX selects on it) gets
+//   an unsigned key: its bits + 1 while it is live, 0 once it has won.
+//   Non-negative fp32 orders as its bits, so the keys order as the
+//   probabilities; a probability that underflowed to 0.0 (key 1) still
+//   beats a masked winner, as in JAX, where the winner becomes -1.0.
+// - Each top-k round takes the lane's best key in registers, then one
+//   redux.sync for the warp's largest key and a second for the lowest
+//   index holding it (a lane offers its lowest such index, or ~0u).  The
+//   old design spent five levels of two shuffles and a compare-select a
+//   round.  One ballot a slot in place of the second redux.sync gave the
+//   same answer in more instructions and more time.
+// - Every lane learns each round's winner (the reductions are warp-wide),
+//   so lane r keeps round r's weight and index and lanes 0..k-1 write the
+//   row's k outputs with one coalesced store each.
+// The sum of the exponentials stays a shuffle tree: redux.sync adds
+// integers only.  expf and the division are the accurate ones (no fast
+// math): an index may differ from the plain version's only where two
+// probabilities are within an ulp.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cmath>
 
 namespace {
 
-constexpr int WARPS = 8;      // rows per block
+constexpr int WARPS = 4;      // rows per block
 constexpr int MAX_K = 8;      // top_k
 constexpr int MAX_E = 256;    // experts: 8 values a lane
 constexpr unsigned FULL = 0xffffffffu;
@@ -39,6 +55,16 @@ template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// fp32 -> unsigned with the same order (-inf lowest): flip a negative's
+// bits, set a non-negative's sign bit.
+__device__ __forceinline__ unsigned order_bits(float x) {
+  const unsigned b = __float_as_uint(x);
+  return (b & 0x80000000u) ? ~b : b | 0x80000000u;
+}
+__device__ __forceinline__ float from_order_bits(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? u & 0x7fffffffu : ~u);
 }
 
 template <typename T, int VPL>
@@ -50,7 +76,7 @@ __global__ void __launch_bounds__(WARPS * 32) moe_router_kernel(
   if (row >= n_rows) return;   // the whole warp leaves together
   const T* x = logits + row * E;
 
-  // softmax in fp32: lane holds experts lane, lane + 32, ...
+  // softmax in fp32; slots past E hold -inf
   float p[VPL];
   float m = -INFINITY;
 #pragma unroll
@@ -59,8 +85,7 @@ __global__ void __launch_bounds__(WARPS * 32) moe_router_kernel(
     p[j] = e < E ? to_f32(x[e]) : -INFINITY;
     m = fmaxf(m, p[j]);
   }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+  m = from_order_bits(__reduce_max_sync(FULL, order_bits(m)));
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < VPL; ++j) {
@@ -69,82 +94,76 @@ __global__ void __launch_bounds__(WARPS * 32) moe_router_kernel(
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  // keys: a live probability's bits + 1; 0 for a slot past E or a winner
+  unsigned key[VPL];
 #pragma unroll
   for (int j = 0; j < VPL; ++j) {
-    // slots past E hold -inf and never win; a masked winner holds -1
-    p[j] = j * 32 + lane < E ? p[j] / s : -INFINITY;
+    key[j] = j * 32 + lane < E ? __float_as_uint(p[j] / s) + 1u : 0u;
   }
 
-  // k rounds of argmax over (value, index), lowest index first among equals
-  float wk[MAX_K];
-  int ik[MAX_K];
-  float total = 0.f;
+  // k rounds: the largest key, then the lowest index holding it
+  float my_w = 0.f, total = 0.f;
+  int my_i = 0;
 #pragma unroll
   for (int r = 0; r < MAX_K; ++r) {
     if (r < k) {
-      float bv = -INFINITY;
-      int bi = INT_MAX;
+      unsigned best = key[0];
 #pragma unroll
-      for (int j = 0; j < VPL; ++j) {   // ascending index: strict > keeps the lowest
-        if (p[j] > bv) { bv = p[j]; bi = j * 32 + lane; }
-      }
+      for (int j = 1; j < VPL; ++j) best = max(best, key[j]);
+      const unsigned top = __reduce_max_sync(FULL, best);   // >= 1: r < k <= E
+      unsigned mine = 0xffffffffu;   // this lane's lowest index holding top
 #pragma unroll
-      for (int o = 16; o; o >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, bv, o);
-        const int oi = __shfl_xor_sync(FULL, bi, o);
-        if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+      for (int j = VPL - 1; j >= 0; --j) {
+        if (key[j] == top) mine = j * 32 + lane;
       }
+      const int win = static_cast<int>(__reduce_min_sync(FULL, mine));
 #pragma unroll
       for (int j = 0; j < VPL; ++j) {
-        if (j * 32 + lane == bi) p[j] = -1.f;
+        if (j * 32 + lane == win) key[j] = 0u;
       }
-      wk[r] = bv;
-      ik[r] = bi;
-      total += bv;
+      const float pw = __uint_as_float(top - 1u);
+      total += pw;
+      if (lane == r) { my_w = pw; my_i = win; }
     }
   }
-  const float denom = fmaxf(total, 1e-9f);
-#pragma unroll
-  for (int r = 0; r < MAX_K; ++r) {
-    if (r < k && lane == r) {
-      w[row * k + r] = wk[r] / denom;
-      idx[row * k + r] = ik[r];
-    }
+  if (lane < k) {
+    w[row * k + lane] = my_w / fmaxf(total, 1e-9f);
+    idx[row * k + lane] = my_i;
   }
 }
 
 template <typename T>
-int launch(const void* logits, void* w, void* idx, int n_rows, int E, int k,
+int launch(const void* logits, float* w, int* idx, int n_rows, int E, int k,
            cudaStream_t stream) {
   const dim3 grid((n_rows + WARPS - 1) / WARPS), block(WARPS * 32);
   const T* x = static_cast<const T*>(logits);
-  float* wo = static_cast<float*>(w);
-  int* io = static_cast<int*>(idx);
   const int vpl = (E + 31) / 32;
   if (vpl <= 1) {
-    moe_router_kernel<T, 1><<<grid, block, 0, stream>>>(x, wo, io, n_rows, E, k);
+    moe_router_kernel<T, 1><<<grid, block, 0, stream>>>(x, w, idx, n_rows, E, k);
   } else if (vpl <= 2) {
-    moe_router_kernel<T, 2><<<grid, block, 0, stream>>>(x, wo, io, n_rows, E, k);
+    moe_router_kernel<T, 2><<<grid, block, 0, stream>>>(x, w, idx, n_rows, E, k);
   } else if (vpl <= 4) {
-    moe_router_kernel<T, 4><<<grid, block, 0, stream>>>(x, wo, io, n_rows, E, k);
+    moe_router_kernel<T, 4><<<grid, block, 0, stream>>>(x, w, idx, n_rows, E, k);
   } else {
-    moe_router_kernel<T, 8><<<grid, block, 0, stream>>>(x, wo, io, n_rows, E, k);
+    moe_router_kernel<T, 8><<<grid, block, 0, stream>>>(x, w, idx, n_rows, E, k);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// logits contiguous (T,E), dtype 0 = fp32, 1 = bf16; w (T,k) fp32 and idx
-// (T,k) int32 contiguous.  Takes 1 <= E <= 256 and 1 <= k <= min(8, E).
-// Returns the launch's cudaError_t (0 on success); the launch does not
-// synchronise.
-extern "C" int moe_router_fwd(const void* logits, void* w, void* idx, int dtype,
-                              int T, int E, int k, void* stream) {
+// logits contiguous (T,E), dtype 0 = fp32, 1 = bf16; out holds 2*T*k 32-bit
+// words: the (T,k) fp32 weights, then the (T,k) int32 indices.  Takes
+// 1 <= E <= 256 and 1 <= k <= min(8, E).  Returns the launch's cudaError_t
+// (0 on success); the launch does not synchronise.
+extern "C" int moe_router_fwd(const void* logits, void* out, int dtype, int T, int E, int k,
+                              void* stream) {
   if (T <= 0 || E <= 0 || E > MAX_E || k <= 0 || k > MAX_K || k > E) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(out);
+  int* idx = static_cast<int*>(out) + static_cast<long long>(T) * k;
   switch (dtype) {
     case 0: return launch<float>(logits, w, idx, T, E, k, s);
     case 1: return launch<__nv_bfloat16>(logits, w, idx, T, E, k, s);

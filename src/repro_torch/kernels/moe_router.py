@@ -1,20 +1,30 @@
 """ctypes wrapper of the CUDA MoE router (``csrc/moe_router.cu``).
 
-Checks what the kernel takes, allocates the weights and indices and
-launches on PyTorch's current stream without synchronising.  Logits that are
-already contiguous (the model's are) are not copied.
+The host's work a call is kept to what a call must do, because the kernel
+takes a few microseconds and runs once per MoE layer of every decode step:
+- the (shape, dtype, top_k) check runs once per distinct key and is
+  remembered (``plan``); the device is checked on every call;
+- logits of any leading shape (..., E) are taken as they are, so the
+  caller makes no reshape on the way in or out;
+- one allocation holds both outputs, the fp32 weights then the int32
+  indices, returned as two contiguous views; it is fresh on every call;
+- the stream is read as a raw pointer, without building a ``Stream``;
+- the launch is one ctypes call on PyTorch's current stream, without
+  synchronising.
+Logits that are already contiguous (the model's are) are not copied.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["moe_router_cuda", "DTYPES", "MAX_EXPERTS", "MAX_TOP_K"]
+__all__ = ["moe_router_cuda", "check", "plan", "DTYPES", "MAX_EXPERTS", "MAX_TOP_K"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_EXPERTS, MAX_TOP_K = 256, 8
@@ -25,37 +35,54 @@ _INT_MAX = 2**31 - 1
 def _fn():
     fn = _build.load_library("moe_router").moe_router_fwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, I, I, I, I, P]      # logits w idx dtype T E k stream
+    fn.argtypes = [P, P, I, I, I, I, P]      # logits out dtype T E k stream
     fn.restype = I
     return fn
 
 
-def moe_router_cuda(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel; same contract as ``ref.moe_router_ref``.
-
-    Raises on anything the kernel does not take: a tensor off the card, a
-    dtype other than float32/bfloat16, a shape other than (T, E) with T >= 1,
-    more than ``MAX_EXPERTS`` experts, a ``top_k`` outside 1..min(8, E), or
-    a launch that CUDA refuses."""
-    if not logits.is_cuda:
-        raise ValueError("moe_router_cuda takes CUDA tensors only")
-    if logits.dtype not in DTYPES:
-        raise ValueError(f"dtype {logits.dtype}: need one of {list(DTYPES)}")
-    if logits.dim() != 2 or logits.shape[0] < 1:
-        raise ValueError(f"logits {tuple(logits.shape)} must be (T, E) with T >= 1")
-    T, E = logits.shape
+def check(shape: Tuple[int, ...], dtype: torch.dtype, top_k: int
+          ) -> Tuple[int, int, int, Tuple[int, ...]]:
+    """(T rows, E, the kernel's dtype code, the outputs' allocation shape
+    (2, ..., top_k)) for logits of this shape (..., E) and dtype routed to
+    ``top_k`` experts.  Raises on anything the kernel does not take: a dtype
+    other than float32/bfloat16, fewer than two dims or no row, more than
+    ``MAX_EXPERTS`` experts, a ``top_k`` outside 1..min(8, E), or more than
+    2**31 elements."""
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype}: need one of {list(DTYPES)}")
+    if len(shape) < 2 or math.prod(shape[:-1]) < 1:
+        raise ValueError(f"logits {tuple(shape)} must be (..., E) with at least one row")
+    T, E = math.prod(shape[:-1]), shape[-1]
     if not 1 <= E <= MAX_EXPERTS:
         raise ValueError(f"{E} experts: the kernel takes 1 to {MAX_EXPERTS}")
     if not 1 <= top_k <= min(MAX_TOP_K, E):
         raise ValueError(f"top_k {top_k}: the kernel takes 1 to min({MAX_TOP_K}, E={E})")
-    if logits.numel() > _INT_MAX:
+    if T * E > _INT_MAX:
         raise ValueError("logits of more than 2**31 elements")
-    logits = logits.contiguous()
-    w = torch.empty((T, top_k), dtype=torch.float32, device=logits.device)
-    idx = torch.empty((T, top_k), dtype=torch.int32, device=logits.device)
-    stream = torch.cuda.current_stream(logits.device).cuda_stream
-    err = _fn()(logits.data_ptr(), w.data_ptr(), idx.data_ptr(), DTYPES[logits.dtype],
-                T, E, top_k, stream)
+    return T, E, DTYPES[dtype], (2, *shape[:-1], top_k)
+
+
+# ``check`` remembered per key; a key that raises is not remembered
+plan = functools.lru_cache(maxsize=None)(check)
+
+
+def moe_router_cuda(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel; same contract as ``ref.moe_router_ref``: logits
+    (..., E) -> (weights (..., k) fp32, idx (..., k) int32), each row of E
+    routed on its own, so that a caller need not reshape to (T, E) and back.
+
+    Raises on a tensor off the card, on what ``check`` refuses, or on a
+    launch that CUDA refuses."""
+    if not logits.is_cuda:
+        raise ValueError("moe_router_cuda takes CUDA tensors only")
+    T, E, code, out_shape = plan(logits.shape, logits.dtype, top_k)
+    if not logits.is_contiguous():
+        logits = logits.contiguous()
+    out = logits.new_empty(out_shape, dtype=torch.int32)
+    w, idx = out.unbind(0)
+    # the current stream's cudaStream_t, as an int
+    stream = torch._C._cuda_getCurrentRawStream(logits.get_device())
+    err = _fn()(logits.data_ptr(), out.data_ptr(), code, T, E, top_k, stream)
     if err != 0:
         raise RuntimeError(f"moe_router_fwd launch failed: cudaError_t {err}")
-    return w, idx
+    return w.view(torch.float32), idx

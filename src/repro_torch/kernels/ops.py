@@ -70,11 +70,14 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Softmax over experts -> top-k -> renormalise.  logits (T, E) (fp32 or
-    bf16 on the card), computed in fp32 -> (weights (T, k) fp32, idx (T, k)
-    int32); the lowest index wins among equal probabilities.  Any T is
-    taken: the kernel masks the rows past T itself, so nothing is padded."""
-    if logits.device.type == "cpu":
+    """Softmax over experts -> top-k -> renormalise.  logits (..., E) (fp32
+    or bf16 on the card), computed in fp32 -> (weights (..., k) fp32, idx
+    (..., k) int32); the lowest index wins among equal probabilities.  Any
+    number of rows is taken: the kernel masks the rows past the last
+    itself, so nothing is padded.  Called once per MoE layer of every
+    decode step, so the dispatch reads the cheap ``is_cpu``, not a
+    ``device`` object."""
+    if logits.is_cpu:
         return ref.moe_router_ref(logits, top_k)
     out = _router.moe_router_cuda(logits, top_k)
     moe_router.launches += 1

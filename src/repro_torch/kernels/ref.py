@@ -85,11 +85,11 @@ def rglru_scan_ref(
 def moe_router_ref(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax over experts -> top-k -> renormalise (DeepSeek convention).
 
-    logits (T, E) of any float dtype, computed in fp32 -> (weights (T, k)
-    fp32, idx (T, k) int32).  Equal probabilities go to the lowest index
-    first, as ``lax.top_k`` and the kernel's argmax-and-mask rounds do: a
-    stable descending sort keeps equal values in index order (``topk`` does
-    not promise an order among them)."""
+    logits (..., E) of any float dtype, computed in fp32 -> (weights
+    (..., k) fp32, idx (..., k) int32).  Equal probabilities go to the
+    lowest index first, as ``lax.top_k`` and the kernel's argmax-and-mask
+    rounds do: a stable descending sort keeps equal values in index order
+    (``topk`` does not promise an order among them)."""
     probs = torch.softmax(logits.float(), dim=-1)
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = w[..., :top_k], idx[..., :top_k]

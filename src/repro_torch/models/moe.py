@@ -62,12 +62,14 @@ def _route(logits: torch.Tensor, moe: MoEConfig, kernel_impl: str = "jnp"
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits (G, S, E) -> (weights (G,S,k) fp32, expert_idx (G,S,k) int32,
     probs (G,S,E) fp32).  ``kernel_impl="pallas"`` routes through the kernel
-    entry, anything else through its plain version."""
-    G, S, E = logits.shape
+    entry, anything else through its plain version; both take the (G, S, E)
+    logits as they are (no reshape to rows and back: on the card each
+    costs the host a few microseconds, once per MoE layer of every decode
+    step)."""
     probs = torch.softmax(logits.float(), dim=-1)
     router = kops.moe_router if kernel_impl == "pallas" else kref.moe_router_ref
-    top_w, top_idx = router(logits.reshape(G * S, E), moe.top_k)
-    return top_w.reshape(G, S, -1), top_idx.reshape(G, S, -1), probs
+    top_w, top_idx = router(logits, moe.top_k)
+    return top_w, top_idx, probs
 
 
 def _dispatch_tensors(top_w: torch.Tensor, top_idx: torch.Tensor, moe: MoEConfig,
@@ -83,9 +85,13 @@ def _dispatch_tensors(top_w: torch.Tensor, top_idx: torch.Tensor, moe: MoEConfig
     E = moe.n_experts
     C = _capacity(S, moe)
     onehot = F.one_hot(top_idx.long(), E).float()                   # (G,S,k,E)
-    # position of each (token, k) among that expert's tokens, in token order
+    # position of each (token, k) among that expert's tokens, in token order.
+    # The scan runs along the last axis: down axis 1 PyTorch's CUDA scan walks
+    # each of the G*E columns in order on one thread.  Sums of 0/1 below 2**24
+    # are exact in fp32, so any order gives JAX's positions bit for bit.
     flat = onehot.reshape(onehot.shape[0], -1, E)                   # (G, S*k, E)
-    pos = (torch.cumsum(flat, dim=1) - flat).reshape(onehot.shape)  # (G,S,k,E)
+    pos = torch.cumsum(flat.transpose(1, 2), dim=-1).transpose(1, 2) - flat
+    pos = pos.reshape(onehot.shape)                                 # (G,S,k,E)
     in_cap = (pos < C).float() * onehot
     slots = torch.arange(C, device=pos.device)
     slot = (pos.long()[..., None] == slots).float()                 # (G,S,k,E,C)

@@ -8,8 +8,11 @@ version (``ref.moe_router_ref``); it is held against the JAX Pallas router
 same numpy inputs and weights.  The reduced configs take ``n_experts`` 16
 (granite, top 8) and 8 (deepseek, top 6, two shared experts), so that top-k
 makes a choice and a group of 32 tokens overflows an expert's capacity (20
-and 30 slots).  The CUDA kernel itself is held against the plain version by
-the ``gpu`` tests, which skip without a card.
+and 30 slots).  The CUDA kernel's selection order (its keys, the masked
+winner, the lowest index among equals) is emulated in plain PyTorch and
+held against JAX's router; its wrapper's check runs without a card.  The
+CUDA kernel itself is held against the plain version by the ``gpu`` tests,
+which skip without a card.
 """
 import dataclasses
 import importlib.util
@@ -124,6 +127,120 @@ def test_router_weights_normalized_sorted_unique():
     assert all(len(set(row)) == 4 for row in idx.tolist())
 
 
+# -- the CUDA kernel's selection order, emulated on the CPU -----------------------------
+
+def _kernel_selection(logits, k, masked_key=0):
+    """``csrc/moe_router.cu``'s selection, step for step in plain PyTorch:
+    probabilities p = exp(x - max) / sum, each keyed as its fp32 bits + 1;
+    each round takes the largest key, then the lowest index holding it, and
+    sets the winner's key to ``masked_key`` (0 in the kernel).  The weights
+    are the winners' probabilities over max(their sum, 1e-9)."""
+    x = logits.float()
+    e = torch.exp(x - x.max(-1, keepdim=True).values)
+    p = e / e.sum(-1, keepdim=True)
+    keys = p.view(torch.int32).long() + 1
+    rows = torch.arange(len(keys))
+    ws, idxs = [], []
+    for _ in range(k):
+        top = keys.max(-1).values
+        win = (keys == top[:, None]).int().argmax(-1)       # the first holder
+        keys[rows, win] = masked_key
+        ws.append((top - 1).int().view(torch.float32))
+        idxs.append(win)
+    w = torch.stack(ws, -1)
+    return w / w.sum(-1, keepdim=True).clamp_min(1e-9), torch.stack(idxs, -1).int()
+
+
+def _router_cases():
+    """name -> (logits, k, dtype): the edges of the kernel's selection."""
+    equal = _rand(30, 24, 40, scale=2.0)
+    equal[:8] = 0.0                                   # every expert ties
+    equal[8:16] = 3.0                                 # every expert ties, away from 0
+    equal[16:, [5, 9, 30]] = 9.0                      # three equal winners, out of order
+    under = np.full((6, 40), -200.0, np.float32)      # exp underflows to 0.0 in fp32
+    under[0, 0] = under[1, 5] = under[2, 39] = 0.0    # one probability 1, the rest 0.0
+    under[3, [2, 11]] = 0.0                           # two of 0.5
+    under[4] = _rand(31, 40, scale=2.0)
+    under[4, 20:] = -200.0                            # half the row underflows
+    under[5, 33] = 0.0
+    return {
+        "rows of equal logits": (equal, 8, "float32"),
+        "probabilities 0.0 beside masked winners": (under, 8, "float32"),
+        "E=250": (_rand(32, 77, 250, scale=2.0), 8, "float32"),
+        "k=E": (_rand(33, 64, 8, scale=2.0), 8, "float32"),
+        "bf16 logits": (_rand(34, 96, 40, scale=2.0), 8, "bfloat16"),
+        "deepseek E=64 k=6": (_rand(35, 96, 64, scale=2.0), 6, "float32"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_router_cases()))
+def test_kernel_selection_order_matches_jax(case):
+    """The kernel's keys (bits + 1, a winner 0, the lowest index among
+    equals) select as the JAX Pallas router (interpret mode) and JAX's
+    reference do, and as the port's plain version."""
+    logits, k, dtype = _router_cases()[case]
+    w, idx = _kernel_selection(_t(logits, dtype), k)
+    (pw, pi), *others = _router_all(logits, k, dtype)
+    for ow, oi in [(pw, pi)] + others:
+        np.testing.assert_array_equal(idx.numpy(), oi)
+        np.testing.assert_allclose(w.numpy(), ow, atol=ROUTER_ATOL)
+
+
+def test_masked_winner_must_sort_below_an_underflowed_probability():
+    """Why a winner's key is 0 and not the bits of JAX's -1.0: read as an
+    unsigned key, -1.0 lies above every probability, and the next round
+    would pick the winner again where JAX picks the lowest 0.0."""
+    logits = np.full((1, 40), -200.0, np.float32)
+    logits[0, 5] = 0.0
+    _, idx = _kernel_selection(_t(logits), 8)
+    np.testing.assert_array_equal(idx.numpy()[0], [5, 0, 1, 2, 3, 4, 6, 7])
+    minus_one = int(np.array(-1.0, np.float32).view(np.uint32)) + 1
+    _, wrong = _kernel_selection(_t(logits), 8, masked_key=minus_one)
+    assert wrong.numpy()[0].tolist() == [5] * 8
+
+
+# -- the wrapper's check, without a card ------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype,k,match", [
+    ((8, 300), torch.float32, 8, "experts"),
+    ((8, 40), torch.float32, 9, "top_k"),
+    ((8, 40), torch.float32, 0, "top_k"),
+    ((8, 4), torch.float32, 5, "top_k"),
+    ((8, 40), torch.float16, 8, "dtype"),
+    ((0, 40), torch.float32, 8, "at least one row"),
+    ((40,), torch.float32, 8, "must be"),
+    ((8, 0, 40), torch.float32, 8, "at least one row"),
+    ((2**26, 64), torch.float32, 8, "2\\*\\*31"),
+])
+def test_router_check_refuses_what_the_kernel_does_not_take(shape, dtype, k, match):
+    """``check`` and its remembered form ``plan`` refuse each bad (shape,
+    dtype, k) every time: a key that raises is not remembered."""
+    for fn in (prouter.check, prouter.plan, prouter.plan):
+        with pytest.raises(ValueError, match=match):
+            fn(torch.Size(shape), dtype, k)
+
+
+def test_router_plan_is_checked_once_per_key():
+    """A key is checked once; (G, S, E) logits are G*S rows, and the outputs
+    are allocated as (2, G, S, k): weights, then indices."""
+    before = prouter.plan.cache_info()
+    assert prouter.plan(torch.Size((123, 40)), torch.bfloat16, 8) == (123, 40, 1, (2, 123, 8))
+    assert prouter.plan(torch.Size((123, 40)), torch.bfloat16, 8) == (123, 40, 1, (2, 123, 8))
+    after = prouter.plan.cache_info()
+    assert after.hits >= before.hits + 1 and after.misses <= before.misses + 1
+    assert prouter.check((16, 256, 64), torch.float32, 6) == (4096, 64, 0, (2, 16, 256, 6))
+
+
+def test_router_takes_leading_dims_as_rows():
+    """(G, S, E) logits route as their G*S rows, on the plain version as on
+    the kernel: ``_route`` hands them over without a reshape."""
+    logits = _t(_rand(29, 3, 32, 40, scale=2.0))
+    w, idx = pops.moe_router(logits, 8)
+    w2, idx2 = pops.moe_router(logits.reshape(96, 40), 8)
+    assert w.shape == idx.shape == (3, 32, 8)
+    assert torch.equal(w.reshape(96, 8), w2) and torch.equal(idx.reshape(96, 8), idx2)
+
+
 # -- dispatch ------------------------------------------------------------------------
 
 def test_cpu_dispatches_to_the_plain_version_without_counting():
@@ -180,6 +297,30 @@ def test_dispatch_tensors_drop_overflowing_tokens_as_jax(arch):
     assert C < S * moe.top_k / moe.n_experts * 2 and float(jd.sum()) < idx.size
     np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
     np.testing.assert_array_equal(pc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("G,live", [(1, 8), (4, 256)])
+def test_dispatch_tensors_at_granite_width_match_jax_bit_for_bit(G, live):
+    """granite-moe's full router width (E=40, top-8, groups of 256, C=64).
+    Decode: 8 tokens padded to one group, whose 248 zero rows all route to
+    experts 0-7 and overflow them; prefill-like: every row live.  Dispatch
+    and combine equal JAX's bit for bit (slot positions are sums of 0/1,
+    exact in fp32 in any order)."""
+    jmoe_cfg, pmoe_cfg = jax_get_config("granite-moe-3b-a800m").moe, \
+        get_config("granite-moe-3b-a800m").moe
+    S, E = jmoe_cfg.group_size, jmoe_cfg.n_experts
+    assert (S, E, jmoe_cfg.top_k) == (256, 40, 8)
+    logits = _rand(26, G, S, E, scale=2.0)
+    logits[:, live:] = 0.0
+    top_w, top_idx, _ = jmoe._route(_j(logits), jmoe_cfg)
+    jd, jc = jmoe._dispatch_tensors(top_w, top_idx, jmoe_cfg, S)
+    pd, pc = pmoe._dispatch_tensors(torch.from_numpy(np.array(top_w)),
+                                    torch.from_numpy(np.array(top_idx)), pmoe_cfg, S)
+    assert jd.shape == (G, S, E, 64)
+    np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(jc))
+    if live < S:
+        assert float(jd.sum()) < top_idx.size, "the padded rows overflow no expert"
 
 
 @pytest.mark.parametrize("G,N,E", [(3, 40, 16), (2, 256, 8), (1, 7, 3)])
@@ -333,3 +474,40 @@ def test_moe_router_kernel_refuses_what_it_does_not_take(cuda_device):
                    (x.half(), 8), (x[:0], 8), (x[0], 8)):
         with pytest.raises(ValueError):
             prouter.moe_router_cuda(bad, k)
+
+
+@pytest.mark.gpu
+def test_moe_router_outputs_are_contiguous_typed_and_fresh(cuda_device):
+    """Both outputs are contiguous views of one allocation made for this
+    call: a second call's outputs share no storage with the first's, so a
+    layer's routing that lives on through dispatch is never overwritten."""
+    logits = _t(_rand(27, 1, 256, 40, scale=2.0)).to(cuda_device)     # decode's (G, S, E)
+    w1, i1 = prouter.moe_router_cuda(logits, 8)
+    w2, i2 = prouter.moe_router_cuda(logits, 8)
+    torch.cuda.synchronize()
+    for w, i in ((w1, i1), (w2, i2)):
+        assert w.shape == i.shape == (1, 256, 8)
+        assert w.dtype == torch.float32 and i.dtype == torch.int32
+        assert w.is_contiguous() and i.is_contiguous()
+    w_ref, idx_ref = pref.moe_router_ref(logits, 8)
+    assert torch.equal(i1, idx_ref)
+    torch.testing.assert_close(w1, w_ref, rtol=0, atol=ROUTER_ATOL)
+    first = {w1.untyped_storage().data_ptr(), i1.untyped_storage().data_ptr()}
+    second = {w2.untyped_storage().data_ptr(), i2.untyped_storage().data_ptr()}
+    assert not first & second
+    assert torch.equal(w1, w2) and torch.equal(i1, i2)
+
+
+@pytest.mark.gpu
+def test_moe_router_takes_strided_logits_and_the_current_stream(cuda_device):
+    """A transposed view is copied before the launch; the launch goes to
+    PyTorch's current stream, here a side stream."""
+    logits = _t(_rand(28, 40, 300, scale=2.0)).to(cuda_device).t()
+    w_ref, idx_ref = pref.moe_router_ref(logits, 8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w, idx = pops.moe_router(logits, 8)
+    side.synchronize()
+    assert torch.equal(idx, idx_ref)
+    torch.testing.assert_close(w, w_ref, rtol=0, atol=ROUTER_ATOL)
