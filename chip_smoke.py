@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving paths on one NVIDIA GPU and check them.
+"""Run the PyTorch port's training and serving paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -7,20 +8,30 @@ Phases, in order; any failure ends the run with its traceback and a
 non-zero exit:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-   build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   build the five CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` each, all started together) and print ptxas' reports; K1's
    tiles, shared memory and blocks an SM for each (dtype, head_dim), and the
-   HMMA (tensor-core) instructions in each of its kernels' SASS.
+   HMMA (tensor-core) instructions in each of its kernels' SASS; the same
+   for K1's backward, with each kernel's registers and spills.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and edge cases (ragged lengths, initial states, a
    sequence run in two halves, a sequence whose chunks are all K2's
-   parallelism, tied router rows, bf16), with stated tolerances.  Then K4's
-   times, while the profiler is fresh: at granite-moe's prefill and decode
-   shapes and deepseek-moe's, its device time a launch, the wrapper's time
-   a call paced by the host, the bound, and beside them the card's launch
-   floor (a one-element fill kernel's device time, a one-element in-place
-   op's time a call).
-3. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
+   parallelism, tied router rows, bf16), with stated tolerances; K1's
+   backward against its plain version at the forward's cases, fp32 and
+   bf16, and ``FlashAttentionFn`` against autograd of the plain forward.
+   Then K4's times: at granite-moe's prefill and decode shapes and
+   deepseek-moe's, its device time a launch, the wrapper's time a call
+   paced by the host, the bound, and beside them the card's launch floor
+   (a one-element fill kernel's device time, a one-element in-place op's
+   time a call).
+3. train: ``repro_torch.launch.train`` at full width on smollm-135m (fp32,
+   batch 8, sequence 512, 4 steps), every launch count set to 0 just before
+   and read just after (30 K1 forwards and 30 K1 backwards a step); the
+   plain path (``attn_impl="naive"``) on the same weights and batches: the
+   first step's gradient of every parameter and the four losses within
+   stated limits; the steady step time, tokens/s, peak device memory and a
+   trace of one warm step.
+4. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
    32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
    granite-moe-3b-a800m, one model resident at a time.  Every launch count
    is set to 0 just before each path and read just after; then the same
@@ -33,7 +44,7 @@ non-zero exit:
    granite-moe the plain path's routing is teacher-forced too, to the
    kernel path's experts; each routing decision in which the two paths
    differ is counted and must be a near-tie on the plain path.
-4. times: each path's prefill and decode times and a ``torch.profiler``
+5. times: each path's prefill and decode times and a ``torch.profiler``
    trace of one warm prefill and 8 warm decode steps (wall time, the
    device's busy and idle share, the kernels that took the most device
    time and the MoE dispatch's scans; this repo's kernel launches the
@@ -46,7 +57,15 @@ non-zero exit:
    launched, by its profiler name) and both of its bounds.  K2 is timed
    in fp32 and bf16 beside its bound and its two-kernel design's floor,
    and each of its two kernels is reported: registers and spills, shared
-   memory, blocks an SM and device time.
+   memory, blocks an SM and device time.  K1's backward is timed at
+   smollm's train shape in fp32 and bf16, beside its plain version, the
+   backward of ``scaled_dot_product_attention`` and both of its bounds.
+
+Every ``torch.profiler`` session keeps 50 ms of idle at each end, and one
+that comes back with no kernel record, or with fewer records of this repo's
+kernels than the launches made under it, is profiled again (``profiled``),
+up to three times in all; its reading is never used.  The line before the
+``kernels`` record counts the sessions and the retries.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -72,10 +91,21 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
-KERNELS = ("flash_attention", "rwkv6_scan", "rglru_scan", "moe_router")
-# CUDA kernels a wrapper call launches, each named <kernel>_...: K2 runs its
-# chunk-states kernel, then its outputs kernel.
-KERNELS_PER_CALL = {"flash_attention": 1, "rwkv6_scan": 2, "rglru_scan": 1, "moe_router": 1}
+KERNELS = ("flash_attention", "flash_attention_bwd", "rwkv6_scan", "rglru_scan", "moe_router")
+# CUDA kernels a wrapper call launches and the prefix of their names: K1's
+# backward runs its dq kernel, then its dkdv kernel; K2 its chunk-states
+# kernel, then its outputs kernel.
+KERNELS_PER_CALL = {"flash_attention": 1, "flash_attention_bwd": 2, "rwkv6_scan": 2,
+                    "rglru_scan": 1, "moe_router": 1}
+KERNEL_PREFIX = {"flash_attention": "flash_attention_fwd_",
+                 "flash_attention_bwd": "flash_attention_bwd_", "rwkv6_scan": "rwkv6_scan_",
+                 "rglru_scan": "rglru_scan_", "moe_router": "moe_router_"}
+# torch.profiler: idle kept inside every session before the first launch and
+# after the last synchronise (on an H100, with none about 1 session in 100
+# came back with no kernel record or with some dropped; with 50 ms at each
+# end none of 1,524 did), and the attempts a session gets before the run
+# fails.
+PROFILER_PAD_S, PROFILER_ATTEMPTS = 0.05, 3
 # Kernel against plain version: the tolerances of tests/test_kernels.py.
 # With bf16 outputs each side rounds y once, so a value may also land one
 # bf16 ulp (2**-8 relative) away: rtol 2**-7 allows that for |y| above 6.
@@ -144,12 +174,12 @@ def trace_summary(records, wall_us: float, calls: dict) -> dict:
     device us) and the wrapper calls made under it ({kernel: calls}): the
     device's busy time (the kept records summed: one stream, so they do not
     overlap) and idle share, and for each kernel of this repo the launches
-    kept against those made (``KERNELS_PER_CALL`` a call).  Late in a long
-    process torch.profiler drops kernel records; where it dropped some of
-    this repo's, it may have dropped others too, so busy time is then a
-    lower bound and the idle share an upper bound (``dropped``)."""
+    kept against those made (``KERNELS_PER_CALL`` a call).  Where the
+    profiler dropped some of this repo's records it may have dropped others
+    too, so busy time is then a lower bound and the idle share an upper
+    bound (``dropped``); ``profiled`` profiles such a session again."""
     busy_us = sum(us for _, _, us in records)
-    kept = {n: sum(c for key, c, _ in records if f"{n}_" in key) for n in calls}
+    kept = {n: sum(c for key, c, _ in records if KERNEL_PREFIX[n] in key) for n in calls}
     expected = {n: calls[n] * KERNELS_PER_CALL[n] for n in calls}
     return {"busy_us": busy_us, "idle_share": 1 - busy_us / wall_us, "kept": kept,
             "expected": expected, "dropped": any(kept[n] < expected[n] for n in calls)}
@@ -169,75 +199,140 @@ def trace_head(name: str, wall_us: float, records, calls: dict, card: str) -> st
             f"kept of made: {ours}{dropped} {card}")
 
 
-def trace(name: str, fn, card: str, ops) -> None:
-    """Run ``fn`` once under ``torch.profiler``; print wall time, the device's
-    busy time and idle share, and the kernels with the most device time.
-    The launches of this repo's kernels that the trace kept are held against
-    the ``ops.<name>.launches`` made during it (``trace_head``).  A trace
-    with no device time fails."""
-    import torch
-    from torch.autograd import DeviceType
+# Sessions of torch.profiler opened in this run, and those profiled again.
+PROFILER = {"sessions": 0, "retried": 0, "unmeasured": 0}
+
+
+def profiled(name: str, attempt):
+    """One profiler measurement, held to the rule of every session.
+    ``attempt()`` profiles it once and returns (records, wall_us, calls):
+    the kernel records (name, launches kept, device us), the wall time and
+    this repo's wrapper calls made under it ({kernel: calls}).  A session
+    with no kernel record is empty; one that kept fewer records of a kernel
+    of this repo than the launches made under it is partial.  Either is
+    profiled again, up to ``PROFILER_ATTEMPTS`` in all, with a
+    ``[profiler]`` line naming the measurement; its reading is never used.
+    Fails when every attempt came back empty; returns None, so that the
+    measurement is reported as not measured, when none came back whole.
+    Correctness checks never come here: only measurements are repeated."""
+    empty = 0
+    for i in range(PROFILER_ATTEMPTS):
+        PROFILER["sessions"] += 1
+        records, wall_us, calls = attempt()
+        t = trace_summary(records, wall_us, calls)
+        if records and not t["dropped"]:
+            return records, wall_us, calls
+        empty += not records
+        what = "empty" if not records else "partial (this repo's launches kept of made: " + \
+            ", ".join(f"{n} {t['kept'][n]} of {t['expected'][n]}" for n in calls
+                      if t["kept"][n] < t["expected"][n]) + ")"
+        if i + 1 < PROFILER_ATTEMPTS:
+            PROFILER["retried"] += 1
+            log(f"[profiler] {name}: session {i + 1} of {PROFILER_ATTEMPTS} came back {what}; "
+                "profiling it again")
+    assert empty < PROFILER_ATTEMPTS, f"{name}: {PROFILER_ATTEMPTS} profiler sessions came back empty"
+    PROFILER["unmeasured"] += 1
+    log(f"[profiler] {name}: no session of {PROFILER_ATTEMPTS} came back whole (the last "
+        f"{what}); not measured")
+    return None
+
+
+def _profile_once(torch, fn, cpu: bool):
+    """(torch.profiler's key averages, wall us, this repo's wrapper calls)
+    of one call of ``fn``, with ``PROFILER_PAD_S`` of idle inside the
+    session at each end, outside the wall time."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     before = {n: getattr(ops, n).launches for n in KERNELS}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
+        time.sleep(PROFILER_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    calls = {n: getattr(ops, n).launches - before[n] for n in KERNELS}
-    # device-side events only: a CPU op's device time repeats its kernels'
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        time.sleep(PROFILER_PAD_S)
+    return prof.key_averages(), wall_us, {n: getattr(ops, n).launches - before[n]
+                                          for n in KERNELS}
+
+
+def _kernel_events(events) -> list:
+    """The device-side events with device time (a CPU op's device time
+    repeats its kernels')."""
+    from torch.autograd import DeviceType
+    return [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def trace(name: str, fn, card: str, ops) -> None:
+    """Run ``fn`` once under ``torch.profiler`` (``profiled``); print wall
+    time, the device's busy time and idle share, and the kernels with the
+    most device time.  The launches of this repo's kernels that the trace
+    kept are held against the ``ops.<name>.launches`` made during it
+    (``trace_head``)."""
+    import torch
+    events = {}
+
+    def attempt():
+        evs, wall_us, calls = _profile_once(torch, fn, cpu=True)
+        events["kernels"] = _kernel_events(evs)
+        return ([(e.key, e.count, e.self_device_time_total) for e in events["kernels"]],
+                wall_us, calls)
+
+    got = profiled(f"trace {name}", attempt)
+    if got is None:
+        return
+    records, wall_us, calls = got
+    kernels = events["kernels"]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    assert busy_us > 0, f"{name}: the trace holds no device time"
-    log(trace_head(name, wall_us, [(e.key, e.count, e.self_device_time_total) for e in kernels],
-                   calls, card))
+    log(trace_head(name, wall_us, records, calls, card))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]
-    ours = [e for e in kernels if e not in top and (any(f"{n}_" in e.key for n in KERNELS)
+    ours = [e for e in kernels if e not in top and (any(p in e.key for p in KERNEL_PREFIX.values())
                                                     or any(n in e.key for n in TRACE_ALSO))]
     for e in top + ours:   # the top kernels, then this repo's kernels and TRACE_ALSO below them
         log(f"[trace]   {e.self_device_time_total / 1e3:10.4f} ms  {e.count:5d}x  "
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
 
 
-def device_ms(torch, fn, match: str = "", iters: int = 50) -> float:
+def device_ms(torch, name: str, fn, match: str = "", iters: int = 50):
     """Mean device time per call of ``fn`` (``torch.profiler``): the time of
     the kernels whose name contains ``match`` (every kernel for ""), over
-    ``iters`` calls after a warm-up.  Unlike ``time_ms`` it leaves out the
-    host's time between launches, which paces a call whose kernels take a
-    few microseconds."""
-    ms = per_call_ms(device_kernels(torch, fn, iters), iters, match)
-    assert ms > 0, f"no device time for {match!r}"
+    ``iters`` calls after a warm-up; None if not measured (``profiled``).
+    Unlike ``time_ms`` it leaves out the host's time between launches,
+    which paces a call whose kernels take a few microseconds."""
+    found = device_kernels(torch, name, fn, iters)
+    if found is None:
+        return None
+    ms = per_call_ms(found, iters, match)
+    assert ms > 0, f"{name}: no device time for {match!r}"
     return ms
 
 
-def device_kernels(torch, fn, calls: int = 10) -> list:
+def device_kernels(torch, name: str, fn, calls: int = 10) -> list:
     """(name, launches kept, total device ms) of each CUDA kernel that
-    ``calls`` warm calls of ``fn`` launch, from ``torch.profiler``; fails on
-    none."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``calls`` warm calls of ``fn`` launch, from one whole ``torch.profiler``
+    session (``profiled``; ``name`` names the measurement); None if no
+    session came back whole."""
     for _ in range(5):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    found = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    assert found, "the profiler saw no kernel"
-    return found
+
+    def attempt():
+        evs, wall_us, calls_made = _profile_once(
+            torch, lambda: [fn() for _ in range(calls)], cpu=False)
+        return ([(e.key, e.count, e.self_device_time_total) for e in _kernel_events(evs)],
+                wall_us, calls_made)
+
+    got = profiled(name, attempt)
+    return None if got is None else [(key, n, us / 1e3) for key, n, us in got[0]]
 
 
 def per_call_ms(kernels, calls: int, match: str = "") -> float:
     """Device ms a call from ``device_kernels``' records of ``calls`` calls:
     each kernel's mean over the launches the profiler kept, times its
-    launches a call (ceil(kept / calls)).  Late in a process that has
-    profiled some 10^5 launches, torch.profiler drops kernel records (on an
-    H100, 1 to 3 in 10 of a later run), so a total divided by the calls
-    reads low."""
+    launches a call (ceil(kept / calls)).  ``profiled`` repeats a session
+    that dropped records of this repo's kernels; for other kernels (a
+    library call, a plain version) a dropped record is not seen, and a
+    total divided by the calls would read low."""
     return sum(ms / n * math.ceil(n / calls) for name, n, ms in kernels if match in name)
 
 
@@ -251,6 +346,17 @@ def attention_inputs(torch, dev, seed, B, Sq, Sk, H, K, hd, dtype, q0=None):
     return q, k, v, qp, kp
 
 
+def allowed_pairs(qp, kp, causal=True, window=None) -> int:
+    """The (query, key) pairs the mask allows, counted from the positions."""
+    d = qp[:, :, None] - kp[:, None, :]
+    ok = kp[:, None, :] >= 0
+    if causal:
+        ok = ok & (d >= 0)
+    if window is not None:
+        ok = ok & (d < window)
+    return int(ok.sum())
+
+
 def attention_bound(q, k, v, qp, kp, causal=True, window=None):
     """Least time for the function on this card: operations (4*hd per allowed
     (query, key) pair, counted from these positions) over the fp32 CUDA-core
@@ -261,14 +367,8 @@ def attention_bound(q, k, v, qp, kp, causal=True, window=None):
     bf16 peak; or bytes, whichever is larger.  Returns (ms, bound_by, flops,
     bytes, tensor-core ms, its bound_by)."""
     import torch
-    d = qp[:, :, None] - kp[:, None, :]
-    ok = kp[:, None, :] >= 0
-    if causal:
-        ok = ok & (d >= 0)
-    if window is not None:
-        ok = ok & (d < window)
     H, hd = q.shape[2], q.shape[3]
-    flops = 4.0 * hd * H * int(ok.sum())
+    flops = 4.0 * hd * H * allowed_pairs(qp, kp, causal, window)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, qp, kp)) \
         + q.numel() * q.element_size()
     if q.dtype == torch.bfloat16:
@@ -278,6 +378,26 @@ def attention_bound(q, k, v, qp, kp, causal=True, window=None):
     t_bytes = nbytes / PEAK_HBM_BYTES
     return _bound(flops, nbytes) + (max(t_ops, t_bytes) * 1e3,
                                     "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bwd_bound(q, k, v, qp, kp, causal=True, window=None):
+    """Least time for K1's backward on this card: operations (10*hd per
+    allowed (query, key) pair: q.k and dO.v again, dS^T Q, P^T dO and dS K)
+    over the fp32 CUDA-core peak, or bytes (q, k, v, the forward's output,
+    dO, its LSE and the positions read once, dq, dk, dv written once) over
+    HBM.  Then the bound on the tensor cores: fp32 as 3xTF32 (3 x operations
+    over the TF32 peak), bf16 as one bf16 product each (operations over the
+    bf16 peak), or bytes.  Returns (ms, bound_by, flops, bytes, tensor-core
+    ms, its bound_by)."""
+    import torch
+    B, Sq, H, hd = q.shape
+    flops = 10.0 * hd * H * allowed_pairs(qp, kp, causal, window)
+    nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * q.element_size() \
+        + B * H * Sq * 4 + _nbytes(qp, kp)
+    tc = 3.0 * flops / PEAK_TF32_FLOPS if q.dtype == torch.float32 else flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return _bound(flops, nbytes) + (max(tc, t_bytes) * 1e3,
+                                    "operations" if tc >= t_bytes else "bytes")
 
 
 def _bound(flops, nbytes):
@@ -418,6 +538,21 @@ def report_k1_build(torch, fa, nvcc: str, lib: Path, card: str) -> None:
     assert counts and all(c["HMMA"] > 0 for c in counts.values()), "K1 runs no HMMA"
 
 
+def report_k1_bwd_build(torch, fa, build_log: str, card: str) -> None:
+    """K1's backward: for each (dtype, head_dim) its tiles, each kernel's
+    dynamic shared memory and blocks an SM (the card), and its registers and
+    spills (ptxas)."""
+    ptx = ptxas_kernels(build_log)
+    for dtype, tag in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
+        for hd in fa.HEAD_DIMS:
+            regs = {k: [c for fn, c in ptx.items() if f"bwd_{k}_kernelI{tag}Li{hd}E" in fn]
+                    for k in ("dq", "dkdv")}
+            assert all(len(r) == 1 for r in regs.values()), f"no single bwd kernel {dtype} {hd}"
+            log(f"[build] flash_attention_bwd {str(dtype)[6:]} hd {hd}: "
+                f"{fa.bwd_tile_config(dtype, hd)}; ptxas "
+                f"{ {k: r[0] for k, r in regs.items()} } {card}")
+
+
 def router_sass(nvcc: str, lib: Path) -> dict:
     """For each instantiation of the router kernel in ``lib`` (by its
     template arguments: dtype and values a lane), its SASS instructions and
@@ -469,7 +604,8 @@ def report_k2_build(torch, ops, rw, nvcc: str, lib: Path, build_log: str, card: 
     for dtype, tag in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
         name = str(dtype)[6:]
         r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 200, 8, 512, 32, 64, dtype)
-        found = device_kernels(torch, lambda: ops.rwkv6_scan(r, k, v, logw, u, s0))
+        found = device_kernels(torch, f"rwkv6_scan {name} kernels",
+                               lambda: ops.rwkv6_scan(r, k, v, logw, u, s0))
         occ = rw.occupancy(dtype, 32)
         out[name] = {}
         for pas in rw.PASSES:
@@ -478,8 +614,8 @@ def report_k2_build(torch, ops, rw, nvcc: str, lib: Path, build_log: str, card: 
             code = [c for fn, c in sass.items() if f"{kernel}I{tag}E" in fn]
             assert len(regs) == 1 and len(code) == 1, f"no single {kernel} for {name}"
             loop = max(code[0][1], key=lambda x: (x[1], -x[0]), default=None)
-            out[name][pas] = per_call_ms(found, 10, kernel)
-            assert out[name][pas] > 0, f"no device time for {kernel}"
+            out[name][pas] = None if found is None else per_call_ms(found, 10, kernel)
+            assert out[name][pas] is None or out[name][pas] > 0, f"no device time for {kernel}"
             log(f"[build] rwkv6_scan {pas} kernel {name}: {regs[0]}, {occ[pas]['smem_bytes']} B "
                 f"of dynamic shared memory (L=32), {occ[pas]['blocks_per_sm']} blocks an SM; "
                 f"SASS (instructions, MUFU.EX2, LDS) {code[0][0]}, the innermost loop with the "
@@ -546,6 +682,92 @@ def check_flash_attention(torch, dev, ops, ref) -> float:
             assert int(torch.count_nonzero(out[1, 7])) == 0, "fully masked row is not 0"
         if i == 0:
             main_err = err
+    return main_err
+
+
+# K1's backward against its plain version: normwise, max |kernel - plain|
+# over max(1, max |plain|) for each of dq, dk, dv.  The two take fp32 sums in
+# other orders, and the kernel's P comes from the forward's LSE (3xTF32
+# scores).  On an H100 at most 3.0e-6 in fp32 (recurrentgemma's MQA, whose
+# dK and dV sum over 16 heads) and 3.1e-3 in bf16 (about one bf16 ulp of a
+# gradient): 1e-5 and 1.5e-2.  FlashAttentionFn against autograd of the
+# plain forward adds the forward's own difference: at most 2.5e-6 and
+# 4.0e-3: 2e-5 and 3.5e-2.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
+FN_TOL = {"float32": 2e-5, "bfloat16": 3.5e-2}
+
+
+def normwise(a, b) -> float:
+    """max |a - b| over max(1, max |b|)."""
+    return max_err(a, b) / max(1.0, float(b.float().abs().max()))
+
+
+def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
+    """K1's backward (``ops.flash_attention_bwd``) against
+    ``ref.flash_attention_bwd_ref`` at the forward's cases, fp32 and bf16;
+    then ``FlashAttentionFn`` (``ops.flash_attention`` on tensors that need a
+    gradient) against autograd of the plain forward at smollm's train
+    shape.  Returns the max abs error of dq, dk, dv at smollm's train
+    shape, fp32."""
+    from repro_torch.kernels import flash_attention as fa
+    cases = [  # name, (B, Sq, Sk, H, K, hd), kwargs, edit
+        ("smollm train", (8, 512, 512, 9, 3, 64), {}, None),
+        ("granite-moe heads", (8, 512, 512, 24, 8, 64), {}, None),
+        ("window+softcap hd128", (2, 200, 200, 4, 2, 128), {"window": 48, "softcap": 30.0},
+         None),
+        ("recurrentgemma local_attn hd256 MQA", (2, 512, 512, 16, 1, 256), {"window": 2048},
+         None),
+        ("ragged Sq < Sk, MQA", (2, 96, 160, 4, 1, 64), {}, None),
+        ("empty key slots", (2, 64, 256, 4, 2, 64), {}, "holes"),
+        ("fully masked row", (2, 128, 128, 9, 3, 64), {}, "masked_row"),
+        ("tile edges S=77", (2, 77, 77, 4, 2, 64), {}, None),
+        ("hd256 ragged", (2, 130, 170, 8, 1, 256), {}, None),
+        ("unaligned q view", (2, 100, 100, 4, 2, 64), {}, "unaligned"),
+    ]
+    main_err = None
+    for i, (name, shape, kw, edit) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, qp, kp = attention_inputs(torch, dev, 500 + i, *shape, dtype)
+            if edit == "holes":
+                qp += 300
+                kp[:, 96:200] = -1
+            if edit == "masked_row":
+                qp[1, 7] = -1
+            if edit == "unaligned":
+                q = torch.nn.functional.pad(q, (1, 0))[..., 1:]
+            out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True, **kw)
+            g = torch.Generator(device=dev).manual_seed(600 + i)
+            dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+            got = ops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            exp = ref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout, **kw)
+            tol = BWD_TOL[str(dtype)[6:]]
+            errs = [max_err(a, b) for a, b in zip(got, exp)]
+            rels = [normwise(a, b) for a, b in zip(got, exp)]
+            log(f"[kernel] flash_attention_bwd {name} {shape} {dtype} {kw}: max_abs_err "
+                f"dq/dk/dv {errs}, over max(1, max |g|) {rels} (tol {tol})")
+            assert all(bool(torch.isfinite(a.float()).all()) for a in got), name
+            assert all(a.dtype == dtype and a.shape == b.shape for a, b in zip(got, exp)), name
+            assert max(rels) <= tol, f"{name} {dtype}: {rels} > {tol}"
+            if edit == "masked_row":
+                assert int(torch.count_nonzero(got[0][1, 7])) == 0, "masked row's dq is not 0"
+            if i == 0 and dtype == torch.float32:
+                main_err = max(errs)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, qp, kp = attention_inputs(torch, dev, 500, 8, 512, 512, 9, 3, 64, dtype)
+        dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(650),
+                           device=dev).to(dtype)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        ops.flash_attention(q, k, v, qp, kp).backward(dout)
+        # the plain forward in fp32 on the same values
+        qr, kr, vr = (x.detach().float().requires_grad_() for x in (q, k, v))
+        ref.flash_attention_ref(qr, kr, vr, qp, kp).backward(dout.float())
+        torch.cuda.synchronize()
+        rels = [normwise(a.grad, b.grad) for a, b in ((q, qr), (k, kr), (v, vr))]
+        tol = FN_TOL[str(dtype)[6:]]
+        log(f"[kernel] FlashAttentionFn smollm train {dtype} vs autograd of the plain forward "
+            f"(fp32): dq/dk/dv over max(1, max |g|) {rels} (tol {tol})")
+        assert max(rels) <= tol, f"FlashAttentionFn {dtype}: {rels} > {tol}"
     return main_err
 
 
@@ -806,6 +1028,93 @@ class RoutingCheck:
         assert all(0.0 <= x <= FLIP_GAP for x in gaps), f"{arch}: a routing flip beyond {FLIP_GAP}"
 
 
+# The train phase: smollm-135m at full width, fp32, B x S tokens a step.
+# Kernel path (K1 forward and backward) against the plain path
+# (attn_impl="naive") on the same weights and batches: the first step's
+# gradient of every parameter, max |plain - kernel| over max(1, max
+# |kernel|), and each step's loss, |plain - kernel| over max(1, |kernel|).
+# Each limit is about 10x the largest reading on an H100: 2.07e-7 (the
+# embedding table) and 8.75e-8.
+TRAIN_ARCH, TRAIN_STEPS = "smollm-135m", 4
+TRAIN_GRAD_TOL, TRAIN_LOSS_TOL = 2e-6, 1e-6
+
+
+def run_train(card: str, torch, ops, dev) -> dict:
+    """Train ``TRAIN_ARCH`` for ``TRAIN_STEPS`` steps through
+    ``repro_torch.launch.train``, with every launch count set to 0 just
+    before and read just after; hold it against the plain path; time it and
+    trace one warm step."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.train import TrainState, adamw, linear_warmup_cosine, make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    res = launch_train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(B),
+                             "--seq-len", str(S), "--log-every", "1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = res.cfg
+    n_attn = sum(t in ("attention", "local_attn") for t in cfg.pattern_for_layers())
+    expect = {name: 0 for name in KERNELS}
+    expect.update(flash_attention=n_attn * TRAIN_STEPS, flash_attention_bwd=n_attn * TRAIN_STEPS)
+    log(f"[train] {TRAIN_ARCH}: kernel launches on the main path: {launches} ({TRAIN_STEPS} "
+        f"steps; {n_attn} attention layers a step)")
+    assert launches == expect, f"{TRAIN_ARCH} train: expected {expect} launches"
+    assert cfg.attn_impl == "pallas" and len(res.losses) == TRAIN_STEPS
+    assert all(math.isfinite(x) for x in res.losses)
+    steady = min(res.step_s[1:])
+    log(f"[time] {TRAIN_ARCH} train step B={B} S={S} fp32: first {res.step_s[0]!r} s, steady "
+        f"(min of the other {TRAIN_STEPS - 1}) {steady!r} s (steps {res.step_s}), "
+        f"{B * S / steady!r} tokens/s, peak device memory {peak / 2**20:.1f} MiB {card}")
+
+    # the plain path on the same weights (the same seed on the same device) and batches
+    plain = dataclasses.replace(cfg, attn_impl="naive")
+    data = SyntheticLMDataset(DataConfig(global_batch=B, seq_len=S, vocab_size=cfg.vocab_size))
+    batches = [{k: torch.from_numpy(x).to(dev) for k, x in data.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    first = {}
+    for tag, c in (("kernel", cfg), ("plain", plain)):
+        loss, _ = forward_train(params, batches[0], c)
+        names, tensors = zip(*params.named_parameters())
+        first[tag] = float(loss.detach()), dict(zip(names, torch.autograd.grad(loss, tensors)))
+    rel = {n: normwise(first["plain"][1][n], g) for n, g in first["kernel"][1].items()}
+    worst = max(rel, key=rel.get)
+    grad_err = rel[worst]
+    log(f"[train] {TRAIN_ARCH} first-step gradients, kernel path vs plain path, max abs err "
+        f"over max(1, max |g|): {grad_err!r} ({worst}; median over the {len(rel)} parameters "
+        f"{statistics.median(rel.values())!r}); loss {first['kernel'][0]!r} vs "
+        f"{first['plain'][0]!r} (tol {TRAIN_GRAD_TOL})")
+    assert grad_err <= TRAIN_GRAD_TOL, f"first-step gradient {worst}: {grad_err}"
+    del first
+    opt = adamw(linear_warmup_cosine(3e-4, 10, TRAIN_STEPS))   # launch.train's defaults
+    step = make_train_step(plain, opt)
+    state = TrainState(params, opt.init(dict(params.named_parameters())), 0)
+    plain_losses = []
+    for b in batches:
+        state, metrics = step(state, b)
+        plain_losses.append(float(metrics["loss"]))
+    loss_err = [abs(p - k) / max(1.0, abs(k)) for p, k in zip(plain_losses, res.losses)]
+    log(f"[train] {TRAIN_ARCH} losses, kernel path {res.losses}, plain path {plain_losses}; "
+        f"differences over max(1, |loss|) {loss_err} (tol {TRAIN_LOSS_TOL})")
+    assert max(loss_err) <= TRAIN_LOSS_TOL, f"losses differ: {loss_err}"
+    del state, params, step
+
+    kstep, held = make_train_step(cfg, opt), {"state": res.state}
+
+    def one_step():
+        held["state"], _ = kstep(held["state"], batches[0])
+
+    one_step()                                                # warm-up
+    trace(f"{TRAIN_ARCH} train step (warm)", one_step, card, ops)
+    return {"launches": launches, "steady_step_s": steady, "tokens_per_s": B * S / steady,
+            "peak_bytes": peak, "grad_rel_err": grad_err, "loss_rel_err": max(loss_err)}
+
+
 def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_config,
              leaves):
     """Serve ``arch`` at full width with every launch count set to 0 just
@@ -816,7 +1125,8 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
     n_attn = sum(t in ("attention", "local_attn") for t in pattern)
     n_moe = n_attn if cfg.family == "moe" else 0
     # K1 in prefill only; the router in every MoE layer of prefill and of each decode step
-    expect = {"flash_attention": n_attn, "rwkv6_scan": pattern.count("rwkv6"),
+    expect = {"flash_attention": n_attn, "flash_attention_bwd": 0,
+              "rwkv6_scan": pattern.count("rwkv6"),
               "rglru_scan": pattern.count("rglru"), "moe_router": n_moe * NEW}
     routing, hook = None, contextlib.nullcontext()
     if n_moe:
@@ -947,7 +1257,8 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed) -> di
     kms, pms, runs = time_pair(lambda: ops.flash_attention(q, k, v, qp, kp, window=window),
                                plain, 20)
     library_ms = time_ms(sdpa)
-    lib_kernels = [(name, n, ms / n) for name, n, ms in device_kernels(torch, sdpa)]
+    lib_kernels = [(name, n, ms / n) for name, n, ms in
+                   device_kernels(torch, f"scaled_dot_product_attention {label}", sdpa)]
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp, window=window))
     bound = attention_bound(q, k, v, qp, kp, window=window)
@@ -968,6 +1279,58 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed) -> di
             "library_kernels": [name for name, _, _ in lib_kernels], "bound": bound[:4],
             "bound_ms": bound[0], "tensor_core_bound_ms": bound[4],
             "bf16_tensor_core_bound_ms": bound_bf16[4]}
+
+
+def time_attention_bwd(torch, dev, ops, ref, card) -> dict:
+    """K1's backward at smollm's train shape: the fp32 kernel and its plain
+    version interleaved, the bf16 kernel, the backward of PyTorch's
+    ``scaled_dot_product_attention`` on the same fp32 inputs (kv heads
+    expanded beforehand, not timed) and the kernels it launched, and both
+    bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    shape = (8, 512, 512, 9, 3, 64)
+    B_, S_, _, H, K, hd = shape
+    q, k, v, qp, kp = attention_inputs(torch, dev, 500, *shape, torch.float32)
+    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True)
+    dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(650),
+                       device=dev)
+    kernel = lambda: ops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout)
+    kms, pms, runs = time_pair(kernel, plain, 10)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    outb, lseb = fa.flash_attention_cuda(qb, kb, vb, qp, kp, return_lse=True)
+    doutb = dout.to(torch.bfloat16)
+    bf16_ms = time_ms(lambda: ops.flash_attention_bwd(qb, kb, vb, qp, kp, outb, lseb, doutb))
+    G = H // K
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in
+                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = dout.transpose(1, 2).contiguous()
+    sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    gq, gk, gv = sdpa_bwd()
+    regroup = lambda g: g.transpose(1, 2).reshape(B_, S_, K, G, hd).sum(3)   # expanded heads summed
+    lib_err = max(normwise(a, b) for a, b in zip(
+        (gq.transpose(1, 2), regroup(gk), regroup(gv)), plain()))
+    library_ms = time_ms(sdpa_bwd)
+    lib_kernels = [(name, n, ms / n) for name, n, ms in
+                   device_kernels(torch, "scaled_dot_product_attention backward", sdpa_bwd)]
+    bound = attention_bwd_bound(q, k, v, qp, kp)
+    bound_bf16 = attention_bwd_bound(qb, kb, vb, qp, kp)
+    where = f"smollm train B={B_} S={S_} H={H} K={K} hd={hd}"
+    log(f"[time] flash_attention_bwd kernel fp32 {where}: {kms!r} ms {card} (runs {runs})")
+    log(f"[time] flash_attention_bwd kernel bf16 {where}: {bf16_ms!r} ms {card}")
+    log(f"[time] flash_attention_bwd plain version fp32 {where}: {pms!r} ms {card}")
+    log(f"[time] torch scaled_dot_product_attention backward fp32 {where} (kv heads expanded "
+        f"beforehand; max normwise err vs plain {lib_err!r}): {library_ms!r} ms {card}; its "
+        f"kernels (name, launches the profiler kept of 10, device ms a launch): {lib_kernels}")
+    log(f"[time] flash_attention_bwd bounds {where}: fp32 {bound[0]!r} ms by {bound[1]} on the "
+        f"CUDA cores, {bound[4]!r} ms by {bound[5]} as 3xTF32 on the tensor cores; bf16 "
+        f"{bound_bf16[4]!r} ms by {bound_bf16[5]} on the tensor cores ({bound[2]:.4g} flop, "
+        f"{bound[3]:.4g} bytes fp32) {card}")
+    return {"ms": kms, "bf16_ms": bf16_ms, "plain_ms": pms, "library_ms": library_ms,
+            "library_kernels": [name for name, _, _ in lib_kernels], "bound": bound[:4],
+            "tensor_core_bound_ms": bound[4], "bf16_tensor_core_bound_ms": bound_bf16[4]}
 
 
 # K4's timed shapes: label, (T, E, k); the draws of phase 2's case of the
@@ -1007,7 +1370,7 @@ def launch_floor(torch, dev, card) -> dict:
     a one-element in-place PyTorch op's time a call paced by the host
     (``paced_ms``, as the router's wrapper is timed)."""
     x = torch.zeros(1, device=dev)
-    fill = device_ms(torch, lambda: x.fill_(1.0))
+    fill = device_ms(torch, "one-element fill", lambda: x.fill_(1.0))
     op = paced_ms(torch, lambda: x.add_(1.0))
     log(f"[time] launch floor: one-element fill kernel {fill!r} ms device time a launch; "
         f"one-element in-place op (add_) {op!r} ms a call paced by the host {card}")
@@ -1027,10 +1390,11 @@ def time_router(torch, dev, ops, ref, card, label, shape, seed) -> dict:
     runs = {}
     for turn in ("plain", "kernel", "kernel", "plain"):
         runs.setdefault(turn, []).append(
-            device_ms(torch, kernel, "moe_router_kernel") if turn == "kernel"
-            else device_ms(torch, plain))
-    kms, pms = min(runs["kernel"]), min(runs["plain"])
-    chain_ms = device_ms(torch, chain)
+            device_ms(torch, f"moe_router {label}", kernel, "moe_router_kernel")
+            if turn == "kernel" else device_ms(torch, f"moe_router plain {label}", plain))
+    kms = min((x for x in runs["kernel"] if x is not None), default=None)
+    pms = min(runs["plain"])
+    chain_ms = device_ms(torch, f"softmax-topk chain {label}", chain)
     host = {"kernel": paced_ms(torch, kernel), "plain": paced_ms(torch, plain),
             "chain": paced_ms(torch, chain)}
     bound = moe_router_bound(logits, k)
@@ -1084,6 +1448,7 @@ def main() -> int:
             log(f"[build]   {line}")
     report_k1_build(torch, fa, _build._nvcc(), infos[KERNELS.index("flash_attention")].path,
                     card)
+    report_k1_bwd_build(torch, fa, infos[KERNELS.index("flash_attention_bwd")].log, card)
     k4_sass = router_sass(_build._nvcc(), infos[KERNELS.index("moe_router")].path)
     for (dtype, vpl), c in k4_sass.items():
         log(f"[build] moe_router {dtype}, {vpl} values a lane, SASS: {c}")
@@ -1091,32 +1456,42 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions, on the card --------------------------------
     errs = {"flash_attention": check_flash_attention(torch, dev, ops, ref),
+            "flash_attention_bwd": check_flash_attention_bwd(torch, dev, ops, ref),
             "rwkv6_scan": check_rwkv6(torch, dev, ops, ref),
             "rglru_scan": check_rglru(torch, dev, ops, ref),
             "moe_router": check_moe_router(torch, dev, ops, ref)}
-    # K4's few microseconds a launch are read from the profiler, here, before
-    # the serves' traces: late in the run a profiling session has come back
-    # with no kernel record, and the one after it with a reading off by half.
+    # K4's few microseconds a launch and K2's two kernels' device times are
+    # read from the profiler here, early: late in a long run, sessions have
+    # kept some records and dropped others.
     floor = launch_floor(torch, dev, card)
     router = {label: time_router(torch, dev, ops, ref, card, label, shape, 400 + i)
               for i, (label, shape) in enumerate(ROUTER_SHAPES)}
     r0 = router[ROUTER_SHAPES[0][0]]
+    k2_info = infos[KERNELS.index("rwkv6_scan")]
+    k2_passes = report_k2_build(torch, ops, rw, _build._nvcc(), k2_info.path, k2_info.log, card)
 
-    # -- 3 and 4. serve each model at full width, then its times --------------------------------
-    per_path = {}
+    # -- 3. train smollm-135m at full width --------------------------------------------------------
+    train = run_train(card, torch, ops, dev)
+    per_path = {f"{TRAIN_ARCH} train": train["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4 and 5. serve each model at full width, then its times -----------------------------------
     for arch in ARCHS:
         per_path[arch] = run_path(arch, card, torch, ops, serve, prefill, decode_step,
                                   get_config, leaves)
         gc.collect()
         torch.cuda.empty_cache()
 
-    # -- 4. kernel times at the serving shapes ----------------------------------------------
+    # -- 5. kernel times at the serving and training shapes -----------------------------------
     f32, bf16 = torch.float32, torch.bfloat16
     times = {}
     attn = {label: time_attention(torch, dev, ops, ref, card, label, shape, window, seed)
             for label, shape, window, seed in ATTN_SHAPES}
     k1 = attn[ATTN_SHAPES[0][0]]
     times["flash_attention"] = (k1["ms"], k1["plain_ms"], k1["bound"], k1["library_ms"])
+    k1b = time_attention_bwd(torch, dev, ops, ref, card)
+    times["flash_attention_bwd"] = (k1b["ms"], k1b["plain_ms"], k1b["bound"], k1b["library_ms"])
 
     r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 200, 8, 512, 32, 64, f32)
     kms, pms, runs = time_pair(lambda: ops.rwkv6_scan(r, k, v, logw, u, s0),
@@ -1132,8 +1507,6 @@ def main() -> int:
     log(f"[time] rwkv6_scan two-kernel design's floor fp32 {shape}: {floor_ms!r} ms by bytes "
         f"({floor_bytes:.4g} bytes, workspace included) {card}")
     del r, k, v, logw, u, s0, rb, kb, vb
-    k2_info = infos[KERNELS.index("rwkv6_scan")]
-    k2_passes = report_k2_build(torch, ops, rw, _build._nvcc(), k2_info.path, k2_info.log, card)
 
     a, b, h0 = rglru_inputs(torch, dev, 300, 8, 512, 4096)
     h0.zero_()                                      # as in a prefill
@@ -1150,7 +1523,9 @@ def main() -> int:
         log(f"[time] {name} bound: {bms!r} ms by {by} ({flops:.4g} flop, {nbytes:.4g} bytes; "
             f"H100 SXM peaks at 700 W) {card}")
 
+    # K1's backward is the gradient of the same TPU kernel (forward-only in JAX)
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:77",
+               "flash_attention_bwd": "src/repro/kernels/flash_attention.py:77",
                "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:74",
                "rglru_scan": "src/repro/kernels/rglru_scan.py:44",
                "moe_router": "src/repro/kernels/moe_router.py:45"}
@@ -1164,9 +1539,9 @@ def main() -> int:
             "launches": sum(paths.values()), "launches_per_path": paths,
             "max_abs_err": errs[name], "ms": kms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "library_ms": lms,
-            # only K1 runs on the tensor cores: the bound of its scheme (3xTF32)
-            "tensor_core_bound_ms": k1["tensor_core_bound_ms"]
-            if name == "flash_attention" else None,
+            # K1's forward runs on the tensor cores (3xTF32); its backward could
+            "tensor_core_bound_ms": {"flash_attention": k1["tensor_core_bound_ms"],
+                                     "flash_attention_bwd": k1b["tensor_core_bound_ms"]}.get(name),
         })
     kernels[KERNELS.index("moe_router")].update(
         host_ms=r0["host_ms"], launch_floor=floor,
@@ -1176,6 +1551,12 @@ def main() -> int:
     k2.update(bf16_ms=bf16_ms, pass_ms=k2_passes)
     kernels[KERNELS.index("flash_attention")]["shapes"] = {
         label: {key: val for key, val in r.items() if key != "bound"} for label, r in attn.items()}
+    kernels[KERNELS.index("flash_attention_bwd")].update(
+        bf16_ms=k1b["bf16_ms"], bf16_tensor_core_bound_ms=k1b["bf16_tensor_core_bound_ms"],
+        library_kernels=k1b["library_kernels"],
+        train_step={key: val for key, val in train.items() if key != "launches"})
+    log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "
+        f"{PROFILER['unmeasured']} measurements with no whole session (not measured)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes
 ``build/repro_torch/lib<name>-<hash>.so`` at the repository root, keyed on a
-hash of the source and the flags, so that one process builds once and an
-edited source is rebuilt.  PyTorch's headers are never included: the build
+hash of the flags, the source and every file of ``csrc/`` that it includes
+(``source_digest``), so that one process builds once and a source whose
+header was edited is rebuilt, never served from a stale library.  PyTorch's headers are never included: the build
 takes seconds, not minutes.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -12,13 +13,14 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["BuildInfo", "build", "load_library", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["BuildInfo", "build", "load_library", "source_digest", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -42,10 +44,30 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_digest(src: Path) -> str:
+    """Hash of the flags, ``src`` and every file it includes with quotes
+    from its own directory, followed through their own includes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [src], set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+        todo += [src.parent / m.decode() for m in _INCLUDE.findall(text)
+                 if (src.parent / m.decode()).is_file()]
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> BuildInfo:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(src)
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib.with_suffix(".log")
     if lib.exists():

@@ -6,7 +6,11 @@
 // h / (H/K); the mask comes from position vectors (causal q_pos-k_pos >= 0,
 // window q_pos-k_pos < window, k_pos < 0 is an empty ring slot); optional
 // tanh softcap; scale 1/sqrt(hd); running max, sum and accumulator in fp32;
-// output in q's dtype; hd 64, 128 or 256; fp32 or bf16.  One difference, on
+// output in q's dtype; hd 64, 128 or 256; fp32 or bf16.  On request it also
+// writes each row's log-sum-exp of its scaled (and capped) scores, fp32
+// (B,H,Sq), +inf for a row with every key masked: the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from it.  The output
+// is computed the same way with or without it.  One difference, on
 // purpose: a row whose keys are all masked returns 0, as kernels/ref.py
 // does, where the TPU kernel (masking with -1e30) returns the mean of the
 // masked values.  Masked scores are -inf and a row's running max stays -inf
@@ -99,6 +103,7 @@ struct Params {
   const void* q; const void* k; const void* v;
   const int* q_pos; const int* k_pos;
   void* o;
+  float* lse;   // (B,H,Sq) or null
   int Sq, Sk, H, K;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -507,6 +512,8 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, Cfg<T, HD>::MINB)
     const int r = r0 + 8 * i;
     if (r >= nq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;   // 0 only for a fully masked row
+    if (p.lse != nullptr && t == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + q0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     T* og = static_cast<T*>(p.o) + ((long long)(b * p.Sq + q0 + r) * p.H + h) * HD + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
@@ -563,11 +570,12 @@ cudaError_t tiles(int* block_keys, int* smem_bytes, int* blocks_per_sm) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last axis
 // of q, k and v must be contiguous, positions are contiguous int32 (B,S) and
-// the output is a contiguous (B,Sq,H,hd) buffer of q's dtype.  Returns the
-// launch's cudaError_t (0 on success); the launch does not synchronise.
+// the output is a contiguous (B,Sq,H,hd) buffer of q's dtype; lse is null or
+// a contiguous fp32 (B,H,Sq) buffer.  Returns the launch's cudaError_t (0 on
+// success); the launch does not synchronise.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v,
-    const void* q_pos, const void* k_pos, void* out,
+    const void* q_pos, const void* k_pos, void* out, void* lse,
     int dtype, int B, int Sq, int Sk, int H, int K, int hd,
     int q_sb, int q_ss, int q_sh,
     int k_sb, int k_ss, int k_sh,
@@ -579,6 +587,7 @@ extern "C" int flash_attention_fwd(
   p.q_pos = static_cast<const int*>(q_pos);
   p.k_pos = static_cast<const int*>(k_pos);
   p.o = out;
+  p.lse = static_cast<float*>(lse);
   p.Sq = Sq; p.Sk = Sk; p.H = H; p.K = K;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;

@@ -1,21 +1,25 @@
-"""ctypes wrapper of the CUDA flash-attention forward (``csrc/flash_attention.cu``).
+"""ctypes wrappers of the CUDA flash attention: the forward
+(``csrc/flash_attention.cu``), its backward (``csrc/flash_attention_bwd.cu``)
+and ``FlashAttentionFn``, the ``torch.autograd.Function`` that joins them.
 
-Checks what the kernel takes, allocates the output and launches on PyTorch's
-current stream without synchronising.  The kernel reads q/k/v through their
-strides, so no transpose or padding copy is made; only the position vectors
-are made contiguous int32.
+Each wrapper checks what its kernel takes, allocates the outputs and launches
+on PyTorch's current stream without synchronising.  The kernels read q/k/v
+(and the backward dO) through their strides, so no transpose or padding copy
+is made; only the position vectors are made contiguous int32, and a dO whose
+last axis is not contiguous is copied.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["flash_attention_cuda", "tile_config", "HEAD_DIMS", "DTYPES"]
+__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "FlashAttentionFn",
+           "tile_config", "bwd_tile_config", "HEAD_DIMS", "DTYPES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
@@ -26,7 +30,7 @@ _INT_MAX = 2**31 - 1
 def _fn():
     fn = _build.load_library("flash_attention").flash_attention_fwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P,            # q k v q_pos k_pos out
+    fn.argtypes = [P, P, P, P, P, P, P,         # q k v q_pos k_pos out lse
                    I, I, I, I, I, I, I,         # dtype B Sq Sk H K hd
                    I, I, I, I, I, I, I, I, I,   # q/k/v strides (b, s, head)
                    I, I, I, ctypes.c_float,     # causal has_window window softcap
@@ -35,17 +39,8 @@ def _fn():
     return fn
 
 
-def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    q_pos: torch.Tensor, k_pos: torch.Tensor,
-    causal: bool = True, window: Optional[int] = None,
-    softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """Launch the kernel; same contract as ``ref.flash_attention_ref``.
-
-    Raises on anything the kernel does not take: a tensor off the card, a
-    dtype other than float32/bfloat16, a head_dim outside ``HEAD_DIMS``, a
-    non-contiguous last axis, or a launch that CUDA refuses."""
+def _check(q, k, v, q_pos, k_pos) -> None:
+    """Raise on what the kernels do not take."""
     if not all(t.is_cuda for t in (q, k, v, q_pos, k_pos)):
         raise ValueError("flash_attention_cuda takes CUDA tensors only")
     if len({t.device for t in (q, k, v, q_pos, k_pos)}) != 1:
@@ -64,13 +59,34 @@ def flash_attention_cuda(
         raise ValueError("the last axis of q, k and v must be contiguous")
     if max(t.numel() for t in (q, k, v)) > _INT_MAX:
         raise ValueError("tensors of more than 2**31 elements")
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, k_pos: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, return_lse: bool = False,
+):
+    """Launch the kernel; same contract as ``ref.flash_attention_ref``.
+    With ``return_lse`` also each row's log-sum-exp of its scaled (and
+    capped) scores, fp32 (B, H, Sq), +inf for a row with every key masked;
+    the output is the same with or without it.
+
+    Raises on anything the kernel does not take: a tensor off the card, a
+    dtype other than float32/bfloat16, a head_dim outside ``HEAD_DIMS``, a
+    non-contiguous last axis, or a launch that CUDA refuses."""
+    _check(q, k, v, q_pos, k_pos)
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-        out.data_ptr(), DTYPES[q.dtype], B, Sq, Sk, H, K, hd,
+        out.data_ptr(), lse.data_ptr() if return_lse else None,
+        DTYPES[q.dtype], B, Sq, Sk, H, K, hd,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -78,7 +94,93 @@ def flash_attention_cuda(
         float(softcap or 0.0), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
-    return out
+    return (out, lse) if return_lse else out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    fn = _build.load_library("flash_attention_bwd").flash_attention_bwd
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, P, P, P,      # q k v out dout lse q_pos k_pos
+                   P, P, P, P,                  # delta dq dk dv
+                   I, I, I, I, I, I, I,         # dtype B Sq Sk H K hd
+                   I, I, I, I, I, I,            # q/k strides (b, s, head)
+                   I, I, I, I, I, I,            # v/dout strides (b, s, head)
+                   I, I, I, ctypes.c_float,     # causal has_window window softcap
+                   P]                           # stream
+    fn.restype = I
+    return fn
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, k_pos: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward (two kernels); same contract as
+    ``ref.flash_attention_bwd_ref``: ``out`` and ``lse`` are the forward's
+    (``flash_attention_cuda(..., return_lse=True)``), ``dout`` the gradient
+    of ``out``.  Returns (dq, dk, dv), contiguous, in q's dtype."""
+    _check(q, k, v, q_pos, k_pos)
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (B, H, Sq):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    if out.dtype != q.dtype or lse.dtype != torch.float32 or not out.is_cuda or not lse.is_cuda:
+        raise ValueError("out must be the forward's output and lse its fp32 log-sum-exp")
+    # the kernel honours dout's (b, s, head) strides; only a strided last axis is copied
+    dout = dout.to(q.dtype)
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    out, lse = out.contiguous(), lse.contiguous()
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.to(torch.int32).contiguous()
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, K, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        DTYPES[q.dtype], B, Sq, Sk, H, K, hd,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        dout.stride(0), dout.stride(1), dout.stride(2),
+        int(causal), int(window is not None), int(window or 0),
+        float(softcap or 0.0), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {err}")
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The CUDA forward with its CUDA backward, for CUDA tensors that need a
+    gradient (``ops.flash_attention`` routes them here).  The forward keeps
+    q, k, v, the positions, its output and its log-sum-exp; the backward
+    runs ``ops.flash_attention_bwd``, which counts its launches."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap):
+        out, lse = flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                                        softcap=softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.mask = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from . import ops   # ops imports this module
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, dout,
+                                             causal=causal, window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None, None, None
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,3 +202,27 @@ def tile_config(dtype: torch.dtype, head_dim: int) -> dict:
     if err != 0:
         raise RuntimeError(f"flash_attention_tiles failed: cudaError_t {err}")
     return dict(zip(("block_keys", "smem_bytes", "blocks_per_sm"), (x.value for x in out)))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tiles_fn():
+    fn = _build.load_library("flash_attention_bwd").flash_attention_bwd_tiles
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_tile_config(dtype: torch.dtype, head_dim: int) -> dict:
+    """The backward's query rows and keys a tile, and for each of its two
+    kernels the dynamic shared memory a block and blocks an SM, as the card
+    reports them."""
+    if dtype not in DTYPES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"no kernel for {dtype}, head_dim {head_dim}")
+    out = (ctypes.c_int * 6)()
+    err = _bwd_tiles_fn()(DTYPES[dtype], head_dim, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_tiles failed: cudaError_t {err}")
+    bq, bk, dq_smem, dq_blocks, kv_smem, kv_blocks = out
+    return {"block_q": bq, "block_k": bk,
+            "dq": {"smem_bytes": dq_smem, "blocks_per_sm": dq_blocks},
+            "dkdv": {"smem_bytes": kv_smem, "blocks_per_sm": kv_blocks}}

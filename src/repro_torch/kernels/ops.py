@@ -5,6 +5,12 @@ the plain PyTorch version (``ref.py``), a CUDA tensor launches the hand-written
 kernel or the call raises.  There is no fallback from one to the other.
 Each wrapper's ``launches`` counts its kernel's launches, so that a run can
 show that its main path went through the kernel.
+
+Gradients: on the CPU autograd differentiates the plain versions.  On the
+card only flash attention has a backward kernel: a call whose q, k or v
+needs a gradient goes through ``FlashAttentionFn``, whose backward is
+``flash_attention_bwd``.  The other kernels raise on a CUDA tensor that
+needs a gradient rather than return an output cut off from autograd.
 """
 from __future__ import annotations
 
@@ -18,7 +24,16 @@ from . import ref
 from . import rglru_scan as _rglru
 from . import rwkv6_scan as _rwkv
 
-__all__ = ["flash_attention", "rwkv6_scan", "rglru_scan", "moe_router"]
+__all__ = ["flash_attention", "flash_attention_bwd", "rwkv6_scan", "rglru_scan",
+           "moe_router"]
+
+
+def _no_backward(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through ``name``'s kernel."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card yet (ROADMAP Queue 2): "
+            "call it under torch.no_grad() or on CPU tensors")
 
 
 def flash_attention(
@@ -32,14 +47,40 @@ def flash_attention(
     GQA maps head h to kv head h // (H/K); the mask comes from positions
     (causal, optional window, k_pos < 0 for an empty slot); optional tanh
     softcap.  A row with every key masked returns 0.  Any length is taken:
-    the kernel masks ragged edges itself, so nothing is padded."""
+    the kernel masks ragged edges itself, so nothing is padded.  On the
+    card, with grad enabled and q, k or v needing a gradient, the call goes
+    through ``FlashAttentionFn`` (the same forward, which also keeps its
+    log-sum-exp, and the backward kernel)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                        window=window, softcap=softcap)
-    out = _fa.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal,
-                                   window=window, softcap=softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = _fa.FlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal, window, softcap)
+    else:
+        out = _fa.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal,
+                                       window=window, softcap=softcap)
     flash_attention.launches += 1
     return out
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, k_pos: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of ``flash_attention`` given its output
+    ``out``, its log-sum-exp ``lse`` (B, H, Sq) fp32 and the gradient
+    ``dout`` of ``out``.  ``FlashAttentionFn.backward`` calls it; one call
+    launches the kernel's two passes and counts one."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, q_pos, k_pos, out, lse, dout,
+                                           causal=causal, window=window, softcap=softcap)
+    grads = _fa.flash_attention_bwd_cuda(q, k, v, q_pos, k_pos, out, lse, dout,
+                                         causal=causal, window=window, softcap=softcap)
+    flash_attention_bwd.launches += 1
+    return grads
 
 
 def rwkv6_scan(
@@ -53,6 +94,7 @@ def rwkv6_scan(
     last chunk itself; the plain version steps one token at a time."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, logw, u, state)
+    _no_backward("rwkv6_scan", r, k, v, logw, u, state)
     out = _rwkv.rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk)
     rwkv6_scan.launches += 1
     return out
@@ -64,6 +106,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     (zeros) -> h (B,S,R)."""
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
+    _no_backward("rglru_scan", a, b, h0)
     out = _rglru.rglru_scan_cuda(a, b, h0)
     rglru_scan.launches += 1
     return out
@@ -79,12 +122,15 @@ def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Te
     ``device`` object."""
     if logits.is_cpu:
         return ref.moe_router_ref(logits, top_k)
+    if logits.requires_grad:
+        _no_backward("moe_router", logits)
     out = _router.moe_router_cuda(logits, top_k)
     moe_router.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
 rwkv6_scan.launches = 0
 rglru_scan.launches = 0
 moe_router.launches = 0

@@ -12,39 +12,92 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention_ref", "rwkv6_scan_ref", "rglru_scan_ref", "moe_router_ref"]
+__all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "rwkv6_scan_ref",
+           "rglru_scan_ref", "moe_router_ref"]
 
 
-def flash_attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    q_pos: torch.Tensor, k_pos: torch.Tensor,
-    causal: bool = True, window: Optional[int] = None,
-    softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """q (B,Sq,H,hd); k/v (B,Sk,K,hd); q_pos (B,Sq); k_pos (B,Sk) -> (B,Sq,H,hd).
-
-    GQA via head grouping; invalid cache slots are k_pos < 0.  A row whose
-    keys are all masked returns 0."""
-    B, Sq, H, hd = q.shape
-    K = k.shape[2]
-    G = H // K
-    qg = q.reshape(B, Sq, K, G, hd)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / math.sqrt(hd)
-    if softcap:
-        logits = torch.tanh(logits / softcap) * softcap
+def _allowed(q_pos, k_pos, causal, window) -> torch.Tensor:
+    """(B, Sq, Sk): the (query, key) pairs the mask allows."""
     d = q_pos[:, :, None] - k_pos[:, None, :]
     ok = k_pos[:, None, :] >= 0
     if causal:
         ok = ok & (d >= 0)
     if window is not None:
         ok = ok & (d < window)
+    return ok
+
+
+def _scores(q, k, softcap):
+    """Scaled (and capped) scores (B,K,G,Sq,Sk) in fp32, and tanh of the
+    capped ones (None without a softcap)."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / math.sqrt(hd)
+    if not softcap:
+        return logits, None
+    t = torch.tanh(logits / softcap)
+    return t * softcap, t
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, k_pos: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, return_lse: bool = False,
+):
+    """q (B,Sq,H,hd); k/v (B,Sk,K,hd); q_pos (B,Sq); k_pos (B,Sk) -> (B,Sq,H,hd).
+
+    GQA via head grouping; invalid cache slots are k_pos < 0.  A row whose
+    keys are all masked returns 0.  With ``return_lse`` also each row's
+    log-sum-exp of its scaled (and capped) scores, fp32 (B, H, Sq), +inf
+    for a fully masked row (the kernel's second output)."""
+    B, Sq, H, hd = q.shape
+    logits, _ = _scores(q, k, softcap)
+    ok = _allowed(q_pos, k_pos, causal, window)
     logits = logits.masked_fill(~ok[:, None, None], float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m.clamp_min(-1e30))
     l = p.sum(dim=-1, keepdim=True)
     w = p / l.clamp_min(1e-30)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float()).reshape(B, Sq, H, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("inf")))
+    return out, lse.reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, k_pos: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` by the formula, in
+    fp32, returned in q's dtype.  ``out`` and ``lse`` are the forward's,
+    ``dout`` the gradient of ``out``.  With x the scaled (capped) scores:
+    P = exp(x - lse) where the mask allows, else 0; D = rowsum(dout * out);
+    dS = P (dout v^T - D) / sqrt(hd), times 1 - tanh^2 under a softcap;
+    dq = dS k, dk = dS^T q and dv = P^T dout, summed over the query heads
+    of each kv head."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    x, t = _scores(q, k, softcap)
+    ok = _allowed(q_pos, k_pos, causal, window)[:, None, None]
+    p = torch.where(ok, torch.exp(x - lse.reshape(B, K, G, Sq, 1)), torch.zeros_like(x))
+    qg, dog, og = (a.float().reshape(B, Sq, K, G, hd) for a in (q, dout, out))
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    dsum = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]        # (B,K,G,Sq,1)
+    ds = p * (dp - dsum)
+    if t is not None:
+        ds = ds * (1 - t * t)
+    ds = ds / math.sqrt(hd)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, Sq, H, hd)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rwkv6_scan_ref(

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .config import ModelConfig
@@ -136,13 +137,14 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, softcap,
                   chunk: int) -> torch.Tensor:
     """Online-softmax over q-chunks: memory O(chunk * Sk), never (Sq, Sk).
 
-    A Python loop where JAX scans; there is no backward in this port yet, so
-    the JAX version's rematerialisation has no counterpart.  fp32 softmax."""
+    A Python loop where JAX scans.  As JAX's ``jax.checkpoint`` on the scan
+    body does, each chunk is rematerialised in the backward
+    (``torch.utils.checkpoint``) when a gradient is needed, so autograd
+    never keeps every chunk's (chunk, Sk) logits.  fp32 softmax."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
-    outs = []
-    for s0 in range(0, Sq, chunk):
-        qb, pb = q[:, s0:s0 + chunk], q_pos[:, s0:s0 + chunk]
+
+    def body(qb, pb):
         n = qb.shape[1]
         qg = qb.reshape(B, n, K, H // K, hd)
         logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() / math.sqrt(hd)
@@ -153,7 +155,13 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, softcap,
         p = torch.exp(logits - m)
         l = p.sum(dim=-1, keepdim=True)
         o = torch.einsum("bkgqs,bskd->bqkgd", (p / l.clamp_min(1e-30)).to(q.dtype), v)
-        outs.append(o.reshape(B, n, H, hd))
+        return o.reshape(B, n, H, hd)
+
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    outs = []
+    for s0 in range(0, Sq, chunk):
+        qb, pb = q[:, s0:s0 + chunk], q_pos[:, s0:s0 + chunk]
+        outs.append(checkpoint(body, qb, pb, use_reentrant=False) if remat else body(qb, pb))
     return torch.cat(outs, dim=1)
 
 

@@ -1,11 +1,12 @@
-"""Model entry points: init / prefill / decode for the dense, MoE, SSM
-(rwkv6) and hybrid (RG-LRU + local attention) families.
+"""Model entry points: init / train forward / prefill / decode for the
+dense, MoE, SSM (rwkv6) and hybrid (RG-LRU + local attention) families.
 
 Counterpart of ``repro.models.model``.  ``init_params`` returns an ``LM``
 module whose children carry the JAX tree's top-level names (``embed``,
-``stack``, ``final_norm``, ``lm_head``); ``prefill`` and ``decode_step`` are
-functions over it, as in JAX, and drop the stack's MoE aux loss as JAX's
-do.  The modality frontends raise ``NotImplementedError`` naming the
+``stack``, ``final_norm``, ``lm_head``); ``forward_train``, ``prefill`` and
+``decode_step`` are functions over it, as in JAX.  ``prefill`` and
+``decode_step`` run without autograd and drop the stack's MoE aux loss as
+JAX's do; ``forward_train`` keeps the graph for the backward.  The modality frontends raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -53,6 +54,39 @@ def param_count(params: nn.Module) -> int:
 
 def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.lm_logits(params.embed, params.lm_head, params.final_norm(x), cfg)
+
+
+# -- losses -------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-mean CE in fp32. Returns (loss, accuracy)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    correct = (logits.argmax(dim=-1) == labels).float()   # the first maximum, as jnp.argmax
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / denom, (correct * mask).sum() / denom
+
+
+# -- forward passes -----------------------------------------------------------------
+
+def forward_train(params: LM, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (total_loss, metrics).  batch needs "tokens" and "labels"
+    (and optional "loss_mask"); the graph is kept for the backward."""
+    _check_ported(cfg)
+    x = params.embed.embed_tokens(batch["tokens"], cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    x, _, aux = T.apply_stack(params.stack, cfg, x, positions, None, mode="train")
+    logits = _logits(params, x, cfg)
+    ce, acc = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
+    loss = ce + aux_coef * aux
+    return loss, {"loss": ce, "aux_loss": aux, "accuracy": acc}
 
 
 @torch.no_grad()

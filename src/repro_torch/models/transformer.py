@@ -13,6 +13,9 @@ hybrid), ``rglru`` (RG-LRU temporal block + MLP, hybrid) and ``rwkv6``
 (time-mix + channel-mix).
 Recurrent states are nested dicts (rwkv6: ``{"tm": {prev, wkv}, "cm":
 {prev}}``; rglru: ``{h, conv}``), stacked on the repeat axis like the caches.
+With ``cfg.remat`` a training pass rematerialises each repeat of a segment in
+the backward (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` on the
+scan body does.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import kvcache as kv
 from . import layers as L
@@ -175,13 +179,29 @@ def apply_stack(stack: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
     aux is the sum of the blocks' MoE aux losses (0 without MoE blocks).
     """
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and mode == "train"
     for si, (types, n) in enumerate(segment_specs(cfg)):
         for r in range(n):
-            for bi, btype in enumerate(types):
-                st = None
-                if caches is not None:
-                    st = _tree_map(lambda t: t[r], caches[si][bi])
-                x, aux = _apply_block(stack[si][bi][r], cfg, btype, x, positions, st, mode)
-                if aux is not None:
-                    aux_total = aux_total + aux
+            blocks = [stack[si][bi][r] for bi in range(len(types))]
+            states = [None] * len(types) if caches is None else \
+                [_tree_map(lambda t: t[r], caches[si][bi]) for bi in range(len(types))]
+            if remat:
+                x, aux = checkpoint(_apply_repeat, blocks, cfg, types, x, positions, states,
+                                    mode, use_reentrant=False)
+            else:
+                x, aux = _apply_repeat(blocks, cfg, types, x, positions, states, mode)
+            if aux is not None:
+                aux_total = aux_total + aux
     return x, caches, aux_total
+
+
+def _apply_repeat(blocks, cfg: ModelConfig, types, x: torch.Tensor, positions: torch.Tensor,
+                  states, mode: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One repeat of a segment (JAX's scan body): its blocks in order.
+    Returns (x, the sum of their aux losses or None)."""
+    aux_total = None
+    for block, btype, st in zip(blocks, types, states):
+        x, aux = _apply_block(block, cfg, btype, x, positions, st, mode)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total

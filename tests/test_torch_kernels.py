@@ -168,6 +168,157 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         pfa.flash_attention_cuda(q, k, v, qp, kp)
 
 
+# -- the backward: its plain version against jax.grad ------------------------------------
+# The JAX Pallas kernel has no VJP (JAX trains through the jnp attention), so
+# the port's flash_attention_bwd_ref, written out by the formula from the
+# forward's log-sum-exp, is held against jax.grad of repro's
+# flash_attention_ref: normwise, max |port - jax| over max(1, max |jax|), at
+# the kernel tolerances of tests/test_kernels.py.
+BWD_CASES = {  # (B, Sq, Sk, H, K, hd), kwargs, edit
+    "GQA": ((2, 40, 40, 4, 2, 32), {}, None),
+    "MHA hd 64": ((1, 64, 64, 2, 2, 64), {}, None),
+    "window + softcap": ((2, 48, 48, 4, 2, 32), {"window": 9, "softcap": 5.0}, None),
+    "empty key slots": ((2, 16, 48, 4, 2, 32), {}, "holes"),
+    "fully masked rows": ((2, 32, 32, 4, 1, 32), {}, "masked_rows"),
+    "ragged Sq < Sk, MQA": ((2, 24, 56, 4, 1, 32), {}, None),
+    "not causal": ((1, 20, 36, 2, 1, 32), {"causal": False}, None),
+}
+
+
+def _bwd_inputs(name):
+    shape, kw, edit = BWD_CASES[name]
+    B, Sq, Sk, H, K, hd = shape
+    q, k, v = _inputs(11, B, Sq, Sk, H, K, hd)
+    qp, kp = _positions(B, Sq, Sk)
+    if edit == "holes":
+        kp[:, 10:30] = -1
+    if edit == "masked_rows":
+        qp[0, 3] = qp[1, 30] = -1
+    dout = np.random.default_rng(12).standard_normal(q.shape).astype(np.float32)
+    return (q, k, v), qp, kp, dout, kw
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_ref_matches_jax_grad(name, dtype):
+    arrays, qp, kp, dout, kw = _bwd_inputs(name)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jd) for a in arrays)
+    jdo = jnp.asarray(dout).astype(jd)
+    f = lambda q, k, v: jnp.sum(jref.flash_attention_ref(
+        q, k, v, jnp.asarray(qp), jnp.asarray(kp), **kw).astype(jnp.float32)
+        * jdo.astype(jnp.float32))
+    expect = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(jq, jk, jv)
+    q, k, v = (torch.from_numpy(a).to(td) for a in arrays)
+    qpt, kpt = torch.from_numpy(qp), torch.from_numpy(kp)
+    out, lse = pref.flash_attention_ref(q, k, v, qpt, kpt, return_lse=True, **kw)
+    assert lse.shape == (q.shape[0], q.shape[2], q.shape[1]) and lse.dtype == torch.float32
+    got = pref.flash_attention_bwd_ref(q, k, v, qpt, kpt, out, lse,
+                                       torch.from_numpy(dout).to(td), **kw)
+    for g, e, t in zip(got, expect, (q, k, v)):
+        assert g.dtype == td and g.shape == t.shape
+        e = np.asarray(e, np.float32)
+        err = np.abs(g.float().numpy() - e).max() / max(1.0, np.abs(e).max())
+        assert err <= ATOL[dtype], err
+    if name == "fully masked rows":
+        assert float(lse[0, :, 3].min()) == float("inf") and not got[0][0, 3].any()
+
+
+def test_bwd_on_cpu_runs_the_plain_version_without_counting():
+    arrays, qp, kp, dout, kw = _bwd_inputs("GQA")
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    qpt, kpt, do = torch.from_numpy(qp), torch.from_numpy(kp), torch.from_numpy(dout)
+    out, lse = pref.flash_attention_ref(q, k, v, qpt, kpt, return_lse=True)
+    before = pops.flash_attention_bwd.launches
+    got = pops.flash_attention_bwd(q, k, v, qpt, kpt, out, lse, do)
+    assert pops.flash_attention_bwd.launches == before
+    for a, b in zip(got, pref.flash_attention_bwd_ref(q, k, v, qpt, kpt, out, lse, do)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # autograd of the plain forward, which ops.flash_attention runs on the CPU
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    pops.flash_attention(qa, ka, va, qpt, kpt).backward(do)
+    for a, b in zip((qa.grad, ka.grad, va.grad), got):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
+
+
+def _meta(*shapes, grad=False):
+    return [torch.empty(s, device="meta", requires_grad=grad) for s in shapes]
+
+
+def test_grad_path_off_the_cpu_never_runs_the_plain_version():
+    """A tensor off the CPU that needs a gradient goes through
+    FlashAttentionFn, whose kernel refuses what is not on the card."""
+    q, k, v = _meta((1, 64, 2, 64), (1, 64, 1, 64), (1, 64, 1, 64), grad=True)
+    qp = kp = torch.zeros((1, 64), dtype=torch.int32, device="meta")
+    before = pops.flash_attention.launches, pops.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        pops.flash_attention(q, k, v, qp, kp)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        pops.flash_attention_bwd(q, k, v, qp, kp, q, torch.empty((1, 2, 64), device="meta"), q)
+    assert (pops.flash_attention.launches, pops.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("name", ["rwkv6_scan", "rglru_scan", "moe_router"])
+def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu(name):
+    """rwkv6_scan, rglru_scan and moe_router have no backward kernel yet: off
+    the CPU, a call that autograd would differentiate raises instead of
+    returning an output cut off from the graph; without a gradient the call
+    reaches the kernel, which refuses a tensor off the card."""
+    def call(grad):
+        if name == "rwkv6_scan":
+            r, k, v, logw = _meta(*[(1, 8, 2, 64)] * 4, grad=grad)
+            u, s0 = _meta((2, 64), (1, 2, 64, 64))
+            return pops.rwkv6_scan(r, k, v, logw, u, s0)
+        if name == "rglru_scan":
+            a, b = _meta((1, 8, 16), (1, 8, 16), grad=grad)
+            return pops.rglru_scan(a, b)
+        return pops.moe_router(*_meta((4, 8), grad=grad), 2)
+    before = getattr(pops, name).launches
+    with pytest.raises(NotImplementedError, match=f"{name} has no backward kernel"):
+        call(grad=True)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        call(grad=False)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors only"):
+        call(grad=True)
+    assert getattr(pops, name).launches == before
+
+
+def test_bwd_tile_config_refuses_what_has_no_kernel():
+    for dtype, hd in ((torch.float16, 64), (torch.float32, 32)):
+        with pytest.raises(ValueError, match="no kernel"):
+            pfa.bwd_tile_config(dtype, hd)
+
+
+# -- the build hash ------------------------------------------------------------------------
+
+def test_build_hash_covers_the_headers_a_source_includes(tmp_path):
+    """A library is keyed on its source and every csrc/ file it includes
+    (through other headers too), so an edited header can never be served
+    from a stale library; a file it does not include changes nothing."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "other.cuh").write_text("int o;\n")
+    base = _build.source_digest(tmp_path / "k.cu")
+    assert len(base) == 16 and base == _build.source_digest(tmp_path / "k.cu")
+    (tmp_path / "other.cuh").write_text("int o2;\n")
+    assert _build.source_digest(tmp_path / "k.cu") == base
+    (tmp_path / "b.cuh").write_text("int b2;\n")
+    changed = _build.source_digest(tmp_path / "k.cu")
+    assert changed != base
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint y;\n')
+    assert _build.source_digest(tmp_path / "k.cu") not in (base, changed)
+
+
+def test_every_kernel_source_has_its_own_hash():
+    from repro_torch.kernels import _build
+    names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    assert names == ["flash_attention", "flash_attention_bwd", "moe_router", "rglru_scan",
+                     "rwkv6_scan"]
+    assert len({_build.source_digest(_build.CSRC_DIR / f"{n}.cu") for n in names}) == 5
+
+
 def _load_chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -240,6 +391,77 @@ def test_chip_smoke_trace_marks_dropped_records_as_bounds(lost):
     assert ("device busy at least 10.0 ms, idle share at most 0.5" in line) == bool(lost)
     assert ("device busy 10.0 ms, idle share 0.5," in line) == (not lost)
     assert line.endswith("[H100, 700 W]") and ("dropped" in line) == bool(lost)
+
+
+def test_chip_smoke_tells_the_backward_from_the_forward():
+    """K1's forward and backward kernels share a prefix; each record counts
+    for its own wrapper (the backward launches two kernels a call)."""
+    smoke = _load_chip_smoke()
+    records = [("(anonymous namespace)::flash_attention_fwd_kernel<float, 64>(Params)", 30, 9.0),
+               ("(anonymous namespace)::flash_attention_bwd_dq_kernel<float, 64>(Params)", 30, 7.0),
+               ("(anonymous namespace)::flash_attention_bwd_dkdv_kernel<float, 64>(Params)", 29,
+                12.0)]
+    t = smoke.trace_summary(records, 100.0, {"flash_attention": 30, "flash_attention_bwd": 30})
+    assert t["kept"] == {"flash_attention": 30, "flash_attention_bwd": 59}
+    assert t["expected"] == {"flash_attention": 30, "flash_attention_bwd": 60} and t["dropped"]
+
+
+@pytest.mark.parametrize("outcomes,retried", [
+    (["whole"], 0), (["empty", "whole"], 1), (["partial", "empty", "whole"], 2),
+    (["empty", "empty", "empty"], "fails"), (["partial", "partial", "partial"], "unmeasured"),
+    (["empty", "partial", "empty"], "unmeasured"),
+])
+def test_chip_smoke_profiles_an_empty_or_partial_session_again(outcomes, retried, capsys):
+    """A session with no kernel record, or with fewer records of this repo's
+    kernels than the launches made under it, is profiled again, up to three
+    times in all, and its reading is never returned.  The run fails when all
+    three come back empty; when none came back whole the measurement is
+    reported as not measured."""
+    smoke = _load_chip_smoke()
+    smoke.PROFILER.update(sessions=0, retried=0, unmeasured=0)
+    calls = {"flash_attention": 2, "rwkv6_scan": 0}
+    fwd = "flash_attention_fwd_kernel<float, 64>"
+    made = {"whole": [(fwd, 2, 5.0), ("gemm", 4, 1.0)], "partial": [(fwd, 1, 2.5)], "empty": []}
+    it = iter(outcomes)
+    attempt = lambda: (made[next(it)], 50.0, calls)
+    if retried == "fails":
+        with pytest.raises(AssertionError, match="3 profiler sessions came back empty"):
+            smoke.profiled("K1 fp32", attempt)
+        assert smoke.PROFILER == {"sessions": 3, "retried": 2, "unmeasured": 0}
+        return
+    got = smoke.profiled("K1 fp32", attempt)
+    lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("[profiler] K1 fp32")]
+    if retried == "unmeasured":
+        assert got is None
+        assert smoke.PROFILER == {"sessions": 3, "retried": 2, "unmeasured": 1}
+        assert lines[-1].endswith("not measured")
+        return
+    records, wall, got_calls = got
+    assert records == made["whole"] and wall == 50.0 and got_calls == calls
+    assert smoke.PROFILER == {"sessions": retried + 1, "retried": retried, "unmeasured": 0}
+    assert len(lines) == retried and all("profiling it again" in x for x in lines)
+
+
+def test_chip_smoke_backward_bound_counts_only_allowed_pairs():
+    """The backward's bound: 10*hd flops per allowed pair; q, k, v, out, dO,
+    the LSE and positions read once, dq, dk, dv written once."""
+    smoke = _load_chip_smoke()
+    B, S, H, K, hd = 2, 16, 3, 1, 64
+    q, k, v = (torch.from_numpy(a) for a in _inputs(7, B, S, S, H, K, hd))
+    qp, kp = (torch.from_numpy(a) for a in _positions(B, S, S))
+    kp[:, 3:7] = -1
+    pairs = sum(1 for i in range(S) for j in range(S) if j <= i and not 3 <= j < 7)
+    ms, by, flops, nbytes, tc_ms, tc_by = smoke.attention_bwd_bound(q, k, v, qp, kp)
+    assert flops == 10 * hd * H * B * pairs
+    assert nbytes == 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + B * H * S) \
+        + 4 * (qp.numel() + kp.numel())
+    assert ms == pytest.approx(1e3 * max(flops / smoke.PEAK_FP32_FLOPS,
+                                         nbytes / smoke.PEAK_HBM_BYTES))
+    assert tc_ms == pytest.approx(1e3 * max(3 * flops / smoke.PEAK_TF32_FLOPS,
+                                            nbytes / smoke.PEAK_HBM_BYTES))
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    _, _, flops_b, _, tc_b, _ = smoke.attention_bwd_bound(qb, kb, vb, qp, kp)
+    assert flops_b == flops and tc_b < tc_ms
 
 
 def test_chip_smoke_reads_ptxas_registers_and_spills():
@@ -543,3 +765,102 @@ def test_tile_config_fits_the_card(cuda_device, dtype, hd):
     cfg = pfa.tile_config(getattr(torch, dtype), hd)
     assert cfg["block_keys"] in (16, 32, 64)
     assert 0 < cfg["smem_bytes"] <= 232448 and cfg["blocks_per_sm"] >= 1
+
+
+# Backward on the card, against its plain version: normwise, max |kernel -
+# plain| over max(1, max |plain|).  The two take fp32 sums in other orders
+# (and the forward's 3xTF32 scores feed the kernel's LSE): on an H100 at
+# most 3.0e-6 in fp32 and 3.1e-3 in bf16 (about one bf16 ulp of a
+# gradient), so 1e-5 and 1.5e-2.  FlashAttentionFn against autograd of the
+# plain forward adds the forward's difference: at most 2.5e-6 and 4.0e-3,
+# so 2e-5 and 3.5e-2.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
+FN_TOL = {"float32": 2e-5, "bfloat16": 3.5e-2}
+
+
+def _normwise_t(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,window,softcap,edit", [
+    (8, 512, 512, 9, 3, 64, None, None, None),       # smollm train
+    (2, 200, 200, 4, 2, 128, 48, 30.0, None),        # window + softcap
+    (2, 130, 170, 8, 1, 256, None, None, None),      # hd 256 MQA, ragged
+    (2, 77, 77, 4, 2, 64, None, None, None),         # tile edges
+    (2, 64, 256, 4, 2, 64, None, None, "holes"),     # empty key slots
+    (2, 128, 128, 9, 3, 64, None, None, "masked"),   # a fully masked row
+    (2, 100, 100, 4, 2, 64, None, None, "unaligned"),  # q a view off 16 bytes
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_matches_plain_version_on_card(cuda_device, B, Sq, Sk, H, K, hd, window,
+                                                softcap, edit, dtype):
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, td) for a in _inputs(13, B, Sq, Sk, H, K, hd))
+    qp, kp = (torch.from_numpy(a).to(cuda_device) for a in _positions(B, Sq, Sk))
+    if edit == "holes":
+        qp += 300
+        kp[:, 96:200] = -1
+    if edit == "masked":
+        qp[1, 7] = -1
+    if edit == "unaligned":
+        q = torch.nn.functional.pad(q, (1, 0))[..., 1:]
+    kw = dict(window=window, softcap=softcap)
+    out, lse = pfa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True, **kw)
+    assert torch.equal(out, pfa.flash_attention_cuda(q, k, v, qp, kp, **kw))
+    _, lse_ref = pref.flash_attention_ref(q, k, v, qp, kp, return_lse=True, **kw)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(finite, torch.isfinite(lse))
+    torch.testing.assert_close(lse[finite], lse_ref[finite], rtol=0, atol=1e-4)
+    dout = torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(5),
+                       device=cuda_device).to(td)
+    before = pops.flash_attention_bwd.launches
+    got = pops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout, **kw)
+    again = pops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert pops.flash_attention_bwd.launches == before + 2
+    exp = pref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout, **kw)
+    for g, g2, e in zip(got, again, exp):
+        assert g.dtype == td and g.shape == e.shape and torch.equal(g, g2)   # deterministic
+        assert _normwise_t(g, e) <= BWD_TOL[dtype]
+    if edit == "masked":
+        assert not got[0][1, 7].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_fn_matches_autograd_of_plain_on_card(cuda_device, dtype):
+    """ops.flash_attention on CUDA tensors that need a gradient goes through
+    FlashAttentionFn: one forward and one backward launch, counted apart."""
+    td = getattr(torch, dtype)
+    B, S, H, K, hd = 8, 512, 9, 3, 64
+    arrays = _inputs(14, B, S, S, H, K, hd)
+    qp, kp = (torch.from_numpy(a).to(cuda_device) for a in _positions(B, S, S))
+    dout = torch.from_numpy(np.random.default_rng(15).standard_normal((B, S, H, hd)).astype(
+        np.float32)).to(cuda_device)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, td).requires_grad_() for a in arrays)
+    before = pops.flash_attention.launches, pops.flash_attention_bwd.launches
+    out = pops.flash_attention(q, k, v, qp, kp)
+    assert out.grad_fn is not None
+    out.backward(dout.to(td))
+    torch.cuda.synchronize()
+    assert (pops.flash_attention.launches, pops.flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    qr, kr, vr = (torch.from_numpy(a).to(cuda_device).requires_grad_() for a in arrays)
+    pref.flash_attention_ref(qr, kr, vr, qp, kp).backward(dout)
+    for a, b in ((q, qr), (k, kr), (v, vr)):
+        assert _normwise_t(a.grad, b.grad) <= FN_TOL[dtype]
+    with torch.no_grad():
+        pops.flash_attention(q, k, v, qp, kp)    # no gradient needed: the plain forward kernel
+    assert pops.flash_attention_bwd.launches == before[1] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", pfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_tile_config_fits_the_card(cuda_device, dtype, hd):
+    cfg = pfa.bwd_tile_config(getattr(torch, dtype), hd)
+    assert cfg["block_q"] in (32, 64) and cfg["block_k"] in (16, 32, 64)
+    for kernel in ("dq", "dkdv"):
+        assert 0 < cfg[kernel]["smem_bytes"] <= 232448 and cfg[kernel]["blocks_per_sm"] >= 1
