@@ -12,13 +12,14 @@ non-zero exit:
    ``nvcc`` each, all started together) and print ptxas' reports; K1's
    tiles, shared memory and blocks an SM for each (dtype, head_dim), and the
    HMMA (tensor-core) instructions in each of its kernels' SASS; the same
-   for K1's backward, with each kernel's registers and spills.
+   for K1's two backward kernels, with their registers and spills.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and edge cases (ragged lengths, initial states, a
    sequence run in two halves, a sequence whose chunks are all K2's
    parallelism, tied router rows, bf16), with stated tolerances; K1's
    backward against its plain version at the forward's cases, fp32 and
-   bf16, and ``FlashAttentionFn`` against autograd of the plain forward.
+   bf16, two runs of it bit for bit, and ``FlashAttentionFn`` against
+   autograd of the plain forward.
    Then K4's times: at granite-moe's prefill and decode shapes and
    deepseek-moe's, its device time a launch, the wrapper's time a call
    paced by the host, the bound, and beside them the card's launch floor
@@ -57,9 +58,9 @@ non-zero exit:
    launched, by its profiler name) and both of its bounds.  K2 is timed
    in fp32 and bf16 beside its bound and its two-kernel design's floor,
    and each of its two kernels is reported: registers and spills, shared
-   memory, blocks an SM and device time.  K1's backward is timed at
-   smollm's train shape in fp32 and bf16, beside its plain version, the
-   backward of ``scaled_dot_product_attention`` and both of its bounds.
+   memory, blocks an SM and device time.  K1's backward is timed at K1's
+   three shapes in fp32 and bf16, beside its plain version, the backward
+   of ``scaled_dot_product_attention`` and both of its bounds.
 
 Every ``torch.profiler`` session keeps 50 ms of idle at each end, and one
 that comes back with no kernel record, or with fewer records of this repo's
@@ -538,19 +539,31 @@ def report_k1_build(torch, fa, nvcc: str, lib: Path, card: str) -> None:
     assert counts and all(c["HMMA"] > 0 for c in counts.values()), "K1 runs no HMMA"
 
 
-def report_k1_bwd_build(torch, fa, build_log: str, card: str) -> None:
+def report_k1_bwd_build(torch, fa, nvcc: str, lib: Path, build_log: str, card: str) -> None:
     """K1's backward: for each (dtype, head_dim) its tiles, each kernel's
-    dynamic shared memory and blocks an SM (the card), and its registers and
-    spills (ptxas)."""
+    dynamic shared memory and blocks an SM (the card), its registers and
+    spills (ptxas), and the instructions in its SASS with HMMA (tensor core)
+    and LDSM (ldmatrix) counted apart; every kernel must hold HMMA."""
+    import re
     ptx = ptxas_kernels(build_log)
+    sass = {}
+    for fn, ins in sass_instructions(nvcc, lib).items():
+        m = re.search(r"bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
+        if m:
+            ops = [op.split(".")[0] for _, op, _ in ins]
+            sass[m.group(1), m.group(2), int(m.group(3))] = {
+                "instructions": len(ops), "HMMA": ops.count("HMMA"), "LDSM": ops.count("LDSM")}
     for dtype, tag in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
         for hd in fa.HEAD_DIMS:
             regs = {k: [c for fn, c in ptx.items() if f"bwd_{k}_kernelI{tag}Li{hd}E" in fn]
                     for k in ("dq", "dkdv")}
             assert all(len(r) == 1 for r in regs.values()), f"no single bwd kernel {dtype} {hd}"
+            code = {k: sass.get((k, tag, hd)) for k in ("dq", "dkdv")}
             log(f"[build] flash_attention_bwd {str(dtype)[6:]} hd {hd}: "
                 f"{fa.bwd_tile_config(dtype, hd)}; ptxas "
-                f"{ {k: r[0] for k, r in regs.items()} } {card}")
+                f"{ {k: r[0] for k, r in regs.items()} }; SASS {code} {card}")
+            assert all(c and c["HMMA"] > 0 for c in code.values()), \
+                f"K1's backward runs no HMMA ({dtype}, hd {hd})"
 
 
 def router_sass(nvcc: str, lib: Path) -> dict:
@@ -704,7 +717,8 @@ def normwise(a, b) -> float:
 
 def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
     """K1's backward (``ops.flash_attention_bwd``) against
-    ``ref.flash_attention_bwd_ref`` at the forward's cases, fp32 and bf16;
+    ``ref.flash_attention_bwd_ref`` at the forward's cases, fp32 and bf16,
+    and against a second run of itself, bit for bit;
     then ``FlashAttentionFn`` (``ops.flash_attention`` on tensors that need a
     gradient) against autograd of the plain forward at smollm's train
     shape.  Returns the max abs error of dq, dk, dv at smollm's train
@@ -739,7 +753,9 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
             g = torch.Generator(device=dev).manual_seed(600 + i)
             dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
             got = ops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout, **kw)
+            again = ops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout, **kw)
             torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{name}: two runs differ"
             exp = ref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout, **kw)
             tol = BWD_TOL[str(dtype)[6:]]
             errs = [max_err(a, b) for a, b in zip(got, exp)]
@@ -1281,27 +1297,27 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed) -> di
             "bf16_tensor_core_bound_ms": bound_bf16[4]}
 
 
-def time_attention_bwd(torch, dev, ops, ref, card) -> dict:
-    """K1's backward at smollm's train shape: the fp32 kernel and its plain
+def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed) -> dict:
+    """K1's backward at one of K1's shapes: the fp32 kernel and its plain
     version interleaved, the bf16 kernel, the backward of PyTorch's
     ``scaled_dot_product_attention`` on the same fp32 inputs (kv heads
     expanded beforehand, not timed) and the kernels it launched, and both
     bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    shape = (8, 512, 512, 9, 3, 64)
     B_, S_, _, H, K, hd = shape
-    q, k, v, qp, kp = attention_inputs(torch, dev, 500, *shape, torch.float32)
-    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True)
-    dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(650),
+    q, k, v, qp, kp = attention_inputs(torch, dev, seed, *shape, torch.float32)
+    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True, window=window)
+    dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(seed + 150),
                        device=dev)
-    kernel = lambda: ops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout)
-    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout)
+    kernel = lambda: ops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout, window=window)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout, window=window)
     kms, pms, runs = time_pair(kernel, plain, 10)
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-    outb, lseb = fa.flash_attention_cuda(qb, kb, vb, qp, kp, return_lse=True)
+    outb, lseb = fa.flash_attention_cuda(qb, kb, vb, qp, kp, return_lse=True, window=window)
     doutb = dout.to(torch.bfloat16)
-    bf16_ms = time_ms(lambda: ops.flash_attention_bwd(qb, kb, vb, qp, kp, outb, lseb, doutb))
+    bf16_ms = time_ms(lambda: ops.flash_attention_bwd(qb, kb, vb, qp, kp, outb, lseb, doutb,
+                                                      window=window))
     G = H // K
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in
                   (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
@@ -1314,10 +1330,11 @@ def time_attention_bwd(torch, dev, ops, ref, card) -> dict:
         (gq.transpose(1, 2), regroup(gk), regroup(gv)), plain()))
     library_ms = time_ms(sdpa_bwd)
     lib_kernels = [(name, n, ms / n) for name, n, ms in
-                   device_kernels(torch, "scaled_dot_product_attention backward", sdpa_bwd)]
-    bound = attention_bwd_bound(q, k, v, qp, kp)
-    bound_bf16 = attention_bwd_bound(qb, kb, vb, qp, kp)
-    where = f"smollm train B={B_} S={S_} H={H} K={K} hd={hd}"
+                   device_kernels(torch, f"scaled_dot_product_attention backward {label}", sdpa_bwd)
+                   or []]
+    bound = attention_bwd_bound(q, k, v, qp, kp, window=window)
+    bound_bf16 = attention_bwd_bound(qb, kb, vb, qp, kp, window=window)
+    where = f"{label} B={B_} S={S_} H={H} K={K} hd={hd}" + (f" window {window}" if window else "")
     log(f"[time] flash_attention_bwd kernel fp32 {where}: {kms!r} ms {card} (runs {runs})")
     log(f"[time] flash_attention_bwd kernel bf16 {where}: {bf16_ms!r} ms {card}")
     log(f"[time] flash_attention_bwd plain version fp32 {where}: {pms!r} ms {card}")
@@ -1330,7 +1347,8 @@ def time_attention_bwd(torch, dev, ops, ref, card) -> dict:
         f"{bound[3]:.4g} bytes fp32) {card}")
     return {"ms": kms, "bf16_ms": bf16_ms, "plain_ms": pms, "library_ms": library_ms,
             "library_kernels": [name for name, _, _ in lib_kernels], "bound": bound[:4],
-            "tensor_core_bound_ms": bound[4], "bf16_tensor_core_bound_ms": bound_bf16[4]}
+            "bound_ms": bound[0], "tensor_core_bound_ms": bound[4],
+            "bf16_tensor_core_bound_ms": bound_bf16[4]}
 
 
 # K4's timed shapes: label, (T, E, k); the draws of phase 2's case of the
@@ -1448,7 +1466,8 @@ def main() -> int:
             log(f"[build]   {line}")
     report_k1_build(torch, fa, _build._nvcc(), infos[KERNELS.index("flash_attention")].path,
                     card)
-    report_k1_bwd_build(torch, fa, infos[KERNELS.index("flash_attention_bwd")].log, card)
+    k1b_info = infos[KERNELS.index("flash_attention_bwd")]
+    report_k1_bwd_build(torch, fa, _build._nvcc(), k1b_info.path, k1b_info.log, card)
     k4_sass = router_sass(_build._nvcc(), infos[KERNELS.index("moe_router")].path)
     for (dtype, vpl), c in k4_sass.items():
         log(f"[build] moe_router {dtype}, {vpl} values a lane, SASS: {c}")
@@ -1490,7 +1509,10 @@ def main() -> int:
             for label, shape, window, seed in ATTN_SHAPES}
     k1 = attn[ATTN_SHAPES[0][0]]
     times["flash_attention"] = (k1["ms"], k1["plain_ms"], k1["bound"], k1["library_ms"])
-    k1b = time_attention_bwd(torch, dev, ops, ref, card)
+    attn_bwd = {label: time_attention_bwd(torch, dev, ops, ref, card, label, shape, window,
+                                          seed + 400)
+                for label, shape, window, seed in ATTN_SHAPES}
+    k1b = attn_bwd[ATTN_SHAPES[0][0]]
     times["flash_attention_bwd"] = (k1b["ms"], k1b["plain_ms"], k1b["bound"], k1b["library_ms"])
 
     r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 200, 8, 512, 32, 64, f32)
@@ -1539,7 +1561,7 @@ def main() -> int:
             "launches": sum(paths.values()), "launches_per_path": paths,
             "max_abs_err": errs[name], "ms": kms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "library_ms": lms,
-            # K1's forward runs on the tensor cores (3xTF32); its backward could
+            # K1's forward and backward run on the tensor cores (3xTF32 in fp32)
             "tensor_core_bound_ms": {"flash_attention": k1["tensor_core_bound_ms"],
                                      "flash_attention_bwd": k1b["tensor_core_bound_ms"]}.get(name),
         })
@@ -1554,6 +1576,8 @@ def main() -> int:
     kernels[KERNELS.index("flash_attention_bwd")].update(
         bf16_ms=k1b["bf16_ms"], bf16_tensor_core_bound_ms=k1b["bf16_tensor_core_bound_ms"],
         library_kernels=k1b["library_kernels"],
+        shapes={label: {key: val for key, val in r.items() if key != "bound"}
+                for label, r in attn_bwd.items()},
         train_step={key: val for key, val in train.items() if key != "launches"})
     log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "
         f"{PROFILER['unmeasured']} measurements with no whole session (not measured)")

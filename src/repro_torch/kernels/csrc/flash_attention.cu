@@ -73,6 +73,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "attention_mma.cuh"
+
 namespace {
 
 constexpr int STAGES = 2;       // K/V ring
@@ -113,219 +115,6 @@ struct Params {
   int vec;   // every pointer and stride a multiple of 16 bytes: cp.async
 };
 
-// -- tensor-core and copy primitives ---------------------------------------------
-
-// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, to 10
-// mantissa bits) as two integer operations: add half of the dropped ulp to
-// the magnitude, clear the 13 dropped bits.  cvt.rna adds a guard for inf
-// and NaN that finite inputs never need, and the split is the hot loop.
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small + O(2^-22 x); x - big is exact in fp32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = rna_tf32(x);
-  small = rna_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a*b in fp32 from the 3xTF32 splits of a and b (small terms first).
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                           const uint32_t (&bs)[2]) {
-  mma_tf32(d, as, bb);
-  mma_tf32(d, ab, bs);
-  mma_tf32(d, ab, bb);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// (x0, x1) -> bf16 pairs hi and lo with x ~ hi + lo; x0 in the low half.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// ldmatrix: four 8x8 tiles of 16-bit elements (8x4 of 32-bit ones), lane i
-// giving the address of row i%8 of tile i/8; lane (g, t) receives row g,
-// elements 2t and 2t+1 (32-bit element t) of each tile.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// The same with each tile transposed: lane (g, t) receives column g, rows 2t and 2t+1.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-// rows x HD elements from src (row stride in elements) into a padded tile;
-// rows at or past n_valid are zero-filled (src_bytes 0: nothing is read).
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride,
-                                          int n_valid, bool vec) {
-  using C = Cfg<T, HD>;
-  constexpr int CPR = HD / C::EPC;   // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += C::NT) {
-    const int r = c / CPR, col = (c % CPR) * C::EPC;
-    const bool in = r < n_valid;
-    const T* s = src + (in ? r : 0) * stride + col;
-    T* d = dst + r * C::LD + col;
-    if (vec) {
-      cp_async16(d, s, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < C::EPC; ++e) d[e] = in ? s[e] : zero<T>();
-    }
-  }
-}
-
-// -- the two products of one warp on one key tile ---------------------------------
-// A warp's 16 rows: lane (g = lane/4, t = lane%4) holds rows g and g+8 of
-// every m16n8 accumulator, columns 2t and 2t+1 of its 8.  Q's A operand and
-// K's B operand come by ldmatrix: Q's four tiles are (rows 0-7 | 8-15) x
-// (the first | second 16 bytes of a k-step), K's are (keys 8n..8n+7 |
-// 8n+8..8n+15) x (first | second 16 bytes), so one ldmatrix feeds two
-// n-tiles.  qa and ka are this lane's row addresses.
-
-// s[n] = Q K^T for keys 8n..8n+7 of the tile (3xTF32, k-steps of 8 dims).
-template <int HD, int BK>
-__device__ __forceinline__ void scores(float (&s)[BK / 8][4], const float* qa, const float* ka) {
-  constexpr int LD = Cfg<float, HD>::LD;
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < HD / 8; ++kk) {
-    uint32_t qv[4], ab[4], as[4];
-    ldsm_x4(qv, qa + kk * 8);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(qv[i]), ab[i], as[i]);
-#pragma unroll
-    for (int n = 0; n < BK / 8; n += 2) {
-      uint32_t kv[4], bb[2][2], bs[2][2];
-      ldsm_x4(kv, ka + n * 8 * LD + kk * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        split_tf32(__uint_as_float(kv[i]), bb[i >> 1][i & 1], bs[i >> 1][i & 1]);
-      mma_3xtf32(s[n], ab, as, bb[0], bs[0]);
-      mma_3xtf32(s[n + 1], ab, as, bb[1], bs[1]);
-    }
-  }
-}
-
-// The same for bf16 (one product, k-steps of 16 dims).
-template <int HD, int BK>
-__device__ __forceinline__ void scores(float (&s)[BK / 8][4], const __nv_bfloat16* qa,
-                                       const __nv_bfloat16* ka) {
-  constexpr int LD = Cfg<__nv_bfloat16, HD>::LD;
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, qa + kk * 16);
-#pragma unroll
-    for (int n = 0; n < BK / 8; n += 2) {
-      uint32_t kv[4];
-      ldsm_x4(kv, ka + n * 8 * LD + kk * 16);
-      const uint32_t b0[2] = {kv[0], kv[1]}, b1[2] = {kv[2], kv[3]};
-      mma_bf16(s[n], a, b0);
-      mma_bf16(s[n + 1], a, b1);
-    }
-  }
-}
-
-// o[d] += P V for output dims 8d..8d+7; p holds the tile's probabilities.
-template <int HD, int BK>
-__device__ __forceinline__ void accumulate(float (&o)[HD / 8][4], const float (&p)[BK / 8][4],
-                                           const float* Vt, int lane) {
-  constexpr int LD = Cfg<float, HD>::LD;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
-    // Logical k = t is key 8n+2t, k = t+4 is key 8n+2t+1: the accumulator's
-    // (c0, c2, c1, c3) are the A operand's (a0, a1, a2, a3).
-    uint32_t pb[4], ps[4];
-    split_tf32(p[n][0], pb[0], ps[0]);
-    split_tf32(p[n][2], pb[1], ps[1]);
-    split_tf32(p[n][1], pb[2], ps[2]);
-    split_tf32(p[n][3], pb[3], ps[3]);
-    const float* v = Vt + (n * 8 + 2 * t) * LD + g;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      uint32_t bb[2], bs[2];
-      split_tf32(v[d * 8], bb[0], bs[0]);
-      split_tf32(v[LD + d * 8], bb[1], bs[1]);
-      mma_3xtf32(o[d], pb, ps, bb, bs);
-    }
-  }
-}
-
-// For bf16, V's B operand comes by a transposing ldmatrix: tiles (keys
-// 16j..16j+7 | 16j+8..16j+15) x (dims 8d..8d+7 | 8d+8..8d+15).
-template <int HD, int BK>
-__device__ __forceinline__ void accumulate(float (&o)[HD / 8][4], const float (&p)[BK / 8][4],
-                                           const __nv_bfloat16* Vt, int lane) {
-  constexpr int LD = Cfg<__nv_bfloat16, HD>::LD;
-  const int mi = lane >> 3;
-  const __nv_bfloat16* va = Vt + ((mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * 8;
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) {
-    // Accumulators 2j and 2j+1 (keys 16j..16j+15) are m16n8k16's A operand.
-    uint32_t hi[4], lo[4];
-    split_bf16(p[2 * j][0], p[2 * j][1], hi[0], lo[0]);
-    split_bf16(p[2 * j][2], p[2 * j][3], hi[1], lo[1]);
-    split_bf16(p[2 * j + 1][0], p[2 * j + 1][1], hi[2], lo[2]);
-    split_bf16(p[2 * j + 1][2], p[2 * j + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int d = 0; d < HD / 8; d += 2) {
-      uint32_t vv[4];
-      ldsm_x4_t(vv, va + j * 16 * LD + d * 8);
-      const uint32_t b0[2] = {vv[0], vv[1]}, b1[2] = {vv[2], vv[3]};
-      mma_bf16(o[d], lo, b0);
-      mma_bf16(o[d + 1], lo, b1);
-      mma_bf16(o[d], hi, b0);
-      mma_bf16(o[d + 1], hi, b1);
-    }
-  }
-}
-
 // Scale, softcap and (with MASK) the mask from positions; mx gets the
 // lane's share of each row's max.
 template <bool MASK, int NB>
@@ -348,43 +137,6 @@ __device__ __forceinline__ void scale_mask(float (&s)[NB][4], float (&mx)[2], co
       mx[i] = fmaxf(mx[i], x);
     }
   }
-}
-
-// This thread's key of tiles j .. j + (threads/BK) - 1 (-1 past Sk).
-template <int BK>
-__device__ __forceinline__ int key_pos(const Params& p, const int* kpos, int j) {
-  const int c = j * BK + threadIdx.x;
-  return c < p.Sk ? __ldg(kpos + c) : -1;
-}
-
-// The first key tile at or after j that some query of the block may see
-// (nkb if none).  kp is key_pos(j): one read covers NT/BK candidate tiles,
-// and the caller reads the first one ahead of time.  full: every query of
-// the block sees every key of the tile (no mask needed).  The tile's
-// positions go to kp_dst after the first barrier, so the stage's last reader
-// is done with it.
-template <int BK, int NT>
-__device__ __forceinline__ int next_tile(const Params& p, const int* kpos, int j, int nkb,
-                                         int kp, int qmin, int qmax, int* kp_dst, bool& full) {
-  constexpr int R = NT / BK;
-  const int mine = threadIdx.x / BK;   // which of the R candidates this thread's key is in
-  while (j < nkb) {
-    const bool seen = kp >= 0 && (!p.causal || qmax - kp >= 0) &&
-                      (!p.has_window || qmin - kp < p.window);
-    const bool all = kp >= 0 && (!p.causal || qmin - kp >= 0) &&
-                     (!p.has_window || qmax - kp < p.window);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (__syncthreads_or(seen && mine == r)) {
-        full = __syncthreads_and(all || mine != r);
-        if (mine == r) kp_dst[threadIdx.x - r * BK] = kp;
-        return j + r;
-      }
-    }
-    j += R;
-    kp = key_pos<BK>(p, kpos, j);
-  }
-  return nkb;
 }
 
 template <typename T, int HD>
@@ -440,9 +192,9 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, Cfg<T, HD>::MINB)
   bool full = false, full_next = false;
   int j = next_tile<BK, NT>(p, kpos, 0, nkb, key_pos<BK>(p, kpos, 0), qmin, qmax, kp_s, full);
   if (j < nkb) {
-    load_tile<T, HD, BQ>(Qs, qg, p.q_ss, nq, vec);
-    load_tile<T, HD, BK>(Ks, kg + j * BK * p.k_ss, p.k_ss, p.Sk - j * BK, vec);
-    load_tile<T, HD, BK>(Vs, vg + j * BK * p.v_ss, p.v_ss, p.Sk - j * BK, vec);
+    load_tile<T, HD, BQ, NT, LD>(Qs, qg, p.q_ss, nq, vec);
+    load_tile<T, HD, BK, NT, LD>(Ks, kg + j * BK * p.k_ss, p.k_ss, p.Sk - j * BK, vec);
+    load_tile<T, HD, BK, NT, LD>(Vs, vg + j * BK * p.v_ss, p.v_ss, p.Sk - j * BK, vec);
   }
   cp_async_commit();
   int kp_ahead = key_pos<BK>(p, kpos, j + 1);
@@ -452,9 +204,9 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, Cfg<T, HD>::MINB)
     const int jn = next_tile<BK, NT>(p, kpos, j + 1, nkb, kp_ahead, qmin, qmax,
                                  kp_s + (st ^ 1) * BK, full_next);
     if (jn < nkb) {
-      load_tile<T, HD, BK>(Ks + (st ^ 1) * BK * LD, kg + jn * BK * p.k_ss, p.k_ss,
+      load_tile<T, HD, BK, NT, LD>(Ks + (st ^ 1) * BK * LD, kg + jn * BK * p.k_ss, p.k_ss,
                            p.Sk - jn * BK, vec);
-      load_tile<T, HD, BK>(Vs + (st ^ 1) * BK * LD, vg + jn * BK * p.v_ss, p.v_ss,
+      load_tile<T, HD, BK, NT, LD>(Vs + (st ^ 1) * BK * LD, vg + jn * BK * p.v_ss, p.v_ss,
                            p.Sk - jn * BK, vec);
     }
     cp_async_commit();
@@ -464,7 +216,7 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, Cfg<T, HD>::MINB)
 
     if (warp_rows) {
       float s[NB][4];
-      scores<HD, BK>(s, qa, ka + st * BK * LD);
+      scores<HD, BK, LD>(s, qa, ka + st * BK * LD);
 
       // The running max over the quad's 4 threads.
       float mx[2] = {-INFINITY, -INFINITY};
@@ -497,7 +249,7 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NT, Cfg<T, HD>::MINB)
           s[n][e] = expf(s[n][e] - m_use[e >> 1]);      // masked: exp(-inf) = 0
           l[e >> 1] += s[n][e];
         }
-      accumulate<HD, BK>(o, s, Vs + st * BK * LD, lane);
+      accumulate<HD, BK, LD>(o, s, Vs + st * BK * LD, lane);
     }
     j = jn;
     st ^= 1;

@@ -1,4 +1,4 @@
-// Flash attention backward for Hopper (sm_90a), on the CUDA cores.
+// Flash attention backward for Hopper (sm_90a), on the tensor cores.
 //
 // The gradient of the forward in flash_attention.cu, which replaces the TPU
 // kernel src/repro/kernels/flash_attention.py:77 (flash_attention_pallas).
@@ -8,7 +8,7 @@
 // (batch, sequence, head) strides with a contiguous last axis; GQA head h
 // reads kv head h / (H/K); the mask from positions (causal, window,
 // k_pos < 0), optional tanh softcap, scale 1/sqrt(hd); hd 64, 128 or 256;
-// fp32 or bf16 in, fp32 arithmetic, gradients in the input dtype.  With
+// fp32 or bf16 in, fp32 sums, gradients in the input dtype.  With
 // x = softcap(scale * q.k) and the forward's log-sum-exp L (fp32 (B,H,Sq),
 // +inf for a row with every key masked):
 //   P = exp(x - L) where the mask allows, else 0;  D = rowsum(dO * O);
@@ -21,31 +21,64 @@
 // What bounds it on this card.  Per allowed (query, key) pair the gradient
 // needs 10*hd flops (q.k and dO.v again, and the three products), against
 // one read of q, k, v, O, dO and L and one write of dq, dk, dv: operations
-// bound it.  This first version runs them in fp32 on the CUDA cores (67
-// TFLOP/s), not the tensor cores.
+// bound it.  All five products run on the tensor cores (mma.sync), with the
+// forward's schemes (attention_mma.cuh): fp32 as 3xTF32, 3 x the work over
+// 495 TFLOP/s; bf16 with S = Q K^T and dP = dO V^T as one exact bf16
+// product each and P, dS split into bf16 hi + lo against the exact bf16
+// dO, Q and K.  Both kernels compute S and dP, 14*hd flops a pair in all.
+// On an H100 they run at about 9x (fp32) and 21x (bf16) that bound.  The
+// instructions around the products do not bound them: splitting every tile
+// once in shared memory cut the dkdv kernel's instructions by 40% and its
+// time by nothing, while more warps on the same keys cut its time by 40%,
+// so latency within each streamed tile does.
 //
 // What the design does about it (FlashAttention-2's split of the backward).
 // - Two kernels, no float atomics, so every gradient is the same from run to
-//   run.  The dq kernel owns a tile of query rows of one (b, h) and walks the
-//   key tiles; it also writes D for its rows (rowsum(dO * O), O read once).
-//   The dkdv kernel owns a tile of keys of one (b, kv head) and walks the
-//   query tiles of each of its H/K query heads in turn, so the GQA sums of dK
-//   and dV stay in its registers.  q.k and dO.v are computed by both, 4*hd
-//   flops a pair more than the least work.
-// - 256 threads a block as a 16 x 16 grid; each thread keeps a 4 x 4 (or
-//   smaller) block of each product in registers.  Each tile's share of a
-//   gradient is summed apart and then added to the running sum, so no fp32
-//   chain is longer than a tile's rows or keys plus the tiles (a key's dK
-//   and dV sum over (H/K) * Sq rows).  Tiles sit in shared memory
-//   as fp32 rows padded by 4 floats; the q.k and dO.v products read them as
-//   float4, the accumulations read P and dS as broadcasts and the other
-//   operand as float4, so every load feeds 4 to 8 FMAs without bank
-//   conflicts beyond the two wavefronts that 256 bytes take.
-// - Tiles that no query of the block may see (causal future, outside the
-//   window, empty slots) are skipped after one vote of the block; the mask
-//   itself is applied element by element, as the forward does.
-// - Tiles: 64 queries x 64 keys for hd 64, 32 x 32 for hd 128, 32 x 16 for
-//   hd 256 (the key rows' gradients are held in registers).
+//   run.  The dq kernel owns 64 query rows of one (b, h), 16 a warp, and
+//   streams the key tiles through the forward's 2-stage cp.async ring and
+//   tile skip (next_tile); it also writes D for its rows (O read once).  S,
+//   dP and dS stay in the accumulator fragments and dS feeds dQ += dS K as
+//   the forward's P feeds P V.  The dkdv kernel owns 64 keys of one (b, kv
+//   head), 16 a warp, with K and V resident in shared memory, and streams
+//   Q, dO, L and D of each query tile of each of its H/K query heads
+//   through the same kind of ring, so the GQA sums of dK and dV stay in its
+//   registers.  It computes the transposed products S^T = K Q^T and
+//   dP^T = V dO^T, so P^T and dS^T leave the accumulator as the A operand of
+//   dV += P^T dO and dK += dS^T Q without leaving registers (for TF32 in the
+//   forward's permuted key order).
+// - The dkdv grid is small (K * B * Sk/64 blocks: 192 at smollm's train
+//   shape) and causal work is uneven: the first key block sees every query
+//   tile.  So each 64-row query tile is two products of 32 rows, and each
+//   has its own 4 warps: 8 warps a block, two on each 16 keys, whose sums
+//   are added in a fixed order at the end.  Where a tile is one product
+//   (fp32 hd 128, hd 256) a block has 4 warps.
+// - Precision.  The tensor cores round each fp32 sum of an mma, so the
+//   design keeps their chains short: each streamed product's share of a
+//   gradient is summed apart and then added to the running sum (no chain
+//   longer than 32 rows, where a key's dK and dV sum over (H/K) * Sq rows),
+//   and S and dP keep their 3xTF32 small terms in accumulators of their own
+//   (scores<..., SEP>), which cut the worst error of the checks against
+//   the plain version on an H100 from 8.76e-6 to 3.69e-6 normwise (limit
+//   1e-5).
+// - hd 128 and 256: a warp's 16 rows of dQ (dK, dV) at 64 columns per
+//   warp keep the accumulators at 64 (128) registers, so hd/64 warps share
+//   16 rows and a block owns 32 (16) rows, each warp summing its own 64
+//   columns of the gradients.  At hd 256 each of the 4 computes S and dP
+//   over its own 64 dims and they add the partial products through shared
+//   memory in a fixed order (add_partials): fp32 5.83 -> 3.45 ms on an
+//   H100 against each computing all of S and dP.  At hd 128 both compute
+//   all of S and dP.
+// - Occupancy.  The dkdv kernel's streamed tiles shrink with a row's bytes
+//   (64 rows of up to 256 bytes, 32 of 512, 16 of 1 KB), which keeps its
+//   shared memory near 100 KB.  The dq kernel streams one product's keys a
+//   tile (32; 16 of 1 KB rows), which leaves room for three blocks an SM
+//   where rows are 256 bytes or less (fp32 hd 64, bf16 hd 64 and 128):
+//   its grid is large, so warps an SM, not the longest block, set its time.
+// - Rows are padded by 16 bytes, so every fragment load of a warp hits 32
+//   distinct banks; strides or pointers that are not 16-byte multiples take
+//   a plain copy into the same tiles.  The mask is applied from positions
+//   element by element; tiles that no row of the block may see (causal
+//   future, outside the window, empty slots) are skipped after one vote.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -53,22 +86,41 @@
 #include <cmath>
 #include <cstdint>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-constexpr int NT = 256;   // threads a block: a 16 x 16 grid (ty, tx)
+constexpr int STAGES = 2;        // the streamed ring
+constexpr int NW = 4;            // warps a dq block, and warps a chunk in a dkdv block
+constexpr int NT = 32 * NW;      // threads a dq block
 
-template <int HD>
+template <typename T, int HD>
 struct Cfg {
-  static constexpr int BQ = HD == 64 ? 64 : 32;                      // query rows a tile
-  static constexpr int BK = HD == 64 ? 64 : HD == 128 ? 32 : 16;     // keys a tile
-  static constexpr int LD = HD + 4;                 // padded fp32 row of a Q/K/V/dO tile
-  static constexpr int LP = BK % 32 == 0 ? BK + 16 : BK;   // padded row of a P/dS tile
-  static constexpr int RQ = BQ / 16, RK = BK / 16;  // rows, keys a thread (strided by 16)
-  static constexpr int RD = HD / 64;                // float4 dims a thread (strided by 64)
-  static_assert(LP % 32 == 16, "P/dS rows of neighbouring ty must fall in other banks");
-  static constexpr size_t SMEM_DQ =
-      sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * LP + 2 * BQ) + sizeof(int) * (BQ + BK);
-  static constexpr size_t SMEM_DKDV = SMEM_DQ + sizeof(float) * BQ * LP;
+  static constexpr int DS = HD / 64;          // warps that share 16 rows, 64 gradient columns each
+  static constexpr int ROWS = 16 * NW / DS;   // rows a block owns: queries (dq), keys (dkdv)
+  static constexpr int RB = static_cast<int>(sizeof(T)) * HD;   // bytes a row
+  static constexpr int BS = RB <= 256 ? 64 : RB == 512 ? 32 : 16;   // rows a streamed tile
+  static constexpr int CH = BS < 32 ? BS : 32;                      // streamed rows a product
+  // dkdv: each of the QS chunks of a streamed tile has its own NW warps
+  static constexpr int QS = BS / CH;
+  static constexpr int NTK = NT * QS;                                // threads a dkdv block
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(T));     // elements per 16 B
+  static constexpr int LD = HD + EPC;                              // padded row stride
+  // dq streams one product's keys a tile, which leaves room for three blocks
+  // an SM at 256-byte rows and fewer registers a thread
+  // hd 256: the 4 warps on the same rows share S and dP (add_partials), CH
+  // floats a thread.  At hd 128 the buffer would cost the fp32 dq kernel its
+  // second block an SM, and sharing between 2 warps gained nothing on an H100.
+  static constexpr bool SHARE = DS == 4;
+  static constexpr int KD = SHARE ? HD / DS : HD;   // dims of S and dP a warp sums
+  static constexpr int XCH = SHARE ? CH : 0;
+  static constexpr size_t SMEM_DQ = sizeof(T) * LD * (2 * ROWS + 2 * STAGES * CH) +
+                                    sizeof(int) * STAGES * CH + sizeof(float) * ROWS +
+                                    sizeof(float) * NT * XCH;
+  static constexpr int MINB_DQ = 3 * (SMEM_DQ + 1024) <= 233472 ? 3 : 2;
+  static constexpr size_t SMEM_DKDV = sizeof(T) * LD * (2 * ROWS + 2 * STAGES * BS) +
+                                      (2 * sizeof(float) + sizeof(int)) * STAGES * BS +
+                                      sizeof(float) * NTK * XCH;
 };
 
 struct Params {
@@ -84,141 +136,158 @@ struct Params {
   long long do_sb, do_ss, do_sh;
   int causal, has_window, window;
   float softcap, scale;
+  int vec;   // every pointer and stride a multiple of 16 bytes: cp.async
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
-// ROWS x HD elements (row stride in elements) into a padded fp32 tile; rows
-// at or past n_valid are zero.
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long stride,
-                                          int n_valid) {
-  constexpr int LD = Cfg<HD>::LD;
-  for (int c = threadIdx.x; c < ROWS * HD; c += NT) {
-    const int r = c / HD, d = c % HD;
-    dst[r * LD + d] = r < n_valid ? to_f(src[r * stride + d]) : 0.f;
-  }
+__device__ __forceinline__ void store2(float* dst, float x0, float x1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
 }
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc[i][j] = A[ty + 16i] . B[tx + 16j] over HD, both padded fp32 tiles.
-template <int HD, int RA, int RB>
-__device__ __forceinline__ void row_products(float (&acc)[RA][RB], const float* A,
-                                             const float* Bt, int ty, int tx) {
-  constexpr int LD = Cfg<HD>::LD;
-#pragma unroll
-  for (int i = 0; i < RA; ++i)
-#pragma unroll
-    for (int j = 0; j < RB; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[RA], b[RB];
-#pragma unroll
-    for (int i = 0; i < RA; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < RB; ++j) b[j] = *reinterpret_cast<const float4*>(Bt + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-#pragma unroll
-      for (int j = 0; j < RB; ++j) acc[i][j] = dot4(a[i], b[j], acc[i][j]);
-  }
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
 }
 
 __device__ __forceinline__ bool allowed(const Params& p, int qp, int kp) {
   return kp >= 0 && (!p.causal || qp - kp >= 0) && (!p.has_window || qp - kp < p.window);
 }
 
-// P and dS of the (query tile, key tile) pair from the products s = Q K^T and
-// dp = dO V^T (rows ty + 16i, keys tx + 16j): into Ps (if given) and dSs.
-template <int HD>
-__device__ __forceinline__ void probs_and_grads(
-    const Params& p, const float (&s)[Cfg<HD>::RQ][Cfg<HD>::RK],
-    const float (&dp)[Cfg<HD>::RQ][Cfg<HD>::RK], const int* qpos_s, const int* kpos_s,
-    const float* lse_s, const float* D_s, int nq, int nk, float* Ps, float* dSs, int ty,
-    int tx) {
-  using C = Cfg<HD>;
+// One pair's P and dS from its raw score s = q.k and dp = dO.v, in place.
+__device__ __forceinline__ void prob_grad(const Params& p, float& s, float& dp, bool ok,
+                                          float lse, float D) {
+  float x = s * p.scale, th = 0.f;
+  if (p.softcap > 0.f) {
+    th = tanhf(x / p.softcap);
+    x = th * p.softcap;
+  }
+  const float pv = ok ? expf(x - lse) : 0.f;
+  float ds = pv * (dp - D);
+  if (p.softcap > 0.f) ds *= 1.f - th * th;
+  s = pv;
+  dp = ds * p.scale;
+}
+
+// Cfg::SHARE: the DS warps on the same 16 rows each computed S and dP over
+// their own hd/DS dims; the partial products are added through shared
+// memory (CH = 8 * NB floats a thread), in the same order in every warp,
+// which then all hold the same S and dP.  Every thread of the block calls
+// it: it holds a barrier.  rows: the warp has rows in range.
+template <int DS, int NB>
+__device__ __forceinline__ void add_partials(float (&s)[NB][4], float (&dp)[NB][4], float* xbuf,
+                                             int warp, int cp, int lane, bool rows) {
+  constexpr int SLOT = 2 * NB * 4 * 32;   // floats a warp, lane-major
+  float* mine = xbuf + warp * SLOT + lane;
+  if (rows) {
 #pragma unroll
-  for (int i = 0; i < C::RQ; ++i) {
-    const int r = ty + 16 * i;
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
-    for (int j = 0; j < C::RK; ++j) {
-      const int c = tx + 16 * j;
-      const bool ok = r < nq && c < nk && allowed(p, qpos_s[r], kpos_s[c]);
-      float x = s[i][j] * p.scale, th = 0.f;
-      if (p.softcap > 0.f) {
-        th = tanhf(x / p.softcap);
-        x = th * p.softcap;
+      for (int e = 0; e < 4; ++e) {
+        mine[(n * 4 + e) * 32] = s[n][e];
+        mine[((NB + n) * 4 + e) * 32] = dp[n][e];
       }
-      const float pv = ok ? expf(x - lse_s[r]) : 0.f;
-      float ds = pv * (dp[i][j] - D_s[r]);
-      if (p.softcap > 0.f) ds *= 1.f - th * th;
-      if (Ps != nullptr) Ps[r * C::LP + c] = pv;
-      dSs[r * C::LP + c] = ds * p.scale;
-    }
+  }
+  __syncthreads();
+  if (rows) {
+    const float* first = xbuf + (warp - cp) * SLOT + lane;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float a = first[(n * 4 + e) * 32], c = first[((NB + n) * 4 + e) * 32];
+#pragma unroll
+        for (int w = 1; w < DS; ++w) {
+          a += first[w * SLOT + (n * 4 + e) * 32];
+          c += first[w * SLOT + ((NB + n) * 4 + e) * 32];
+        }
+        s[n][e] = a;
+        dp[n][e] = c;
+      }
   }
 }
 
-// dq kernel: grid (H, B, query tiles), the heaviest causal tiles first.
+// This thread's query of tiles j .. j + threads/BS - 1 (INT_MIN past Sq).
+template <int BS>
+__device__ __forceinline__ int query_pos(const Params& p, const int* qpos, int j) {
+  const int c = j * BS + threadIdx.x;
+  return c < p.Sq ? __ldg(qpos + c) : INT_MIN;
+}
+
+// next_tile's mirror for the dkdv kernel: the first query tile at or after j
+// in which some query may see a key in [kmin, kmax] (nqb if none).  qp is
+// query_pos(j); the tile's positions go to qp_dst after the first barrier.
+template <int BS, int NT_>
+__device__ __forceinline__ int next_query_tile(const Params& p, const int* qpos, int j, int nqb,
+                                               int qp, int kmin, int kmax, int* qp_dst) {
+  constexpr int R = NT_ / BS;
+  const int mine = threadIdx.x / BS;
+  while (j < nqb) {
+    const bool seen = qp != INT_MIN && (!p.causal || qp - kmin >= 0) &&
+                      (!p.has_window || qp - kmax < p.window);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (__syncthreads_or(seen && mine == r)) {
+        if (mine == r) qp_dst[threadIdx.x - r * BS] = qp;
+        return j + r;
+      }
+    }
+    j += R;
+    qp = query_pos<BS>(p, qpos, j);
+  }
+  return nqb;
+}
+
+// dq kernel: grid (H, B, query blocks), the heaviest causal blocks first.
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT, 2) flash_attention_bwd_dq_kernel(const Params p) {
-  using C = Cfg<HD>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
+__global__ void __launch_bounds__(NT, Cfg<T, HD>::MINB_DQ)
+    flash_attention_bwd_dq_kernel(const Params p) {
+  using C = Cfg<T, HD>;
+  constexpr int ROWS = C::ROWS, BK = C::CH, LD = C::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD;
-  float* lse_s = dSs + BQ * LP;
-  float* D_s = lse_s + BQ;
-  int* qpos_s = reinterpret_cast<int*>(D_s + BQ);
-  int* kpos_s = qpos_s + BQ;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + ROWS * LD;
+  T* Ks = dOs + ROWS * LD;                 // STAGES tiles of BK x LD
+  T* Vs = Ks + STAGES * BK * LD;
+  int* kp_s = reinterpret_cast<int*>(Vs + STAGES * BK * LD);
+  float* D_s = reinterpret_cast<float*>(kp_s + STAGES * BK);
+  float* xbuf = D_s + ROWS;                // partial S and dP (Cfg::SHARE)
   __shared__ int q_range[2];
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
-  const int nq = min(BQ, p.Sq - q0);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;
+  const int nq = min(ROWS, p.Sq - q0);
   const int kh = h / (p.H / p.K);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + q0 * p.do_ss;
-  const T* og = static_cast<const T*>(p.o) + ((long long)(b * p.Sq + q0) * p.H + h) * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rw = warp / C::DS, cp = warp % C::DS;   // the warp's 16 rows, its 64 columns of dQ
+  const int kd0 = C::SHARE ? cp * C::KD : 0;          // and its first dim of S and dP
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  const int* qpos = p.q_pos + (long long)b * p.Sq + q0;
+  const int* kpos = p.k_pos + (long long)b * p.Sk;
   const long long row0 = ((long long)b * p.H + h) * p.Sq + q0;   // (B,H,Sq) index of row 0
+  const int nkb = (p.Sk + BK - 1) / BK;
+  const bool vec = p.vec != 0;
 
   if (threadIdx.x == 0) { q_range[0] = INT_MAX; q_range[1] = INT_MIN; }
-  load_tile<T, HD, BQ>(Qs, qg, p.q_ss, nq);
-  load_tile<T, HD, BQ>(dOs, dog, p.do_ss, nq);
+  load_tile<T, HD, ROWS, NT, LD>(
+      Qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss, p.q_ss, nq, vec);
+  load_tile<T, HD, ROWS, NT, LD>(
+      dOs, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + q0 * p.do_ss, p.do_ss,
+      nq, vec);
+  cp_async_commit();
+  cp_async_wait0();
   __syncthreads();
-  if (threadIdx.x < BQ) {
-    const int r = threadIdx.x;
-    const int qp = r < nq ? p.q_pos[(long long)b * p.Sq + q0 + r] : 0;
-    qpos_s[r] = qp;
-    lse_s[r] = r < nq ? p.lse[row0 + r] : 0.f;
-    if (r < nq) {
-      atomicMin(&q_range[0], qp);
-      atomicMax(&q_range[1], qp);
-    }
+  if (threadIdx.x < nq) {
+    atomicMin(&q_range[0], qpos[threadIdx.x]);
+    atomicMax(&q_range[1], qpos[threadIdx.x]);
   }
-  // D = rowsum(dO * O) for this tile's rows, one warp a row; written for the dkdv kernel.
-  for (int r = warp; r < BQ; r += NT / 32) {
+  // D = rowsum(dO * O) for the block's rows, a warp a row; written for the dkdv kernel.
+  const T* og = static_cast<const T*>(p.o) + ((long long)(b * p.Sq + q0) * p.H + h) * HD;
+  for (int r = warp; r < ROWS; r += NW) {
     float acc = 0.f;
     if (r < nq)
-      for (int d = lane; d < HD; d += 32) acc = fmaf(dOs[r * LD + d], to_f(og[(long long)r * p.H * HD + d]), acc);
+      for (int d = lane; d < HD; d += 32)
+        acc = fmaf(to_f(dOs[r * LD + d]), to_f(og[(long long)r * p.H * HD + d]), acc);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (lane == 0) {
@@ -229,109 +298,139 @@ __global__ void __launch_bounds__(NT, 2) flash_attention_bwd_dq_kernel(const Par
   __syncthreads();
   const int qmin = q_range[0], qmax = q_range[1];
 
-  float acc[C::RQ][4 * C::RD];
+  // This thread's two rows, g and g+8 of its warp's 16; a row past Sq gets
+  // L = +inf, so P = 0.
+  const int r0 = rw * 16 + g;
+  int qp[2];
+  float lse[2], Dr[2];
 #pragma unroll
-  for (int i = 0; i < C::RQ; ++i)
-#pragma unroll
-    for (int e = 0; e < 4 * C::RD; ++e) acc[i][e] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    qp[i] = r < nq ? qpos[r] : 0;
+    lse[i] = r < nq ? p.lse[row0 + r] : INFINITY;
+    Dr[i] = D_s[r];
+  }
+  const bool warp_rows = rw * 16 < nq;   // a warp past Sq only keeps the barriers
+  // ldmatrix row addresses (attention_mma.cuh): A = Q or dO, B = K or V.
+  const int mi = lane >> 3;
+  const T* qa = Qs + (rw * 16 + (mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * C::EPC;
+  const T* doa = qa + ROWS * LD;
+  const T* ka = Ks + ((mi >> 1) * 8 + (lane & 7)) * LD + (mi & 1) * C::EPC;
+  const T* va = ka + STAGES * BK * LD;
 
-  const int nkb = (p.Sk + BK - 1) / BK;
-  for (int kt = 0; kt < nkb; ++kt) {
-    const int k0 = kt * BK, nk = min(BK, p.Sk - k0);
-    bool seen = false;
-    if (threadIdx.x < BK) {
-      const int kp = threadIdx.x < nk ? p.k_pos[(long long)b * p.Sk + k0 + threadIdx.x] : -1;
-      kpos_s[threadIdx.x] = kp;
-      seen = kp >= 0 && (!p.causal || qmax - kp >= 0) && (!p.has_window || qmin - kp < p.window);
+  float dq[8][4];
+#pragma unroll
+  for (int d = 0; d < 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+
+  int st = 0;
+  bool full = false;   // next_tile's; the mask is applied to every tile
+  int j = next_tile<BK, NT>(p, kpos, 0, nkb, key_pos<BK>(p, kpos, 0), qmin, qmax, kp_s, full);
+  if (j < nkb) {
+    load_tile<T, HD, BK, NT, LD>(Ks, kg + j * BK * p.k_ss, p.k_ss, p.Sk - j * BK, vec);
+    load_tile<T, HD, BK, NT, LD>(Vs, vg + j * BK * p.v_ss, p.v_ss, p.Sk - j * BK, vec);
+  }
+  cp_async_commit();
+  int kp_ahead = key_pos<BK>(p, kpos, j + 1);
+
+  while (j < nkb) {
+    // Issue the next visible tile into the other stage, then wait for this one.
+    const int jn = next_tile<BK, NT>(p, kpos, j + 1, nkb, kp_ahead, qmin, qmax,
+                                     kp_s + (st ^ 1) * BK, full);
+    if (jn < nkb) {
+      load_tile<T, HD, BK, NT, LD>(Ks + (st ^ 1) * BK * LD, kg + jn * BK * p.k_ss, p.k_ss,
+                                   p.Sk - jn * BK, vec);
+      load_tile<T, HD, BK, NT, LD>(Vs + (st ^ 1) * BK * LD, vg + jn * BK * p.v_ss, p.v_ss,
+                                   p.Sk - jn * BK, vec);
     }
-    if (!__syncthreads_or(seen)) continue;   // no query of the tile sees a key of it
-    load_tile<T, HD, BK>(Ks, kg + k0 * p.k_ss, p.k_ss, nk);
-    load_tile<T, HD, BK>(Vs, vg + k0 * p.v_ss, p.v_ss, nk);
+    cp_async_commit();
+    kp_ahead = key_pos<BK>(p, kpos, jn + 1);   // read while this tile is multiplied
+    cp_async_wait1();
     __syncthreads();
-    {
-      float s[C::RQ][C::RK], dp[C::RQ][C::RK];
-      row_products<HD, C::RQ, C::RK>(s, Qs, Ks, ty, tx);
-      row_products<HD, C::RQ, C::RK>(dp, dOs, Vs, ty, tx);
-      probs_and_grads<HD>(p, s, dp, qpos_s, kpos_s, lse_s, D_s, nq, nk, nullptr, dSs, ty, tx);
+
+    const int off = st * BK * LD;
+    float s[BK / 8][4], dp[BK / 8][4];
+    if (warp_rows) {
+      scores<C::KD, BK, LD, true>(s, qa + kd0, ka + off + kd0);
+      scores<C::KD, BK, LD, true>(dp, doa + kd0, va + off + kd0);
     }
-    __syncthreads();
-    // dQ[ty + 16i][4tx + 64j .. +3] += sum over the tile's keys of dS * K,
-    // summed apart and then added: two short chains, not one over all keys
-    float t[C::RQ][4 * C::RD];
+    if constexpr (C::SHARE) add_partials<C::DS, BK / 8>(s, dp, xbuf, warp, cp, lane, warp_rows);
+    if (warp_rows) {
+      // This tile's share of dQ, summed apart and then added.
+      float tq[8][4];
 #pragma unroll
-    for (int i = 0; i < C::RQ; ++i)
+      for (int d = 0; d < 8; ++d) tq[d][0] = tq[d][1] = tq[d][2] = tq[d][3] = 0.f;
+      {
 #pragma unroll
-      for (int e = 0; e < 4 * C::RD; ++e) t[i][e] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float4 kv[C::RD];
+        for (int n = 0; n < BK / 8; ++n) {
+          const int2 kp2 = *reinterpret_cast<const int2*>(kp_s + st * BK + n * 8 + 2 * t);
 #pragma unroll
-      for (int j = 0; j < C::RD; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + c * LD + 4 * tx + 64 * j);
-#pragma unroll
-      for (int i = 0; i < C::RQ; ++i) {
-        const float g = dSs[(ty + 16 * i) * LP + c];
-#pragma unroll
-        for (int j = 0; j < C::RD; ++j) {
-          t[i][4 * j] = fmaf(g, kv[j].x, t[i][4 * j]);
-          t[i][4 * j + 1] = fmaf(g, kv[j].y, t[i][4 * j + 1]);
-          t[i][4 * j + 2] = fmaf(g, kv[j].z, t[i][4 * j + 2]);
-          t[i][4 * j + 3] = fmaf(g, kv[j].w, t[i][4 * j + 3]);
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            prob_grad(p, s[n][e], dp[n][e], allowed(p, qp[i], (e & 1) ? kp2.y : kp2.x),
+                      lse[i], Dr[i]);
+          }
         }
+        accumulate<64, BK, LD>(tq, dp, Ks + off + cp * 64, lane);   // dQ += dS K
       }
+#pragma unroll
+      for (int d = 0; d < 8; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[d][e] += tq[d][e];
     }
-#pragma unroll
-    for (int i = 0; i < C::RQ; ++i)
-#pragma unroll
-      for (int e = 0; e < 4 * C::RD; ++e) acc[i][e] += t[i][e];
-    __syncthreads();
+    j = jn;
+    st ^= 1;
   }
 
   // dq is contiguous (B, Sq, H, hd).
 #pragma unroll
-  for (int i = 0; i < C::RQ; ++i) {
-    const int r = ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
     if (r >= nq) continue;
-    T* dst = static_cast<T*>(p.dq) + ((long long)(b * p.Sq + q0 + r) * p.H + h) * HD + 4 * tx;
+    T* dst = static_cast<T*>(p.dq) + ((long long)(b * p.Sq + q0 + r) * p.H + h) * HD +
+             cp * 64 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < C::RD; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[64 * j + e] = from_f<T>(acc[i][4 * j + e]);
+    for (int d = 0; d < 8; ++d) store2(dst + d * 8, dq[d][2 * i], dq[d][2 * i + 1]);
   }
 }
 
-// dkdv kernel: grid (K, B, key tiles).
+// dkdv kernel: grid (K, B, key blocks).
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT, 2) flash_attention_bwd_dkdv_kernel(const Params p) {
-  using C = Cfg<HD>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
+__global__ void __launch_bounds__(Cfg<T, HD>::NTK, 256 / Cfg<T, HD>::NTK)
+    flash_attention_bwd_dkdv_kernel(const Params p) {
+  using C = Cfg<T, HD>;
+  constexpr int ROWS = C::ROWS, BQ = C::BS, CH = C::CH, LD = C::LD, NT = C::NTK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD;
-  float* lse_s = dSs + BQ * LP;
-  float* D_s = lse_s + BQ;
-  int* qpos_s = reinterpret_cast<int*>(D_s + BQ);
-  int* kpos_s = qpos_s + BQ;
-  float* Ps = reinterpret_cast<float*>(kpos_s + BK);
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + ROWS * LD;
+  T* Qs = Vs + ROWS * LD;                  // STAGES tiles of BQ x LD
+  T* dOs = Qs + STAGES * BQ * LD;
+  float* lse_s = reinterpret_cast<float*>(dOs + STAGES * BQ * LD);   // STAGES x BQ
+  float* D_s = lse_s + STAGES * BQ;
+  int* qp_s = reinterpret_cast<int*>(D_s + STAGES * BQ);
+  float* xbuf = reinterpret_cast<float*>(qp_s + STAGES * BQ);   // partial S, dP (Cfg::SHARE)
   __shared__ int k_range[2];
 
   const int kh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * BK, nk = min(BK, p.Sk - k0);
+  const int k0 = blockIdx.z * ROWS, nk = min(ROWS, p.Sk - k0);
   const int G = p.H / p.K;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int qc = warp / NW;                                   // its chunk of each tile
+  const int rw = warp % NW / C::DS, cp = warp % NW % C::DS;   // its 16 keys, its 64 columns
+  const int kd0 = C::SHARE ? cp * C::KD : 0;                  // its first dim of S and dP
+  const int* qpos = p.q_pos + (long long)b * p.Sq;
+  const int* kpos = p.k_pos + (long long)b * p.Sk + k0;
+  const int nqb = (p.Sq + BQ - 1) / BQ;
+  const bool vec = p.vec != 0;
 
   if (threadIdx.x == 0) { k_range[0] = INT_MAX; k_range[1] = INT_MIN; }
-  load_tile<T, HD, BK>(Ks, static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh + k0 * p.k_ss,
-                       p.k_ss, nk);
-  load_tile<T, HD, BK>(Vs, static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh + k0 * p.v_ss,
-                       p.v_ss, nk);
+  load_tile<T, HD, ROWS, NT, LD>(
+      Ks, static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh + k0 * p.k_ss, p.k_ss, nk, vec);
+  load_tile<T, HD, ROWS, NT, LD>(
+      Vs, static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh + k0 * p.v_ss, p.v_ss, nk, vec);
+  cp_async_commit();
   __syncthreads();
-  if (threadIdx.x < BK) {
-    const int kp = threadIdx.x < nk ? p.k_pos[(long long)b * p.Sk + k0 + threadIdx.x] : -1;
-    kpos_s[threadIdx.x] = kp;
+  if (threadIdx.x < nk) {
+    const int kp = kpos[threadIdx.x];
     if (kp >= 0) {
       atomicMin(&k_range[0], kp);
       atomicMax(&k_range[1], kp);
@@ -339,109 +438,163 @@ __global__ void __launch_bounds__(NT, 2) flash_attention_bwd_dkdv_kernel(const P
   }
   __syncthreads();
   const int kmin = k_range[0], kmax = k_range[1];
-  const bool any_key = kmin <= kmax;
 
-  // dK, dV rows ty + 16i, dims 4tx + 64j .. +3
-  float dk[C::RK][4 * C::RD], dv[C::RK][4 * C::RD];
-#pragma unroll
-  for (int i = 0; i < C::RK; ++i)
-#pragma unroll
-    for (int e = 0; e < 4 * C::RD; ++e) dk[i][e] = dv[i][e] = 0.f;
+  // This thread's two keys, g and g+8 of its warp's 16 (-1 past Sk: masked).
+  const int r0 = rw * 16 + g;
+  const int kp[2] = {r0 < nk ? kpos[r0] : -1, r0 + 8 < nk ? kpos[r0 + 8] : -1};
+  const bool warp_rows = rw * 16 < nk;
+  // ldmatrix row addresses (attention_mma.cuh): A = K or V, B = Q or dO.
+  const int mi = lane >> 3;
+  const T* ka = Ks + (rw * 16 + (mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * C::EPC;
+  const T* va = ka + ROWS * LD;
+  const T* qb = Qs + ((mi >> 1) * 8 + (lane & 7)) * LD + (mi & 1) * C::EPC;
+  const T* dob = qb + STAGES * BQ * LD;
 
-  const int nqb = (p.Sq + BQ - 1) / BQ;
-  for (int qt = 0; qt < nqb; ++qt) {
-    const int q0 = qt * BQ, nq = min(BQ, p.Sq - q0);
-    bool seen = false;
+  // Q, dO, L and D of query tile qt of head kh * G + hq into stage s; L and D
+  // of rows past Sq are 0, and those columns are masked.
+  auto issue = [&](int s, int qt, int hq) {
+    const int h = kh * G + hq, q0 = qt * BQ, nq = min(BQ, p.Sq - q0);
+    load_tile<T, HD, BQ, NT, LD>(
+        Qs + s * BQ * LD, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
+        p.q_ss, nq, vec);
+    load_tile<T, HD, BQ, NT, LD>(
+        dOs + s * BQ * LD,
+        static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + q0 * p.do_ss, p.do_ss, nq,
+        vec);
     if (threadIdx.x < BQ) {
-      const int qp = threadIdx.x < nq ? p.q_pos[(long long)b * p.Sq + q0 + threadIdx.x] : 0;
-      qpos_s[threadIdx.x] = qp;
-      seen = threadIdx.x < nq && any_key && (!p.causal || qp - kmin >= 0) &&
-             (!p.has_window || qp - kmax < p.window);
+      const int c = threadIdx.x;
+      const long long row = ((long long)b * p.H + h) * p.Sq + q0 + (c < nq ? c : 0);
+      cp_async4(lse_s + s * BQ + c, p.lse + row, c < nq ? 4 : 0);
+      cp_async4(D_s + s * BQ + c, p.delta + row, c < nq ? 4 : 0);
     }
-    if (!__syncthreads_or(seen)) continue;   // no query of the tile sees a key of this block
-    for (int g = 0; g < G; ++g) {
-      const int h = kh * G + g;
-      const long long row0 = ((long long)b * p.H + h) * p.Sq + q0;
-      load_tile<T, HD, BQ>(Qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
-                           p.q_ss, nq);
-      load_tile<T, HD, BQ>(dOs, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh +
-                           q0 * p.do_ss, p.do_ss, nq);
-      if (threadIdx.x < BQ) {
-        lse_s[threadIdx.x] = threadIdx.x < nq ? p.lse[row0 + threadIdx.x] : 0.f;
-        D_s[threadIdx.x] = threadIdx.x < nq ? p.delta[row0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
+  };
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int d = 0; d < 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+
+  int st = 0, hq = 0;
+  int qt = kmin <= kmax ? next_query_tile<BQ, NT>(p, qpos, 0, nqb, query_pos<BQ>(p, qpos, 0), kmin,
+                                              kmax, qp_s)
+                        : nqb;   // no key of the block is in use
+  if (qt < nqb) issue(0, qt, 0);
+  cp_async_commit();
+  int qp_ahead = query_pos<BQ>(p, qpos, qt + 1);
+
+  while (qt < nqb) {
+    __syncthreads();   // every warp is done with the other stage
+    // The next item: the next head of this query tile, else the next visible tile.
+    int qn = qt, hn = hq + 1;
+    if (hn == G) {
+      hn = 0;
+      qn = next_query_tile<BQ, NT>(p, qpos, qt + 1, nqb, qp_ahead, kmin, kmax, qp_s + (st ^ 1) * BQ);
+      qp_ahead = query_pos<BQ>(p, qpos, qn + 1);
+    } else if (threadIdx.x < BQ) {
+      qp_s[(st ^ 1) * BQ + threadIdx.x] = qp_s[st * BQ + threadIdx.x];
+    }
+    if (qn < nqb) issue(st ^ 1, qn, hn);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+
+    const int c = qc * CH;
+    const int off = (st * BQ + c) * LD;
+    float s[CH / 8][4], dp[CH / 8][4];
+    if (warp_rows) {
+      scores<C::KD, CH, LD, true>(s, ka + kd0, qb + off + kd0);     // S^T = K Q^T
+      scores<C::KD, CH, LD, true>(dp, va + kd0, dob + off + kd0);   // dP^T = V dO^T
+    }
+    if constexpr (C::SHARE) add_partials<C::DS, CH / 8>(s, dp, xbuf, warp, cp, lane, warp_rows);
+    if (warp_rows) {
+      const int nq = min(BQ, p.Sq - qt * BQ);
+      const int* qps = qp_s + st * BQ;
+      const float* ls = lse_s + st * BQ;
+      const float* Ds = D_s + st * BQ;
+      // This chunk's share of dK and dV, summed apart and then added.
+      float tk[8][4], tv[8][4];
+#pragma unroll
+      for (int d = 0; d < 8; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tk[d][e] = tv[d][e] = 0.f;
       {
-        float s[C::RQ][C::RK], dp[C::RQ][C::RK];
-        row_products<HD, C::RQ, C::RK>(s, Qs, Ks, ty, tx);
-        row_products<HD, C::RQ, C::RK>(dp, dOs, Vs, ty, tx);
-        probs_and_grads<HD>(p, s, dp, qpos_s, kpos_s, lse_s, D_s, nq, nk, Ps, dSs, ty, tx);
-      }
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q over the tile's rows (rows past nq are 0),
-      // summed apart and then added: with GQA a key's gradient sums over
-      // (H/K) * Sq rows, too long for one fp32 chain
-      float tk[C::RK][4 * C::RD], tv[C::RK][4 * C::RD];
 #pragma unroll
-      for (int i = 0; i < C::RK; ++i)
+        for (int n = 0; n < CH / 8; ++n) {
+          const int col = c + n * 8 + 2 * t;
+          const int2 qp2 = *reinterpret_cast<const int2*>(qps + col);
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(Ds + col);
 #pragma unroll
-        for (int e = 0; e < 4 * C::RD; ++e) tk[i][e] = tv[i][e] = 0.f;
-#pragma unroll 2
-      for (int r = 0; r < nq; ++r) {
-        float4 o4[C::RD], q4[C::RD];
-#pragma unroll
-        for (int j = 0; j < C::RD; ++j) {
-          o4[j] = *reinterpret_cast<const float4*>(dOs + r * LD + 4 * tx + 64 * j);
-          q4[j] = *reinterpret_cast<const float4*>(Qs + r * LD + 4 * tx + 64 * j);
-        }
-#pragma unroll
-        for (int i = 0; i < C::RK; ++i) {
-          const float pv = Ps[r * LP + ty + 16 * i], gv = dSs[r * LP + ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < C::RD; ++j) {
-            tv[i][4 * j] = fmaf(pv, o4[j].x, tv[i][4 * j]);
-            tv[i][4 * j + 1] = fmaf(pv, o4[j].y, tv[i][4 * j + 1]);
-            tv[i][4 * j + 2] = fmaf(pv, o4[j].z, tv[i][4 * j + 2]);
-            tv[i][4 * j + 3] = fmaf(pv, o4[j].w, tv[i][4 * j + 3]);
-            tk[i][4 * j] = fmaf(gv, q4[j].x, tk[i][4 * j]);
-            tk[i][4 * j + 1] = fmaf(gv, q4[j].y, tk[i][4 * j + 1]);
-            tk[i][4 * j + 2] = fmaf(gv, q4[j].z, tk[i][4 * j + 2]);
-            tk[i][4 * j + 3] = fmaf(gv, q4[j].w, tk[i][4 * j + 3]);
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;
+            const bool ok = col + odd < nq && allowed(p, odd ? qp2.y : qp2.x, kp[e >> 1]);
+            prob_grad(p, s[n][e], dp[n][e], ok, odd ? l2.y : l2.x, odd ? d2.y : d2.x);
           }
         }
+        accumulate<64, CH, LD>(tv, s, dOs + off + cp * 64, lane);   // dV += P^T dO
+        accumulate<64, CH, LD>(tk, dp, Qs + off + cp * 64, lane);   // dK += dS^T Q
       }
 #pragma unroll
-      for (int i = 0; i < C::RK; ++i)
+      for (int d = 0; d < 8; ++d)
 #pragma unroll
-        for (int e = 0; e < 4 * C::RD; ++e) {
-          dk[i][e] += tk[i][e];
-          dv[i][e] += tv[i][e];
+        for (int e = 0; e < 4; ++e) {
+          dk[d][e] += tk[d][e];
+          dv[d][e] += tv[d][e];
         }
-      __syncthreads();
     }
+    qt = qn;
+    hq = hn;
+    st ^= 1;
+  }
+  cp_async_wait0();   // K and V of a block that no query sees
+
+  if constexpr (C::QS > 1) {
+    // The chunks' sums, added in chunk order through the ring's memory.
+    static_assert(C::QS == 2, "two chunks a tile");
+    static_assert(2 * STAGES * BQ * LD * sizeof(T) >= NW * 64 * 32 * sizeof(float),
+                  "the ring holds a chunk's sums");
+    float* red = reinterpret_cast<float*>(Qs) + (warp % NW) * 64 * 32 + lane;
+    __syncthreads();   // the ring is read no more
+    if (qc == 1) {
+#pragma unroll
+      for (int d = 0; d < 8; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          red[(d * 4 + e) * 32] = dk[d][e];
+          red[(32 + d * 4 + e) * 32] = dv[d][e];
+        }
+    }
+    __syncthreads();
+    if (qc == 1) return;
+#pragma unroll
+    for (int d = 0; d < 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk[d][e] += red[(d * 4 + e) * 32];
+        dv[d][e] += red[(32 + d * 4 + e) * 32];
+      }
   }
 
   // dk, dv are contiguous (B, Sk, K, hd); keys no query sees get 0.
 #pragma unroll
-  for (int i = 0; i < C::RK; ++i) {
-    const int c = ty + 16 * i;
-    if (c >= nk) continue;
-    const long long off = ((long long)(b * p.Sk + k0 + c) * p.K + kh) * HD + 4 * tx;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= nk) continue;
+    const long long off = ((long long)(b * p.Sk + k0 + r) * p.K + kh) * HD + cp * 64 + 2 * t;
     T* dkp = static_cast<T*>(p.dk) + off;
     T* dvp = static_cast<T*>(p.dv) + off;
 #pragma unroll
-    for (int j = 0; j < C::RD; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dkp[64 * j + e] = from_f<T>(dk[i][4 * j + e]);
-        dvp[64 * j + e] = from_f<T>(dv[i][4 * j + e]);
-      }
+    for (int d = 0; d < 8; ++d) {
+      store2(dkp + d * 8, dk[d][2 * i], dk[d][2 * i + 1]);
+      store2(dvp + d * 8, dv[d][2 * i], dv[d][2 * i + 1]);
+    }
   }
 }
 
 template <typename T, int HD>
 cudaError_t set_smem() {
-  using C = Cfg<HD>;
+  using C = Cfg<T, HD>;
   cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(C::SMEM_DQ));
@@ -453,16 +606,16 @@ cudaError_t set_smem() {
 
 template <typename T, int HD>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<HD>;
+  using C = Cfg<T, HD>;
   // Above 48 KB, dynamic shared memory needs an opt-in, once per instantiation.
   static const cudaError_t attr = set_smem<T, HD>();
   if (attr != cudaSuccess) return attr;
-  const dim3 gq(p.H, B, (p.Sq + C::BQ - 1) / C::BQ), gk(p.K, B, (p.Sk + C::BK - 1) / C::BK);
+  const dim3 gq(p.H, B, (p.Sq + C::ROWS - 1) / C::ROWS), gk(p.K, B, (p.Sk + C::ROWS - 1) / C::ROWS);
   if (B > 65535 || gq.z > 65535 || gk.z > 65535) return cudaErrorInvalidValue;
   flash_attention_bwd_dq_kernel<T, HD><<<gq, NT, C::SMEM_DQ, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_attention_bwd_dkdv_kernel<T, HD><<<gk, NT, C::SMEM_DKDV, stream>>>(p);
+  flash_attention_bwd_dkdv_kernel<T, HD><<<gk, C::NTK, C::SMEM_DKDV, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -478,18 +631,17 @@ cudaError_t dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
 
 template <typename T, int HD>
 cudaError_t tiles(int* out) {
-  using C = Cfg<HD>;
+  using C = Cfg<T, HD>;
   const cudaError_t attr = set_smem<T, HD>();
   if (attr != cudaSuccess) return attr;
-  out[0] = C::BQ;
-  out[1] = C::BK;
-  out[2] = static_cast<int>(C::SMEM_DQ);
-  out[4] = static_cast<int>(C::SMEM_DKDV);
+  const int cfg[] = {C::ROWS, C::CH, NT, static_cast<int>(C::SMEM_DQ), 0,
+                     C::BS, C::NTK, static_cast<int>(C::SMEM_DKDV), 0};
+  for (int i = 0; i < 9; ++i) out[i] = cfg[i];
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out + 3, flash_attention_bwd_dq_kernel<T, HD>, NT, C::SMEM_DQ);
+      out + 4, flash_attention_bwd_dq_kernel<T, HD>, NT, C::SMEM_DQ);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out + 5, flash_attention_bwd_dkdv_kernel<T, HD>, NT, C::SMEM_DKDV);
+      out + 8, flash_attention_bwd_dkdv_kernel<T, HD>, C::NTK, C::SMEM_DKDV);
 }
 
 }  // namespace
@@ -525,6 +677,13 @@ extern "C" int flash_attention_bwd(
   p.causal = causal; p.has_window = has_window; p.window = window;
   p.softcap = softcap;
   p.scale = 1.0f / sqrtf(static_cast<float>(hd));
+  const long long es = dtype == 0 ? 4 : 2;
+  bool vec = true;
+  for (const void* ptr : {q, k, v, dout}) vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  for (long long s : {p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh, p.v_sb, p.v_ss, p.v_sh,
+                      p.do_sb, p.do_ss, p.do_sh})
+    vec = vec && (s * es) % 16 == 0;
+  p.vec = vec;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_hd<float>(p, B, hd, s);
@@ -533,10 +692,12 @@ extern "C" int flash_attention_bwd(
   }
 }
 
-// One instantiation's query rows and keys a tile, then the dq kernel's and
-// the dkdv kernel's dynamic shared memory and blocks an SM, as the card
-// reports them: out[6] = {block_q, block_k, dq smem, dq blocks, dkdv smem,
-// dkdv blocks}.  Returns a cudaError_t.
+// One instantiation's tiles and each kernel's footprint, as the card reports
+// them: out[9] = {rows a block owns (queries in the dq kernel, keys in the
+// dkdv kernel); the dq kernel's keys a streamed tile, threads, dynamic
+// shared memory and blocks an SM; the dkdv kernel's query rows a streamed
+// tile, threads, dynamic shared memory and blocks an SM}.  Returns a
+// cudaError_t.
 extern "C" int flash_attention_bwd_tiles(int dtype, int hd, int* out) {
   const bool f32 = dtype == 0;
   switch (hd) {

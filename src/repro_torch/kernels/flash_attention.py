@@ -213,16 +213,17 @@ def _bwd_tiles_fn():
 
 
 def bwd_tile_config(dtype: torch.dtype, head_dim: int) -> dict:
-    """The backward's query rows and keys a tile, and for each of its two
-    kernels the dynamic shared memory a block and blocks an SM, as the card
-    reports them."""
+    """The backward's tiles: the rows a block owns (query rows in the dq
+    kernel, keys in the dkdv kernel); and for each of its two kernels the
+    rows of each tile it streams (keys, query rows), its threads, the
+    dynamic shared memory a block and blocks an SM, as the card reports
+    them."""
     if dtype not in DTYPES or head_dim not in HEAD_DIMS:
         raise ValueError(f"no kernel for {dtype}, head_dim {head_dim}")
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 9)()
     err = _bwd_tiles_fn()(DTYPES[dtype], head_dim, out)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_tiles failed: cudaError_t {err}")
-    bq, bk, dq_smem, dq_blocks, kv_smem, kv_blocks = out
-    return {"block_q": bq, "block_k": bk,
-            "dq": {"smem_bytes": dq_smem, "blocks_per_sm": dq_blocks},
-            "dkdv": {"smem_bytes": kv_smem, "blocks_per_sm": kv_blocks}}
+    keys = ("tile_rows", "threads", "smem_bytes", "blocks_per_sm")
+    return {"block_rows": out[0], "dq": dict(zip(keys, out[1:5])),
+            "dkdv": dict(zip(keys, out[5:9]))}

@@ -25,7 +25,7 @@ def _check_ported(cfg: ModelConfig) -> None:
     # The audio and vision frontends would otherwise be dropped silently.
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.arch_id}: the {cfg.frontend} frontend is not "
-                                  "ported yet (ROADMAP Queue 1 item 10)")
+                                  "ported yet (ROADMAP Queue 1, 'Frontends and arch smoke')")
 
 
 class LM(nn.Module):

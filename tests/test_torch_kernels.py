@@ -677,6 +677,158 @@ def test_emulated_fully_masked_row_is_zero():
                                rtol=0, atol=ATOL["float32"])
 
 
+# -- the backward kernels' arithmetic, emulated on the CPU ---------------------------
+# Both backward kernels run their five products on the tensor cores.  The
+# dq kernel streams key tiles of one product (32 keys, 16 at fp32 hd 256):
+# S = Q K^T and dP = dO V^T, then dQ += dS K, each tile's share summed apart
+# and then added.  The dkdv kernel streams
+# each query tile of each query head of a kv head: S^T = K Q^T and
+# dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q, each share summed apart
+# and then added; a tile's chunks of 32 rows have warps of their own, whose
+# sums are added at the end.  fp32: every product 3xTF32.  bf16: S and dP exact bf16
+# products with fp32 sums; P and dS split into bf16 hi + lo against the
+# bf16 dO, Q and K.  The dkdv kernel's streamed tiles hold 64 rows of up
+# to 256 bytes, 32 of 512 and 16 of 1 KB (Cfg::BS), its products 32 rows.  The limits are the card's: normwise 1e-5
+# fp32 and 1.5e-2 bf16 (BWD_TOL).
+
+_BWD_EMULATION_CASES = {**_EMULATION_CASES, "MQA G=16 hd64": ((1, 48, 64, 16, 1, 64), {}, None)}
+
+
+def _bwd_tile(hd, dtype):
+    row_bytes = hd * (4 if dtype == torch.float32 else 2)
+    return 64 if row_bytes <= 256 else 32 if row_bytes == 512 else 16
+
+
+def _emulate_bwd(q, k, v, qp, kp, out, lse, dout, causal=True, window=None, softcap=None,
+                 scheme="split"):
+    """The backward kernels' arithmetic in fp32 on the CPU, tile by tile, with
+    their order of sums; scheme 'split' (3xTF32), 'tf32' (one TF32 product
+    a matmul) or 'bf16' (inputs bf16).  Returns (dq, dk, dv) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G, tile = H // K, _bwd_tile(hd, q.dtype)
+    scale = np.float32(1 / np.sqrt(hd))
+    d = qp[:, :, None] - kp[:, None, :]
+    ok = (kp[:, None, :] >= 0) & ((d >= 0) if causal else torch.ones_like(d, dtype=torch.bool))
+    if window is not None:
+        ok = ok & (d < window)
+    ok = ok[:, None]                                                   # (B,1,Sq,Sk)
+    qg, dog = (a.float().permute(0, 2, 1, 3).reshape(B, K, G, Sq, hd) for a in (q, dout))
+    kk, vk = (a.float().permute(0, 2, 1, 3) for a in (k, v))            # (B,K,Sk,hd)
+    L = lse.reshape(B, K, G, Sq)
+    D = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(B, K, G, Sq)
+
+    def prod(a, b):           # a product of two inputs
+        return a @ b if scheme == "bf16" else _tc_product(a, b, scheme)
+
+    def prod_left(pm, b):     # P or dS (fp32) times an input
+        if scheme != "bf16":
+            return _tc_product(pm, b, scheme)
+        hi = pm.to(torch.bfloat16).float()
+        return (pm - hi).to(torch.bfloat16).float() @ b + hi @ b
+
+    def probs_grads(s, dp, allowed, lse_, D_):
+        x = s * scale
+        if softcap:
+            th = torch.tanh(x / softcap)
+            x = th * softcap
+        p = torch.where(allowed, torch.exp(x - lse_), 0.0)
+        ds = p * (dp - D_)
+        if softcap:
+            ds = ds * (1 - th * th)
+        return p, ds * scale
+
+    # the dq kernel: key tiles of one product each
+    chunk = min(32, tile)
+    dq = torch.zeros((B, K, G, Sq, hd))
+    for k0 in range(0, Sk, chunk):
+        ks, vs = (a[:, :, None, k0:k0 + chunk] for a in (kk, vk))
+        s, dp = prod(qg, ks.transpose(-1, -2)), prod(dog, vs.transpose(-1, -2))
+        _, ds = probs_grads(s, dp, ok[:, :, None, :, k0:k0 + chunk], L[..., None], D[..., None])
+        dq = dq + prod_left(ds, ks)
+    # the dkdv kernel: query tiles of each head, in the kernel's order; each
+    # product (chunk) of a tile has its own warps, whose sums are added at the end
+    dk, dv = (torch.zeros((tile // chunk, B, K, Sk, hd)) for _ in range(2))
+    for q0 in range(0, Sq, tile):
+        for g in range(G):
+            for c in range(tile // chunk):
+                rows = slice(q0 + c * chunk, min(q0 + (c + 1) * chunk, Sq))
+                qs, dos = qg[:, :, g, rows], dog[:, :, g, rows]
+                st, dpt = prod(kk, qs.transpose(-1, -2)), prod(vk, dos.transpose(-1, -2))
+                pt, dst = probs_grads(st, dpt, ok[:, :, rows].transpose(-1, -2),
+                                      L[:, :, g, None, rows], D[:, :, g, None, rows])
+                dv[c] = dv[c] + prod_left(pt, dos)
+                dk[c] = dk[c] + prod_left(dst, qs)
+    dk, dv = dk.sum(0), dv.sum(0)
+    dq = dq.reshape(B, H, Sq, hd).permute(0, 2, 1, 3)
+    return tuple(a.to(q.dtype) for a in (dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)))
+
+
+def _bwd_emulation_case(name, dtype):
+    """Inputs of one case, the plain forward's output and LSE, dO, kwargs."""
+    shape, kw, edit = _BWD_EMULATION_CASES[name]
+    B, Sq, Sk, H, K, hd = shape
+    qp, kp = _positions(B, Sq, Sk, q0=Sk - Sq - 25 if edit == "offset" else None)
+    if edit == "holes":
+        kp[:, 20:50] = -1
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(11, B, Sq, Sk, H, K, hd))
+    qp, kp = torch.from_numpy(qp), torch.from_numpy(kp)
+    out, lse = pref.flash_attention_ref(q, k, v, qp, kp, return_lse=True, **kw)
+    dout = torch.from_numpy(np.random.default_rng(12).standard_normal(q.shape).astype(
+        np.float32)).to(dtype)
+    return (q, k, v, qp, kp, out, lse, dout), kw
+
+
+def _jax_grads(q, k, v, qp, kp, dout, **kw):
+    """jax.grad of repro's flash_attention_ref against dout, on the same values."""
+    jd = jnp.float32 if q.dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a.float().numpy()).astype(jd) for a in (q, k, v))
+    jdo = jnp.asarray(dout.float().numpy())
+    f = lambda q_, k_, v_: jnp.sum(jref.flash_attention_ref(
+        q_, k_, v_, jnp.asarray(qp.numpy()), jnp.asarray(kp.numpy()), **kw).astype(jnp.float32)
+        * jdo)
+    return [np.array(g, np.float32) for g in jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)]
+
+
+@pytest.mark.parametrize("name", list(_BWD_EMULATION_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emulated_backward_meets_the_card_limits(name, dtype):
+    """fp32 as 3xTF32, bf16 with P and dS split: within BWD_TOL of the
+    plain backward and of jax.grad of the JAX reference."""
+    args, kw = _bwd_emulation_case(name, getattr(torch, dtype))
+    emu = _emulate_bwd(*args, scheme="split" if dtype == "float32" else "bf16", **kw)
+    q, k, v, qp, kp, out, lse, dout = args
+    exp = pref.flash_attention_bwd_ref(*args, **kw)
+    jexp = _jax_grads(q, k, v, qp, kp, dout, **kw)
+    for g, e, je, t in zip(emu, exp, jexp, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert _normwise_t(g, e) <= BWD_TOL[dtype]
+        assert _normwise_t(g, torch.from_numpy(je)) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("name", ["causal hd64 GQA", "MQA G=16 hd64"])
+def test_single_tf32_product_backward_misses_the_fp32_limit(name):
+    """Why the backward splits too: one TF32 product a matmul is off by far
+    more than BWD_TOL in fp32, where the 3xTF32 scheme meets it."""
+    args, kw = _bwd_emulation_case(name, torch.float32)
+    exp = pref.flash_attention_bwd_ref(*args, **kw)
+    err_tf32 = max(_normwise_t(a, b) for a, b in zip(_emulate_bwd(*args, scheme="tf32", **kw), exp))
+    err_split = max(_normwise_t(a, b) for a, b in zip(_emulate_bwd(*args, **kw), exp))
+    assert err_tf32 > 10 * BWD_TOL["float32"]
+    assert err_split <= BWD_TOL["float32"]
+
+
+def test_emulated_backward_of_a_fully_masked_row_is_zero():
+    args, kw = _bwd_emulation_case("causal hd64 GQA", torch.float32)
+    q, k, v, qp, kp, _, _, dout = args
+    qp[1, 9] = -4                                    # before every key
+    out, lse = pref.flash_attention_ref(q, k, v, qp, kp, return_lse=True)
+    dq, dk, dv = _emulate_bwd(q, k, v, qp, kp, out, lse, dout)
+    assert torch.isinf(lse[1, :, 9]).all() and torch.count_nonzero(dq[1, 9]) == 0
+    for g, e in zip((dq, dk, dv), pref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout)):
+        assert _normwise_t(g, e) <= BWD_TOL["float32"]
+
+
 # -- on the card -------------------------------------------------------------------
 
 @pytest.fixture()
@@ -861,6 +1013,10 @@ def test_flash_attention_fn_matches_autograd_of_plain_on_card(cuda_device, dtype
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_tile_config_fits_the_card(cuda_device, dtype, hd):
     cfg = pfa.bwd_tile_config(getattr(torch, dtype), hd)
-    assert cfg["block_q"] in (32, 64) and cfg["block_k"] in (16, 32, 64)
+    # 16 rows a warp, hd/64 warps of four sharing them
+    assert cfg["block_rows"] == 64 * 64 // hd
     for kernel in ("dq", "dkdv"):
-        assert 0 < cfg[kernel]["smem_bytes"] <= 232448 and cfg[kernel]["blocks_per_sm"] >= 1
+        k = cfg[kernel]
+        assert k["tile_rows"] in (16, 32, 64) and k["threads"] in (128, 256)
+        assert 0 < k["smem_bytes"] <= 232448 and k["blocks_per_sm"] >= 1
+    assert cfg["dq"]["blocks_per_sm"] >= 2
