@@ -32,6 +32,22 @@ non-zero exit:
    first step's gradient of every parameter and the four losses within
    stated limits; the steady step time, tokens/s, peak device memory and a
    trace of one warm step.
+3b. sweep: the paper's workload, ``repro_torch.launch.tune`` in-process on
+   smollm-135m at full width (fp32, batch 8, sequence 512): ASHA (max_t 4,
+   grace 1, reduction 3) over 4 samples of the launcher's space, seed 0, 2
+   steps an iteration, on the serial executor with 4 trials resident (8
+   virtual devices, 2 a trial), traced, with a log directory (each
+   iteration's checkpoint spills and is mirrored to disk under a temp
+   directory).  Every launch count set to 0 just
+   before and read just after: K1's forward and backward each 30 times the
+   steps run.  Every trial must end TERMINATED, and the device memory in
+   use must come back within 64 MiB.  Printed: trials finished, wall time,
+   trials/hour, each trial's iterations and first and steady step, the
+   trace's spans and the control plane's share of the wall time (1 - trial
+   steps / wall), peak memory.  Then the first trial's config alone on the
+   process executor (FIFO, 2 iterations), in a worker forked from the port's
+   own forkserver: its losses within the train phase's loss limit of the
+   serial trial's, its first step (a fresh CUDA context) printed.
 4. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
    32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
    granite-moe-3b-a800m, one model resident at a time.  Every launch count
@@ -1131,6 +1147,146 @@ def run_train(card: str, torch, ops, dev) -> dict:
             "peak_bytes": peak, "grad_rel_err": grad_err, "loss_rel_err": max(loss_err)}
 
 
+# The sweep phase (3b): the paper's workload, an ASHA sweep of TRAIN_ARCH at
+# full width through ``repro_torch.launch.tune`` on the serial executor, 4
+# trials resident at once (8 virtual devices, 2 a trial); then the first
+# trial's config alone on the process executor for SWEEP_PROCESS_ITERS
+# iterations, in a worker forked from the port's own forkserver, so CUDA
+# starts fresh there.  Its losses must be the serial trial's at the same
+# iterations within TRAIN_LOSS_TOL (same weights, data and kernels), and the
+# device memory in use after the sweep within SWEEP_MEM_SLACK of before it:
+# a stopped trial holds none.
+SWEEP_ARGS = ("--arch", TRAIN_ARCH, "--scheduler", "asha", "--num-samples", "4",
+              "--max-iters", "4", "--batch", str(B), "--seq-len", str(S),
+              "--steps-per-iter", "2", "--executor", "serial", "--total-devices", "8",
+              "--devices-per-trial", "2", "--seed", "0", "--device", "cuda")
+SWEEP_PROCESS_ITERS = 2
+SWEEP_MEM_SLACK = 64 * 2**20
+
+
+def sweep_spans(events) -> dict:
+    """{span name: (count, seconds)} of a control-plane trace's complete
+    events (Chrome trace-event JSON, microseconds)."""
+    out = {}
+    for e in events:
+        if e.get("ph") == "X":
+            n, s = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, s + e["dur"] / 1e6)
+    return out
+
+
+def run_sweep(card: str, torch, ops) -> dict:
+    """Phase 3b: the sweep, with every launch count set to 0 just before and
+    read just after, its trace's summary, and the process trial."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import tune
+
+    args = tune.parser().parse_args(SWEEP_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # A log directory gives the object store a spill surface and mirrors
+    # every checkpoint to disk: at full width one checkpoint (parameters and
+    # two AdamW moments, 1.6 GB) is most of the store's 2 GiB, and without
+    # one the second is refused.
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "sweep_trace.json")
+        for name in KERNELS:
+            getattr(ops, name).launches = 0
+        t0 = time.perf_counter()
+        analysis = tune.main([*SWEEP_ARGS, "--trace", trace_path,
+                              "--log-dir", os.path.join(tmp, "sweep")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(ops, name).launches for name in KERNELS}
+        with open(trace_path) as f:
+            spans = sweep_spans(json.load(f)["traceEvents"])
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        peak = torch.cuda.max_memory_allocated()
+        proc = run_process_trial(args, analysis.trials[0], os.path.join(tmp, "process"))
+    trials = analysis.trials
+    steps = sum(t.training_iteration for t in trials) * args.steps_per_iter
+    n_attn = sum(t in ("attention", "local_attn")
+                 for t in tune.sweep_model(args).pattern_for_layers())
+    finished = sum(t.status.value == "TERMINATED" for t in trials)
+    step_s = spans.get("step", (0, 0.0))[1]
+    log(f"[sweep] {TRAIN_ARCH} ASHA sweep ({' '.join(SWEEP_ARGS)}): {finished} of "
+        f"{len(trials)} trials finished in {wall!r} s wall, {finished * 3600 / wall!r} "
+        f"trials/hour {card}")
+    for t in trials:
+        p = t.profile or {}
+        log(f"[sweep]   {t.trial_id} {t.status.value}: {t.training_iteration} iterations, "
+            f"steady step {p.get('steady_step_s')!r} s, first step {p.get('first_step_s')!r} s, "
+            f"losses {[r.metrics['loss'] for r in t.results]} {card}")
+        if t.error:
+            log(f"[sweep]   {t.trial_id} error: {t.error}")
+    for name, (n, s) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
+        log(f"[sweep]   trace span {name}: {n} spans, {s!r} s {card}")
+    log(f"[sweep] control plane's share of the sweep's wall time, 1 - (trial-step spans "
+        f"{step_s!r} s) / (wall {wall!r} s): {1 - step_s / wall!r} {card}")
+    log(f"[sweep] kernel launches on the sweep's path: {launches} ({steps} steps in the "
+        f"parent; {n_attn} attention layers a step); {free_gb:.1f} GB left on the log "
+        f"directory's disk at the sweep's end")
+    assert finished == len(trials) == 4, "every trial of the sweep must end TERMINATED"
+    expect = {name: 0 for name in KERNELS}
+    expect.update(flash_attention=n_attn * steps, flash_attention_bwd=n_attn * steps)
+    assert launches == expect, f"sweep: expected {expect} launches"
+    first = trials[0]
+    serial_losses = {r.training_iteration: r.metrics["loss"] for r in first.results}
+    del analysis, trials, t
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    log(f"[sweep] device memory: peak {peak / 2**20:.1f} MiB; allocated before the sweep "
+        f"{before / 2**20:.1f} MiB, after {after / 2**20:.1f} MiB {card}")
+    assert abs(after - before) <= SWEEP_MEM_SLACK, "a stopped trial still holds device memory"
+
+    log(f"[sweep] process trial {proc['config']}: {proc['iterations']} iterations in "
+        f"{proc['wall_s']!r} s wall (forkserver, CUDA context, model and kernel loads "
+        f"included); first step {proc['first_step_s']!r} s, steady step "
+        f"{proc['steady_step_s']!r} s {card}")
+    gaps = {i: abs(loss - serial_losses[i]) / max(1.0, abs(serial_losses[i]))
+            for i, loss in proc["losses"].items() if i in serial_losses}
+    log(f"[sweep] process trial losses {proc['losses']} against the serial trial's "
+        f"{serial_losses}: differences over max(1, |loss|) {gaps} (tol {TRAIN_LOSS_TOL}) {card}")
+    assert gaps and max(gaps.values()) <= TRAIN_LOSS_TOL, f"process trial's losses differ: {gaps}"
+    return {"launches": launches, "wall_s": wall, "trials_per_hour": finished * 3600 / wall,
+            "control_plane_share": 1 - step_s / wall, "peak_bytes": peak,
+            "process_first_step_s": proc["first_step_s"], "process_loss_gap": max(gaps.values())}
+
+
+def run_process_trial(args, trial, log_dir: str) -> dict:
+    """``trial``'s config alone on the process executor under FIFO, for
+    SWEEP_PROCESS_ITERS iterations of the sweep's workload."""
+    from repro_torch.core import FIFOScheduler, Resources, run_experiments
+    from repro_torch.dist.submesh import SlicePool
+    from repro_torch.launch import tune
+    from repro_torch.train.trainable import model_trainable_factory
+
+    hp = {k: v for k, v in trial.config.items() if not k.startswith("_")}
+    factory = model_trainable_factory(tune.sweep_model(args), **tune.workload(args))
+    t0 = time.perf_counter()
+    # No checkpoints: the sweep measured them, and this trial is here for
+    # its fresh CUDA context and its losses.
+    run = run_experiments(factory, hp, scheduler=FIFOScheduler(metric="loss", mode="min"),
+                          stop={"training_iteration": SWEEP_PROCESS_ITERS},
+                          resources_per_trial=Resources(cpu=1, devices=args.devices_per_trial),
+                          total_devices=args.total_devices,
+                          slice_pool=SlicePool(n_virtual=args.total_devices),
+                          executor="process", checkpoint_freq=0, log_dir=log_dir, seed=0)
+    wall = time.perf_counter() - t0
+    (pt,) = run.trials
+    assert pt.status.value == "TERMINATED", f"process trial: {pt.status.value} {pt.error}"
+    p = pt.profile or {}
+    return {"config": hp, "iterations": pt.training_iteration, "wall_s": wall,
+            "first_step_s": p.get("first_step_s"), "steady_step_s": p.get("steady_step_s"),
+            "losses": {r.training_iteration: r.metrics["loss"] for r in pt.results}}
+
+
 def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_config,
              leaves):
     """Serve ``arch`` at full width with every launch count set to 0 just
@@ -1495,6 +1651,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 3b. an ASHA sweep of it through launch.tune, and one trial in a worker process ------
+    sweep = run_sweep(card, torch, ops)
+    per_path[f"{TRAIN_ARCH} sweep"] = sweep["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 4 and 5. serve each model at full width, then its times -----------------------------------
     for arch in ARCHS:
         per_path[arch] = run_path(arch, card, torch, ops, serve, prefill, decode_step,
@@ -1578,7 +1740,8 @@ def main() -> int:
         library_kernels=k1b["library_kernels"],
         shapes={label: {key: val for key, val in r.items() if key != "bound"}
                 for label, r in attn_bwd.items()},
-        train_step={key: val for key, val in train.items() if key != "launches"})
+        train_step={key: val for key, val in train.items() if key != "launches"},
+        sweep={key: val for key, val in sweep.items() if key != "launches"})
     log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "
         f"{PROFILER['unmeasured']} measurements with no whole session (not measured)")
     print(json.dumps({"kernels": kernels}))

@@ -10,12 +10,12 @@ takes seconds, not minutes.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -64,8 +64,25 @@ def source_digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+# One lock a library name: threads of one process that reach a kernel first
+# at the same moment build it once (the concurrent executor's trials do).
+_LOCKS: dict = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+def _lock(name: str) -> threading.Lock:
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(name, threading.Lock())
+
+
 def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same hash exists;
+    one thread at a time for a name."""
+    with _lock(name):
+        return _build(name)
+
+
+def _build(name: str) -> BuildInfo:
     src = CSRC_DIR / f"{name}.cu"
     digest = source_digest(src)
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
@@ -74,7 +91,9 @@ def build(name: str) -> BuildInfo:
         log = log_path.read_text() if log_path.exists() else ""
         return BuildInfo(lib, log, 0.0, True)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    # pid and thread id: no two builders, in this process or another, share
+    # a temp file
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -88,7 +107,13 @@ def build(name: str) -> BuildInfo:
     return BuildInfo(lib, log, seconds, False)
 
 
-@functools.lru_cache(maxsize=None)
+_LIBS: dict = {}
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; one load per process."""
-    return ctypes.CDLL(str(build(name).path))
+    """Build (if needed) and load ``csrc/<name>.cu``; one load per process,
+    under the name's lock."""
+    with _lock(name):
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(_build(name).path))
+        return _LIBS[name]

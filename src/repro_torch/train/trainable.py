@@ -29,7 +29,7 @@ from ..models import LM, ModelConfig, param_count
 from .optimizer import adamw, linear_warmup_cosine, sgd
 from .train_step import TrainState, make_train_state, make_train_step
 
-__all__ = ["ModelTrainable", "make_model_trainable"]
+__all__ = ["ModelTrainable", "make_model_trainable", "model_trainable_factory"]
 
 _BF16 = "bfloat16"
 
@@ -207,3 +207,20 @@ def make_model_trainable(model_cfg: ModelConfig, **workload) -> type:
 
     Bound.__name__ = f"ModelTrainable[{model_cfg.arch_id}]"
     return Bound
+
+
+def model_trainable_factory(model_cfg: ModelConfig, **workload):
+    """Spawn-safe recipe for ``make_model_trainable`` — process workers rebuild
+    the bound class in the child by re-importing this module and calling
+    ``make_model_trainable(model_cfg, **workload)`` there (the class returned
+    by ``make_model_trainable`` itself is function-local, so it cannot be
+    pickled across a spawn boundary).  ``model_cfg`` and the workload kwargs,
+    ``device`` among them, ride along as pickled plain data."""
+    from ..core.workers import TrainableFactory
+
+    return TrainableFactory(
+        # this package's module: the original's target names the JAX one
+        target="repro_torch.train.trainable:make_model_trainable",
+        kwargs={"model_cfg": model_cfg, **workload},
+        call=True,
+    )

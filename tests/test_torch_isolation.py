@@ -1,7 +1,10 @@
 """The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py, imports ``jax`` or anything of ``repro``."""
+chip_smoke.py, imports ``jax`` or anything of ``repro``, or names such a
+module in a string (a forkserver preload, a ``"module:attr"`` factory
+target), where no import statement shows it."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# A string that is a dotted module name, optionally with ":attr".
+MODULE_STRING = re.compile(r"[A-Za-z_]\w*(\.\w+)*(:[\w.]+)?")
 
 
 def _imports(path: Path):
@@ -36,12 +41,22 @@ def _imports(path: Path):
                 yield node.args[0].value
 
 
+def _module_strings(path: Path):
+    """String constants that name a module: ``"a.b"`` or ``"a.b:attr"``."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if "." in node.value or ":" in node.value:
+                if MODULE_STRING.fullmatch(node.value):
+                    yield node.value
+
+
 def test_the_scan_sees_every_file():
     assert (ROOT / "chip_smoke.py").exists()
     names = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
     assert {"kernels/ops.py", "kernels/rwkv6_scan.py", "kernels/rglru_scan.py",
             "kernels/moe_router.py", "models/layers.py", "models/rwkv6.py",
-            "models/rglru.py", "models/moe.py", "launch/serve.py"} <= names
+            "models/rglru.py", "models/moe.py", "launch/serve.py",
+            "core/workers.py", "core/experiment.py", "launch/tune.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -51,8 +66,27 @@ def test_no_jax_or_repro_import(path):
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
 
 
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_string_names_a_jax_or_repro_module(path):
+    for name in _module_strings(path):
+        top = re.split(r"[.:]", name)[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} names the module {name!r}"
+
+
+@pytest.mark.parametrize("text,names", [
+    ('ctx.set_forkserver_preload(["repro.core.workers"])', ["repro.core.workers"]),
+    ('T(target="repro.train.trainable:make_model_trainable")',
+     ["repro.train.trainable:make_model_trainable"]),
+    ('"""Docs that mention repro.core."""\nx = "a sentence. Not a module"', []),
+])
+def test_the_string_scan_finds_module_names(tmp_path, text, names):
+    (tmp_path / "m.py").write_text(text)
+    assert list(_module_strings(tmp_path / "m.py")) == names
+
+
 def test_serve_import_loads_neither_jax_nor_repro():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert, "
+            "repro_torch.launch.tune; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -319,6 +319,48 @@ def test_every_kernel_source_has_its_own_hash():
     assert len({_build.source_digest(_build.CSRC_DIR / f"{n}.cu") for n in names}) == 5
 
 
+def test_threads_that_reach_a_kernel_together_build_it_once(tmp_path, monkeypatch):
+    """The concurrent executor's trials reach a kernel first in several
+    threads of one process at once: one compile, and every thread gets the
+    library.  The stub compiler logs each call and writes its ``-o`` file
+    slowly, so threads that were not held back would overlap."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import _build
+    calls = tmp_path / "calls"
+    stub = tmp_path / "nvcc"
+    stub.write_text(f"#!{sys.executable}\n"
+                    "import sys, time\n"
+                    f"open({str(calls)!r}, 'a').write('x')\n"
+                    "out = sys.argv[sys.argv.index('-o') + 1]\n"
+                    "time.sleep(0.3)\n"
+                    "open(out, 'w').write('lib')\n")
+    stub.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(stub))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    results, errors = [], []
+    start = threading.Barrier(4)
+
+    def reach():
+        start.wait()
+        try:
+            results.append(_build.build("rglru_scan"))
+        except Exception as e:   # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=reach) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert calls.read_text() == "x"
+    assert len({r.path for r in results}) == 1 and sum(not r.cached for r in results) == 1
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [results[0].path.name, results[0].path.with_suffix(".log").name])
+
+
 def _load_chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
