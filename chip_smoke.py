@@ -8,7 +8,7 @@ Phases, in order; any failure ends the run with its traceback and a
 non-zero exit:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-   build the five CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
+   build the seven CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` each, all started together) and print ptxas' reports; K1's
    tiles, shared memory and blocks an SM for each (dtype, head_dim), and the
    HMMA (tensor-core) instructions in each of its kernels' SASS; the same
@@ -19,12 +19,15 @@ non-zero exit:
    parallelism, tied router rows, bf16), with stated tolerances; K1's
    backward against its plain version at the forward's cases, fp32 and
    bf16, two runs of it bit for bit, and ``FlashAttentionFn`` against
-   autograd of the plain forward.
+   autograd of the plain forward; the same for K2's and K3's backwards at
+   the training shapes and edge cases (a ragged last chunk, an initial
+   state, a final-state gradient), with ``RWKV6ScanFn`` and ``RGLRUScanFn``.
    Then K4's times: at granite-moe's prefill and decode shapes and
    deepseek-moe's, its device time a launch, the wrapper's time a call
    paced by the host, the bound, and beside them the card's launch floor
    (a one-element fill kernel's device time, a one-element in-place op's
-   time a call).
+   time a call); K2's and its backward's kernels: registers, shared memory,
+   blocks an SM and device ms.
 3. train: ``repro_torch.launch.train`` at full width on smollm-135m (fp32,
    batch 8, sequence 512, 4 steps), every launch count set to 0 just before
    and read just after (30 K1 forwards and 30 K1 backwards a step); the
@@ -48,6 +51,18 @@ non-zero exit:
    process executor (FIFO, 2 iterations), in a worker forked from the port's
    own forkserver: its losses within the train phase's loss limit of the
    serial trial's, its first step (a fresh CUDA context) printed.
+3c. train the ssm and hybrid families through ``repro_torch.launch.train``
+   at full width, fp32, batch 8, sequence 512, 3 steps each: rwkv6-1.6b at
+   full depth (24 K2 forwards and backwards a step), then recurrentgemma-9b
+   cut to 3 of its 38 layers (2 K3 and 1 K1 backwards a step, and twice as
+   many forwards under its remat), each with every launch count set to 0
+   just before and read just after; the steady step time, tokens/s, peak
+   memory and a trace of one warm step; the plain path (``attn_impl=
+   "naive"``, ``kernel_impl="jnp"``, remat) on the same weights and
+   batches: the first step's gradients and the losses within stated
+   limits.  On rwkv6, both paths' first-step gradients against the plain
+   path in float64, and K2's gradients on the model's own inputs against
+   float64, within 2x the plain chunked scan's distance.
 4. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
    32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
    granite-moe-3b-a800m, one model resident at a time.  Every launch count
@@ -76,7 +91,9 @@ non-zero exit:
    and each of its two kernels is reported: registers and spills, shared
    memory, blocks an SM and device time.  K1's backward is timed at K1's
    three shapes in fp32 and bf16, beside its plain version, the backward
-   of ``scaled_dot_product_attention`` and both of its bounds.
+   of ``scaled_dot_product_attention`` and both of its bounds.  K2's and
+   K3's backwards are timed at the training shapes beside their plain
+   versions and bounds.
 
 Every ``torch.profiler`` session keeps 50 ms of idle at each end, and one
 that comes back with no kernel record, or with fewer records of this repo's
@@ -108,15 +125,25 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
-KERNELS = ("flash_attention", "flash_attention_bwd", "rwkv6_scan", "rglru_scan", "moe_router")
-# CUDA kernels a wrapper call launches and the prefix of their names: K1's
+KERNELS = ("flash_attention", "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
+           "rglru_scan", "rglru_scan_bwd", "moe_router")
+# CUDA kernels a wrapper call launches and what their names hold: K1's
 # backward runs its dq kernel, then its dkdv kernel; K2 its chunk-states
-# kernel, then its outputs kernel.
+# kernel, then its outputs kernel; K2's backward its reverse chunk-states
+# kernel, its grads kernel and its du kernel.
 KERNELS_PER_CALL = {"flash_attention": 1, "flash_attention_bwd": 2, "rwkv6_scan": 2,
-                    "rglru_scan": 1, "moe_router": 1}
-KERNEL_PREFIX = {"flash_attention": "flash_attention_fwd_",
-                 "flash_attention_bwd": "flash_attention_bwd_", "rwkv6_scan": "rwkv6_scan_",
-                 "rglru_scan": "rglru_scan_", "moe_router": "moe_router_"}
+                    "rwkv6_scan_bwd": 3, "rglru_scan": 1, "rglru_scan_bwd": 1, "moe_router": 1}
+KERNEL_PREFIX = {"flash_attention": ("flash_attention_fwd_",),
+                 "flash_attention_bwd": ("flash_attention_bwd_",),
+                 "rwkv6_scan": ("rwkv6_scan_states_kernel", "rwkv6_scan_outputs_kernel"),
+                 "rwkv6_scan_bwd": ("rwkv6_scan_bwd_",),
+                 "rglru_scan": ("rglru_scan_kernel",), "rglru_scan_bwd": ("rglru_scan_bwd_kernel",),
+                 "moe_router": ("moe_router_",)}
+
+
+def ours(name: str, key: str) -> bool:
+    """Whether the profiler's kernel ``key`` is one of ``name``'s kernels."""
+    return any(p in key for p in KERNEL_PREFIX[name])
 # torch.profiler: idle kept inside every session before the first launch and
 # after the last synchronise (on an H100, with none about 1 session in 100
 # came back with no kernel record or with some dropped; with 50 ms at each
@@ -196,7 +223,7 @@ def trace_summary(records, wall_us: float, calls: dict) -> dict:
     too, so busy time is then a lower bound and the idle share an upper
     bound (``dropped``); ``profiled`` profiles such a session again."""
     busy_us = sum(us for _, _, us in records)
-    kept = {n: sum(c for key, c, _ in records if KERNEL_PREFIX[n] in key) for n in calls}
+    kept = {n: sum(c for key, c, _ in records if ours(n, key)) for n in calls}
     expected = {n: calls[n] * KERNELS_PER_CALL[n] for n in calls}
     return {"busy_us": busy_us, "idle_share": 1 - busy_us / wall_us, "kept": kept,
             "expected": expected, "dropped": any(kept[n] < expected[n] for n in calls)}
@@ -304,9 +331,9 @@ def trace(name: str, fn, card: str, ops) -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(trace_head(name, wall_us, records, calls, card))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TRACE_TOP]
-    ours = [e for e in kernels if e not in top and (any(p in e.key for p in KERNEL_PREFIX.values())
+    repo = [e for e in kernels if e not in top and (any(ours(n, e.key) for n in KERNELS)
                                                     or any(n in e.key for n in TRACE_ALSO))]
-    for e in top + ours:   # the top kernels, then this repo's kernels and TRACE_ALSO below them
+    for e in top + repo:   # the top kernels, then this repo's kernels and TRACE_ALSO below them
         log(f"[trace]   {e.self_device_time_total / 1e3:10.4f} ms  {e.count:5d}x  "
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
 
@@ -463,6 +490,49 @@ def rglru_bound(a, b, h0=None):
     """Least time for h_t = a_t h_{t-1} + b_t: 2 flops per element; a and b
     (and h0) read once, h written once."""
     return _bound(2 * a.numel(), _nbytes(a, b, h0, a))
+
+
+def rwkv6_bwd_bound(r, k, v, logw, u, state, dy, ds_out=None, chunk=32):
+    """Least time for the WKV scan's backward on this card.  Operations, per
+    (b, h) and chunk of n rows with P = n(n-1)/2 pairs below the diagonal
+    (a multiply, add or exponential is one, all fp32), each needed once:
+    running sums 2nN; k e^{cL-c} 3nN and r e^{ce} 2nN; for each pair and
+    channel one difference and one exponential e^{ce_t-c_s}, shared by A,
+    dr and dk, and two products and a sum for each of the three: 11N a
+    pair; A on the diagonal 3N a row; dA 2N an entry at or below it; S dy
+    and dS' v 2nN^2 each, their factors 2nN and 3nN; A^T dy 2N an entry and
+    (k e^{cL-c}) dS' 2nN^2; dr, dk and dv summed 9nN; rho, kappa and the
+    partials of sigma and du 9nN; sigma's S (.) dS' 2N^2 + 2N; dlogw's
+    running sum 2nN; the state's gradient 2nN^2 + 2N^2 + N.  Bytes: each
+    input (dy and ds_out among them) read once, each gradient written once.
+    Then the bound with the four N^2 products (S dy, dS' v, (k e^{cL-c})
+    dS' and the state's gradient) on the tensor cores as 3xTF32 (3 x their
+    operations over the TF32 peak) and the rest on the CUDA cores: the
+    larger of the two units' times, or bytes.  Returns (ms, bound_by,
+    flops, bytes, tensor-core ms, its bound_by)."""
+    B, S, H, N = r.shape
+    L = min(chunk, S)
+    ops = mm = 0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        P = n * (n - 1) // 2
+        mm += 4 * 2 * n * N * N
+        ops += (2 * n * N + 3 * n * N + 2 * n * N + 11 * N * P + 3 * N * n + 2 * N * (P + n)
+                + 2 * n * N + 3 * n * N + 2 * N * (P + n) + 9 * n * N + 9 * n * N
+                + 2 * N * N + 2 * N + 2 * n * N + 2 * N * N + N)
+    nbytes = _nbytes(r, k, v, logw, u, state, dy, ds_out) + _nbytes(r, k, v, logw, u, state)
+    tc = max(B * H * ops / PEAK_FP32_FLOPS, 3.0 * B * H * mm / PEAK_TF32_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return _bound(B * H * (ops + mm), nbytes) + (max(tc, t_bytes) * 1e3,
+                                                 "operations" if tc >= t_bytes else "bytes")
+
+
+def rglru_bwd_bound(a, h0, h, dh):
+    """Least time for the RG-LRU scan's backward: 3 flops an element (g =
+    dh + a g, da = g h) and 2 for each lane's dh0; a, h, dh (and h0) read
+    once, da and db (and dh0) written once."""
+    return _bound(3 * a.numel() + (2 * h0.numel() if h0 is not None else 0),
+                  _nbytes(a, h, dh, h0) + 2 * _nbytes(a) + _nbytes(h0))
 
 
 def moe_router_bound(logits, top_k):
@@ -650,6 +720,38 @@ def report_k2_build(torch, ops, rw, nvcc: str, lib: Path, build_log: str, card: 
                 f"SASS (instructions, MUFU.EX2, LDS) {code[0][0]}, the innermost loop with the "
                 f"most exponentials {loop}; {out[name][pas]!r} ms device time a call at B=8 "
                 f"S=512 H=32 N=64 L=32 {card}")
+    return out
+
+
+def report_k2_bwd_build(torch, ops, rw, build_log: str, card: str) -> dict:
+    """For each of the kernels of K2's backward (``rw.BWD_PASSES``) and
+    dtype: registers and spills (ptxas), dynamic shared memory and blocks an
+    SM (the card), and device ms a call at the training shape
+    (``device_kernels``, B=8 S=512 H=32 N=64 L=32, no final-state
+    gradient).  Returns {dtype: {pass: ms}}."""
+    ptx = ptxas_kernels(build_log)
+    dev = torch.device("cuda", 0)
+    out = {}
+    for dtype, tag in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
+        name = str(dtype)[6:]
+        r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 700, 8, 512, 32, 64, dtype)
+        s0.zero_()
+        dy, _ = rwkv_cotangents(torch, dev, 750, r, s0, dtype)
+        states = rw.rwkv6_scan_cuda(r, k, v, logw, u, s0, return_states=True)[2]
+        found = device_kernels(torch, f"rwkv6_scan_bwd {name} kernels",
+                               lambda: ops.rwkv6_scan_bwd(r, k, v, logw, u, s0, states, dy))
+        occ = rw.bwd_occupancy(dtype, 32)
+        out[name] = {}
+        for pas in rw.BWD_PASSES:
+            kernel = f"rwkv6_scan_bwd_{pas}_kernel"
+            regs = [c for fn, c in ptx.items() if kernel in fn and (pas == "du" or f"I{tag}E" in fn)]
+            assert len(regs) == 1, f"no single {kernel} for {name}"
+            out[name][pas] = None if found is None else per_call_ms(found, 10, kernel)
+            assert out[name][pas] is None or out[name][pas] > 0, f"no device time for {kernel}"
+            log(f"[build] rwkv6_scan_bwd {pas} kernel {name}: {regs[0]}, "
+                f"{occ[pas]['smem_bytes']} B of dynamic shared memory (L=32), "
+                f"{occ[pas]['blocks_per_sm']} blocks an SM; {out[name][pas]!r} ms device time a "
+                f"call at B=8 S=512 H=32 N=64 L=32 {card}")
     return out
 
 
@@ -880,6 +982,134 @@ def check_rglru(torch, dev, ops, ref) -> float:
     return main_err
 
 
+# K2's and K3's backwards against their plain versions (autograd of the
+# sequential fp32 recurrence; K3's written out), normwise, max |kernel -
+# plain| over max(1, max |plain|) for each gradient.  The two take their fp32
+# sums in other orders (chunks against steps for K2).  On an H100, K2 at most
+# 1.0e-6 in fp32 (du at the training shape, a sum over 8 x 512 steps) and
+# 3.6e-3 with bf16 r/k/v (about one bf16 ulp of dr): 1e-5 and 1.5e-2, K1's
+# backward's limits; RWKV6ScanFn against autograd of the plain forward at
+# most 3.9e-7.  K3 at most 9.5e-7 (RGLRUScanFn 1.9e-6): 1e-5, the RG-LRU
+# tolerance of tests/test_kernels.py.
+K2_BWD_TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
+K3_BWD_TOL = 1e-5
+RWKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "dstate")
+
+
+def rwkv_cotangents(torch, dev, seed, r, state, dtype):
+    """dy (in r/k/v's dtype) and ds_out (fp32) for a backward check."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(r.shape, generator=g, device=dev).to(dtype),
+            torch.randn(state.shape, generator=g, device=dev))
+
+
+def check_rwkv6_bwd(torch, dev, ops, ref, rw) -> float:
+    """K2's backward (``ops.rwkv6_scan_bwd``) against
+    ``ref.rwkv6_scan_bwd_ref`` at the training shape and edge cases (a
+    ragged last chunk, an initial state, a final-state gradient), fp32 and
+    bf16, and against a second run of itself, bit for bit; then
+    ``RWKV6ScanFn`` (``ops.rwkv6_scan`` on tensors that need a gradient)
+    against autograd of the plain forward.  Returns the max abs error over
+    the gradients at the training shape, fp32."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, (B, S, H, N), chunk, dtype, zero initial state, final-state gradient
+        ("rwkv6-1.6b train fp32", (8, 512, 32, 64), 32, f32, True, False),
+        ("rwkv6-1.6b train bf16", (8, 512, 32, 64), 32, bf16, True, False),
+        ("train shape, initial state and final-state gradient", (8, 512, 32, 64), 32, f32,
+         False, True),
+        ("ragged S=50 L=32", (2, 50, 32, 64), 32, f32, False, True),
+        ("ragged S=50 L=32 bf16", (2, 50, 32, 64), 32, bf16, False, True),
+        ("one row in the last chunk", (1, 33, 4, 64), 16, f32, False, True),
+        ("one chunk shorter than L", (2, 20, 4, 64), 32, f32, False, True),
+        ("chunks are all the parallelism", (1, 2051, 2, 64), 32, f32, False, False),
+    ]
+    main_err = None
+    for i, (name, shape, chunk, dtype, zero, with_ds) in enumerate(cases):
+        r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 700 + i, *shape, dtype)
+        if zero:
+            s0.zero_()
+        dy, ds_out = rwkv_cotangents(torch, dev, 750 + i, r, s0, dtype)
+        ds_out = ds_out if with_ds else None
+        states = rw.rwkv6_scan_cuda(r, k, v, logw, u, s0, chunk=chunk, return_states=True)[2]
+        got = ops.rwkv6_scan_bwd(r, k, v, logw, u, s0, states, dy, ds_out, chunk=chunk)
+        again = ops.rwkv6_scan_bwd(r, k, v, logw, u, s0, states, dy, ds_out, chunk=chunk)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{name}: two runs differ"
+        exp = ref.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, dy, ds_out)
+        assert [a.dtype for a in got] == [a.dtype for a in exp], name
+        assert all(bool(torch.isfinite(a.float()).all()) for a in got), f"{name}: non-finite"
+        errs = {n: max_err(a, b) for n, a, b in zip(RWKV_GRADS, got, exp)}
+        rels = {n: normwise(a, b) for n, a, b in zip(RWKV_GRADS, got, exp)}
+        tol = K2_BWD_TOL[str(dtype)[6:]]
+        log(f"[kernel] rwkv6_scan_bwd {name} (B,S,H,N)={shape} L={chunk} {dtype}: max_abs_err "
+            f"{errs}, over max(1, max |g|) {rels} (tol {tol})")
+        assert max(rels.values()) <= tol, f"{name}: {rels} > {tol}"
+        if i == 0:
+            main_err = max(errs.values())
+    for dtype in (f32, bf16):
+        r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 780, 2, 100, 32, 64, dtype)
+        dy, ds_out = rwkv_cotangents(torch, dev, 781, r, s0, dtype)
+        xs = [x.clone().requires_grad_() for x in (r, k, v, logw, u, s0)]
+        torch.autograd.backward(ops.rwkv6_scan(*xs), [dy, ds_out])
+        xr = [x.detach().float().requires_grad_() for x in (r, k, v, logw, u, s0)]
+        torch.autograd.backward(ref.rwkv6_scan_ref(*xr), [dy.float(), ds_out])
+        torch.cuda.synchronize()
+        rels = {n: normwise(a.grad, b.grad) for n, a, b in zip(RWKV_GRADS, xs, xr)}
+        tol = K2_BWD_TOL[str(dtype)[6:]]
+        log(f"[kernel] RWKV6ScanFn (B,S,H,N)=(2, 100, 32, 64) {dtype} vs autograd of the plain "
+            f"forward (fp32): over max(1, max |g|) {rels} (tol {tol})")
+        assert all(a.grad.dtype == a.dtype for a in xs), "a gradient in another dtype"
+        assert max(rels.values()) <= tol, f"RWKV6ScanFn {dtype}: {rels} > {tol}"
+    return main_err
+
+
+def check_rglru_bwd(torch, dev, ops, ref) -> float:
+    """K3's backward (``ops.rglru_scan_bwd``) against
+    ``ref.rglru_scan_bwd_ref`` at the training shape and edge cases, and
+    against a second run of itself, bit for bit; then ``RGLRUScanFn``
+    against autograd of the plain forward.  Returns the max abs error at
+    the training shape."""
+    cases = [  # name, (B, S, R), with h0
+        ("recurrentgemma-9b train, h0=None", (8, 512, 4096), False),
+        ("recurrentgemma-9b train shape, h0", (8, 512, 4096), True),
+        ("odd sizes", (3, 77, 40), True),
+        ("S < 8, R not a multiple of 128", (2, 5, 300), False),
+    ]
+    main_err = None
+    for i, (name, shape, with_h0) in enumerate(cases):
+        a, b, h0 = rglru_inputs(torch, dev, 800 + i, *shape)
+        h0 = h0 if with_h0 else None
+        dh = torch.randn(a.shape, generator=torch.Generator(device=dev).manual_seed(850 + i),
+                         device=dev)
+        h = ops.rglru_scan(a, b, h0)
+        got = ops.rglru_scan_bwd(a, h0, h, dh)
+        again = ops.rglru_scan_bwd(a, h0, h, dh)
+        torch.cuda.synchronize()
+        assert all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, again)), \
+            f"{name}: two runs differ"
+        exp = ref.rglru_scan_bwd_ref(a, h0, h, dh)
+        assert (got[2] is None) == (h0 is None), name
+        errs = [max_err(x, y) for x, y in zip(got, exp) if x is not None]
+        rels = [normwise(x, y) for x, y in zip(got, exp) if x is not None]
+        log(f"[kernel] rglru_scan_bwd {name} (B,S,R)={shape}: max_abs_err da/db/dh0 {errs}, "
+            f"over max(1, max |g|) {rels} (tol {K3_BWD_TOL})")
+        assert max(rels) <= K3_BWD_TOL, f"{name}: {rels} > {K3_BWD_TOL}"
+        if i == 0:
+            main_err = max(errs)
+    a, b, h0 = rglru_inputs(torch, dev, 880, 2, 300, 1000)
+    dh = torch.randn(a.shape, generator=torch.Generator(device=dev).manual_seed(881), device=dev)
+    xs = [x.clone().requires_grad_() for x in (a, b, h0)]
+    ops.rglru_scan(*xs).backward(dh)
+    xr = [x.clone().requires_grad_() for x in (a, b, h0)]
+    ref.rglru_scan_ref(*xr).backward(dh)
+    torch.cuda.synchronize()
+    rels = [normwise(x.grad, y.grad) for x, y in zip(xs, xr)]
+    log(f"[kernel] RGLRUScanFn (B,S,R)=(2, 300, 1000) vs autograd of the plain forward: "
+        f"da/db/dh0 over max(1, max |g|) {rels} (tol {K3_BWD_TOL})")
+    assert max(rels) <= K3_BWD_TOL, f"RGLRUScanFn: {rels} > {K3_BWD_TOL}"
+    return main_err
+
+
 def check_moe_router(torch, dev, ops, ref) -> float:
     """K4 against ``ref.moe_router_ref``: equal indices, weights within
     ``ROUTER_ATOL``.  On random logits an index may differ only where the
@@ -1091,8 +1321,7 @@ def run_train(card: str, torch, ops, dev) -> dict:
     peak = torch.cuda.max_memory_allocated()
     cfg = res.cfg
     n_attn = sum(t in ("attention", "local_attn") for t in cfg.pattern_for_layers())
-    expect = {name: 0 for name in KERNELS}
-    expect.update(flash_attention=n_attn * TRAIN_STEPS, flash_attention_bwd=n_attn * TRAIN_STEPS)
+    expect = expected_train_launches(cfg, TRAIN_STEPS)
     log(f"[train] {TRAIN_ARCH}: kernel launches on the main path: {launches} ({TRAIN_STEPS} "
         f"steps; {n_attn} attention layers a step)")
     assert launches == expect, f"{TRAIN_ARCH} train: expected {expect} launches"
@@ -1109,11 +1338,8 @@ def run_train(card: str, torch, ops, dev) -> dict:
     batches = [{k: torch.from_numpy(x).to(dev) for k, x in data.batch_at(i).items()}
                for i in range(TRAIN_STEPS)]
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    first = {}
-    for tag, c in (("kernel", cfg), ("plain", plain)):
-        loss, _ = forward_train(params, batches[0], c)
-        names, tensors = zip(*params.named_parameters())
-        first[tag] = float(loss.detach()), dict(zip(names, torch.autograd.grad(loss, tensors)))
+    first = {tag: first_step_grads(torch, forward_train, params, batches[0], c)
+             for tag, c in (("kernel", cfg), ("plain", plain))}
     rel = {n: normwise(first["plain"][1][n], g) for n, g in first["kernel"][1].items()}
     worst = max(rel, key=rel.get)
     grad_err = rel[worst]
@@ -1145,6 +1371,361 @@ def run_train(card: str, torch, ops, dev) -> dict:
     trace(f"{TRAIN_ARCH} train step (warm)", one_step, card, ops)
     return {"launches": launches, "steady_step_s": steady, "tokens_per_s": B * S / steady,
             "peak_bytes": peak, "grad_rel_err": grad_err, "loss_rel_err": max(loss_err)}
+
+
+# Phase 3c: the ssm and hybrid families trained through ``launch.train`` at
+# full width, fp32, B x S tokens a step, TRAIN_R_STEPS steps each, on the
+# scan kernels and their backwards: rwkv6-1.6b at full depth (24 layers, no
+# remat), then recurrentgemma-9b with its depth cut to one repeat of
+# (rglru, rglru, local_attn), 3 of its 38 layers (remat as configured, so
+# the repeat's forward runs again in the backward; at two repeats, 2.36 B
+# parameters, the first step's AdamW update ran out of the card's 80 GB).
+# Kernel path against the plain path (``attn_impl="naive"``,
+# ``kernel_impl="jnp"``, with remat: it leaves the gradients as they are,
+# and rwkv6's plain chunked scan keeps a (B, L, L, H, N) tensor for each
+# chunk, too many for the card without it) on the same weights and batches:
+# the first step's gradient of every parameter, max |plain - kernel| over
+# max(1, max |kernel|), and each step's loss, |plain - kernel| over max(1,
+# |kernel|).
+# rwkv6-1.6b's are held against the plain path in float64 instead
+# (``grads_vs_f64``): at this random init its first-step gradients are
+# chaotic.  On an H100 one fp32 ulp of relative noise on every WKV output
+# moved the float64 gradients by up to 8.79 of a parameter's largest value
+# (median 0.391; 0.072 in layer 23, 8.79 in layer 3), and the fp32 paths
+# are as far from float64: the median parameter 0.691 (kernel) and 0.648
+# (plain).  Only the decay's parameters (w0, w_lora_a, w_lora_b, through
+# K2's dlogw) and the final norm were resolved: 53 of 580 within
+# F64_RESOLVED = 1e-2 of float64 on the plain path, and there the kernel
+# path within 1.16x of the plain path's error.  So each resolved parameter
+# on the kernel path must be within F64_GRAD_FACTOR of the plain path's
+# error or of F64_GRAD_FLOOR, whichever is larger, and the median over all
+# within F64_GRAD_FACTOR of the plain path's.  Its losses, after AdamW
+# steps on those gradients, differed by at most 3.86e-4 of their size:
+# 4e-3; they check the forward and the update, not the backward.
+# recurrentgemma-9b's gradients are not chaotic: at most 2.37e-8 (a gate
+# weight) and 6.53e-8 on an H100, so its limits are about 10x those, as
+# phase 3's: 2.5e-7 and 1e-6.
+TRAIN_R_STEPS = 3
+TRAIN_R = (("rwkv6-1.6b", None), ("recurrentgemma-9b", 3))
+F64_GRAD_FACTOR, F64_GRAD_FLOOR, F64_RESOLVED, F64_GRAD_SHOWN = 2.0, 1e-5, 1e-2, 8
+TRAIN_R_GRAD_TOL = {"recurrentgemma-9b": 2.5e-7}
+TRAIN_R_LOSS_TOL = {"rwkv6-1.6b": 4e-3, "recurrentgemma-9b": 1e-6}
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Launches of each wrapper in ``steps`` train steps of ``cfg`` on the
+    kernel path: a forward and a backward for each attention, RWKV-6 and
+    RG-LRU layer, and with remat one more forward (``torch.utils.checkpoint``
+    runs each repeat's forward again in the backward)."""
+    pattern = cfg.pattern_for_layers()
+    fwd = 2 if cfg.remat else 1
+    n = {"flash_attention": sum(t in ("attention", "local_attn") for t in pattern),
+         "rwkv6_scan": pattern.count("rwkv6"), "rglru_scan": pattern.count("rglru")}
+    expect = {name: 0 for name in KERNELS}
+    for name, layers in n.items():
+        expect[name] = fwd * layers * steps
+        expect[f"{name}_bwd"] = layers * steps
+    return expect
+
+
+def first_step_grads(torch, forward_train, params, batch, cfg):
+    """(loss, {name: gradient}) of one ``forward_train`` of ``cfg``."""
+    loss, _ = forward_train(params, batch, cfg)
+    names, tensors = zip(*params.named_parameters())
+    return float(loss.detach()), dict(zip(names, torch.autograd.grad(loss, tensors)))
+
+
+def run_train_recurrent(card, torch, ops, dev, arch, n_layers) -> dict:
+    """Phase 3c for one model: train it through ``launch.train`` with every
+    launch count set to 0 just before and read just after; time it and
+    trace one warm step; hold it against the plain path; on rwkv6 also
+    measure how far one fp32 ulp on K2's outputs moves the first step's
+    gradients, and hold K2's gradients on the model's own inputs against
+    float64 (``wkv_bwd_precision``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import rwkv6_scan as k2
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import forward_train, init_params, param_count
+    from repro_torch.train import TrainState, adamw, linear_warmup_cosine, make_train_step
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    tag = f"{arch}" + (f" ({n_layers} of {get_config(arch).n_layers} layers)" if n_layers else "")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    res = launch_train.train(cfg, TRAIN_R_STEPS, B, S, device="cuda", log_every=1)
+    torch.cuda.synchronize()
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = res.cfg
+    expect = expected_train_launches(cfg, TRAIN_R_STEPS)
+    log(f"[train] {tag}: kernel launches on the main path: {launches} ({TRAIN_R_STEPS} steps; "
+        f"remat {cfg.remat}; expected {expect})")
+    assert launches == expect, f"{arch} train: expected {expect} launches"
+    assert (cfg.attn_impl, cfg.kernel_impl) == ("pallas", "pallas")
+    assert len(res.losses) == TRAIN_R_STEPS and all(math.isfinite(x) for x in res.losses)
+    steady = min(res.step_s[1:])
+    n_params = param_count(res.state.params)
+    log(f"[time] {tag} train step B={B} S={S} fp32, {n_params:,} parameters: first "
+        f"{res.step_s[0]!r} s, steady (min of the other {TRAIN_R_STEPS - 1}) {steady!r} s "
+        f"(steps {res.step_s}), {B * S / steady!r} tokens/s, peak device memory "
+        f"{peak / 2**20:.1f} MiB {card}")
+
+    data = SyntheticLMDataset(DataConfig(global_batch=B, seq_len=S, vocab_size=cfg.vocab_size))
+    batches = [{k: torch.from_numpy(x).to(dev) for k, x in data.batch_at(i).items()}
+               for i in range(TRAIN_R_STEPS)]
+    opt = adamw(linear_warmup_cosine(3e-4, 10, TRAIN_R_STEPS))   # launch.train's defaults
+    kstep, held = make_train_step(cfg, opt), {"state": res.state}
+
+    def one_step():
+        held["state"], _ = kstep(held["state"], batches[0])
+
+    one_step()                                                # warm-up
+    trace(f"{tag} train step (warm)", one_step, card, ops)
+    kernel_losses = res.losses
+    del held, res, kstep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first step's gradients, kernel path and plain path, on the weights
+    # launch.train drew (seed 0 on the same device); on rwkv6 the inputs of
+    # the first and last K2 backward are kept for wkv_bwd_precision
+    plain = dataclasses.replace(cfg, attn_impl="naive", kernel_impl="jnp", remat=True)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    kept = []   # the arguments of the first K2 backward (the last layer's) and the last one
+
+    def keep(*a, **kw):
+        kept[min(len(kept), 1):] = [[x.detach().clone() if torch.is_tensor(x) else x for x in a]]
+        return real_bwd(*a, **kw)
+
+    real_bwd = k2.rwkv6_scan_bwd_cuda
+    with patched(k2, "rwkv6_scan_bwd_cuda", keep):
+        first = {"kernel": first_step_grads(torch, forward_train, params, batches[0], cfg)}
+    first["plain"] = first_step_grads(torch, forward_train, params, batches[0], plain)
+    rel = {n: normwise(first["plain"][1][n], g) for n, g in first["kernel"][1].items()}
+    worst = max(rel, key=rel.get)
+    grad_err, median = rel[worst], statistics.median(rel.values())
+    log(f"[train] {tag} first-step gradients, kernel path vs plain path, max abs err over "
+        f"max(1, max |g|): {grad_err!r} ({worst}; median over the {len(rel)} parameters "
+        f"{median!r}); loss {first['kernel'][0]!r} vs {first['plain'][0]!r}" +
+        ("" if cfg.family == "ssm" else f" (limit {TRAIN_R_GRAD_TOL[arch]})"))
+    f64 = {}
+    if cfg.family == "ssm":
+        f64 = check_grads_vs_f64(
+            grads_vs_f64(torch, forward_train, params, batches[0], plain, first, tag), tag)
+    else:
+        assert grad_err <= TRAIN_R_GRAD_TOL[arch], \
+            f"{arch} first-step gradient {worst}: {grad_err} > {TRAIN_R_GRAD_TOL[arch]}"
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step = make_train_step(plain, opt)
+    state = TrainState(params, opt.init(dict(params.named_parameters())), 0)
+    plain_losses = []
+    for b in batches:
+        state, metrics = step(state, b)
+        plain_losses.append(float(metrics["loss"]))
+    loss_err = [abs(p - k) / max(1.0, abs(k)) for p, k in zip(plain_losses, kernel_losses)]
+    log(f"[train] {tag} losses, kernel path {kernel_losses}, plain path {plain_losses}; "
+        f"differences over max(1, |loss|) {loss_err} (tol {TRAIN_R_LOSS_TOL[arch]})")
+    assert max(loss_err) <= TRAIN_R_LOSS_TOL[arch], f"{arch} losses differ: {loss_err}"
+    del state, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kept:
+        wkv_bwd_precision(torch, kept, cfg.rwkv_chunk)
+    return {"launches": launches, "steady_step_s": steady, "tokens_per_s": B * S / steady,
+            "peak_bytes": peak, "grad_rel_err": grad_err, "loss_rel_err": max(loss_err),
+            "params": n_params, **f64}
+
+
+def first_step_grads_f64(torch, forward_train, params, batch, cfg, noise_seed=None):
+    """``first_step_grads`` in float64: ``params`` converted in place (and
+    back to float32 after, which is exact), activations in float64, every
+    ``.float()`` of a float64 tensor in the model left in float64, and the
+    chunked WKV scan's initial state (zeros, fp32) in float64.  With
+    ``noise_seed``, one fp32 ulp (2**-23) of relative noise drawn from it on
+    every WKV output.
+    Also, for each norm's scale and bias, the sum over the tokens of the
+    absolute values of the terms its gradient sums ({name: (D,)}), from
+    hooks on the norms.  Returns (loss, {name: gradient}, {name: sum})."""
+    from repro_torch.models import rwkv6
+    from repro_torch.models.layers import Norm
+
+    cfg64 = dataclasses.replace(cfg, param_dtype="float64", activation_dtype="float64")
+    real_float, real_wkv = torch.Tensor.float, rwkv6._wkv_chunked
+
+    def keep64(t, *a, **kw):
+        return t if t.dtype == torch.float64 else real_float(t, *a, **kw)
+
+    gen = None if noise_seed is None else \
+        torch.Generator(device=batch["tokens"].device).manual_seed(noise_seed)
+
+    def wkv64(r, k, v, logw, u, state, chunk):
+        y, s = real_wkv(r, k, v, logw, u, state.to(r.dtype), chunk)
+        if gen is not None:
+            y = y * (1 + 2.0 ** -23 * torch.randn(y.shape, generator=gen, device=y.device,
+                                                   dtype=y.dtype))
+        return y, s
+
+    sums, hooks = {}, []
+
+    def norm_hook(name, mod):
+        def hook(_, inp, out):
+            if name in sums or not out.requires_grad:   # remat runs the forward again
+                return
+            x = inp[0].detach()
+            if mod.kind == "layernorm":
+                x = x - x.mean(-1, keepdim=True)
+            xhat = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + mod.eps)
+            sums[f"{name}.scale"] = sums[f"{name}.bias"] = None
+
+            def grad_hook(g):
+                sums[f"{name}.scale"] = (g * xhat).abs().sum((0, 1))
+                sums[f"{name}.bias"] = g.abs().sum((0, 1))
+            out.register_hook(grad_hook)
+        return hook
+
+    params.double()
+    try:
+        for name, mod in params.named_modules():
+            if isinstance(mod, Norm):
+                hooks.append(mod.register_forward_hook(norm_hook(name, mod)))
+        with patched(torch.Tensor, "float", keep64), patched(rwkv6, "_wkv_chunked", wkv64):
+            loss, grads = first_step_grads(torch, forward_train, params, batch, cfg64)
+    finally:
+        for h in hooks:
+            h.remove()
+        params.float()
+    return loss, grads, {n: x for n, x in sums.items() if x is not None and n in grads}
+
+
+def grads_vs_f64(torch, forward_train, params, batch, plain, first, tag) -> dict:
+    """The first step's gradient of every parameter on the kernel path and
+    on the plain path (fp32, ``first``, emptied here) against the plain path
+    in float64 (``first_step_grads_f64``): for each parameter max |g - g64|
+    over max |g64|.  Logs the worst parameters (for the norms' among them,
+    how much their sums over the tokens cancel: the sum of the terms'
+    absolute values against the sum) and, layer by layer, the largest
+    error on each path and how far one fp32 ulp of noise on the WKV outputs
+    moves the float64 gradients (seed NOISE_SEEDS[0]).  Returns {"kernel":
+    {name: e}, "plain": {...}}."""
+    host = {path: {n: g.cpu() for n, g in gs.items()} for path, (_, gs) in first.items()}
+    first.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss64, g64, sums = first_step_grads_f64(torch, forward_train, params, batch, plain)
+    errs = {path: {} for path in host}
+    for n, exact in g64.items():
+        scale = float(exact.abs().max()) or 1.0   # a gradient that is 0 is 0 on every path
+        for path, gs in host.items():
+            errs[path][n] = float((gs[n].to(exact) - exact).abs().max()) / scale
+    e_k, e_p = errs["kernel"], errs["plain"]
+    log(f"[precision] {tag} first-step gradients of the {len(g64)} parameters against the "
+        f"plain path in float64 (loss {loss64!r}), max |g - g64| over max |g64|")
+    for n in sorted(e_k, key=e_k.get, reverse=True)[:F64_GRAD_SHOWN]:
+        line = (f"[precision] {tag}   {n} (max |g64| {float(g64[n].abs().max())!r}): kernel "
+                f"path {e_k[n]!r}, plain path {e_p[n]!r}")
+        if n in sums:
+            c = int((host["kernel"][n].to(g64[n]) - g64[n]).abs().argmax())
+            line += (f"; a sum over {batch['tokens'].numel()} tokens, its terms' absolute "
+                     f"values {float(sums[n].max() / g64[n].abs().max())!r} x max |g64| "
+                     f"(worst channel {c}: {float(sums[n][c])!r} against the sum "
+                     f"{float(g64[n][c])!r})")
+        log(line)
+    del host, sums
+    g64 = {n: g.cpu() for n, g in g64.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, moved, _ = first_step_grads_f64(torch, forward_train, params, batch, plain,
+                                       noise_seed=NOISE_SEEDS[0])
+    shift = {n: float((g.cpu() - g64[n]).abs().max()) / (float(g64[n].abs().max()) or 1.0)
+             for n, g in moved.items()}
+    del moved, g64
+    gc.collect()
+    torch.cuda.empty_cache()
+    top = max(shift, key=shift.get)
+    log(f"[precision] {tag}: one fp32 ulp of relative noise on every WKV output (seed "
+        f"{NOISE_SEEDS[0]}) moves the float64 gradients by up to {shift[top]!r} ({top}; median "
+        f"{statistics.median(shift.values())!r}) of max |g64|")
+    layers = {}
+    for n in shift:
+        layers.setdefault(layer_of(n), []).append(n)
+    log(f"[precision] {tag} by layer (None: embedding, final norm, head), the largest e on the "
+        f"kernel path / on the plain path / of the float64 gradients under that noise: " +
+        ", ".join(f"{i}: {max(e_k[n] for n in ns):.3g} / {max(e_p[n] for n in ns):.3g} / "
+                  f"{max(shift[n] for n in ns):.3g}"
+                  for i, ns in sorted(layers.items(), key=lambda kv: (kv[0] is None, kv[0] or 0))))
+    return errs
+
+
+def layer_of(name: str):
+    """The layer of a parameter's name (``stack.<segment>.<block>.<layer>.``),
+    or None for the embedding, the final norm and the head."""
+    parts = name.split(".")
+    return int(parts[3]) if parts[0] == "stack" and len(parts) > 4 else None
+
+
+def check_grads_vs_f64(errs, tag) -> dict:
+    """Holds ``grads_vs_f64``'s errors to the limits of F64_GRAD_FACTOR (see
+    phase 3c's note); returns the figures for the kernels line."""
+    e_k, e_p = errs["kernel"], errs["plain"]
+    resolved = [n for n in e_p if e_p[n] <= F64_RESOLVED]
+    ratio = {n: e_k[n] / max(e_p[n], F64_GRAD_FLOOR) for n in resolved}
+    worst = max(ratio, key=ratio.get)
+    med = {path: statistics.median(e.values()) for path, e in errs.items()}
+    log(f"[precision] {tag}: {len(resolved)} of {len(e_p)} parameters resolved in fp32 (plain "
+        f"path within {F64_RESOLVED} of float64); among them the largest e_kernel / "
+        f"max(e_plain, {F64_GRAD_FLOOR}) {ratio[worst]!r} ({worst}: {e_k[worst]!r} / "
+        f"{e_p[worst]!r}); median e over all, kernel path {med['kernel']!r}, plain path "
+        f"{med['plain']!r} (limit {F64_GRAD_FACTOR}x for both)")
+    assert ratio[worst] <= F64_GRAD_FACTOR, f"{tag}: {worst} {e_k[worst]} vs {e_p[worst]}"
+    assert med["kernel"] <= F64_GRAD_FACTOR * med["plain"], f"{tag}: medians {med}"
+    return {"grad_rel_err_f64_resolved": e_k[worst], "grad_f64_resolved": len(resolved),
+            "grad_rel_err_f64_median": med["kernel"], "plain_grad_rel_err_f64_median": med["plain"]}
+
+
+def wkv_bwd_precision(torch, kept, chunk) -> None:
+    """K2's backward, the plain chunked scan's autograd and the plain
+    sequential backward, each on the inputs and dy of the first and last K2
+    backward of an rwkv6 train step, against autograd of the recurrence in
+    float64 (``wkv_f64``).  Fails if any of K2's gradients is more than
+    ``K2_PRECISION_FACTOR`` times as far from float64 as the plain chunked
+    scan's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as k2
+    from repro_torch.models.rwkv6 import _wkv_chunked
+
+    def grads_of(fn, dtype, xs, dy):
+        leaves = [x.detach().to(dtype).requires_grad_() for x in xs]
+        y, _ = fn(*leaves)
+        return torch.autograd.grad(y, leaves, dy.to(y.dtype))
+
+    for which, args in zip(("last layer", "first layer"), kept):
+        r, k, v, logw, u, s0, states, dy = args[:8]
+        xs = (r, k, v, logw, u, s0)
+        g64 = grads_of(lambda *a: wkv_f64(torch, *a), torch.float64, xs, dy)
+        runs = {"kernel": k2.rwkv6_scan_bwd_cuda(*xs, states, dy, None, chunk=chunk),
+                "plain chunked": grads_of(lambda *a: _wkv_chunked(*a, chunk), torch.float32,
+                                          xs, dy),
+                "plain sequential": ref.rwkv6_scan_bwd_ref(*xs, dy)}
+        rel = {name: {n: float((a.double() - b).abs().max() / b.abs().max())
+                      for n, a, b in zip(RWKV_GRADS, gs, g64)} for name, gs in runs.items()}
+        del runs
+        log(f"[precision] rwkv6 train, K2 backward of the {which}: max abs err vs float64 over "
+            f"max |g| (max |g|: { {n: float(b.abs().max()) for n, b in zip(RWKV_GRADS, g64)} }): "
+            f"{rel}")
+        for n in RWKV_GRADS:
+            ratio = rel["kernel"][n] / rel["plain chunked"][n]
+            log(f"[precision] rwkv6 train {which} {n}: kernel / plain chunked {ratio!r} "
+                f"(limit {K2_PRECISION_FACTOR})")
+            assert ratio <= K2_PRECISION_FACTOR, (which, n, rel)
 
 
 # The sweep phase (3b): the paper's workload, an ASHA sweep of TRAIN_ARCH at
@@ -1232,8 +1813,7 @@ def run_sweep(card: str, torch, ops) -> dict:
         f"parent; {n_attn} attention layers a step); {free_gb:.1f} GB left on the log "
         f"directory's disk at the sweep's end")
     assert finished == len(trials) == 4, "every trial of the sweep must end TERMINATED"
-    expect = {name: 0 for name in KERNELS}
-    expect.update(flash_attention=n_attn * steps, flash_attention_bwd=n_attn * steps)
+    expect = expected_train_launches(tune.sweep_model(args), steps)
     assert launches == expect, f"sweep: expected {expect} launches"
     first = trials[0]
     serial_losses = {r.training_iteration: r.metrics["loss"] for r in first.results}
@@ -1297,9 +1877,9 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
     n_attn = sum(t in ("attention", "local_attn") for t in pattern)
     n_moe = n_attn if cfg.family == "moe" else 0
     # K1 in prefill only; the router in every MoE layer of prefill and of each decode step
-    expect = {"flash_attention": n_attn, "flash_attention_bwd": 0,
-              "rwkv6_scan": pattern.count("rwkv6"),
-              "rglru_scan": pattern.count("rglru"), "moe_router": n_moe * NEW}
+    expect = {name: 0 for name in KERNELS}
+    expect.update(flash_attention=n_attn, rwkv6_scan=pattern.count("rwkv6"),
+                  rglru_scan=pattern.count("rglru"), moe_router=n_moe * NEW)
     routing, hook = None, contextlib.nullcontext()
     if n_moe:
         from repro_torch.models import moe as moe_mod
@@ -1507,6 +2087,48 @@ def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed) -
             "bf16_tensor_core_bound_ms": bound_bf16[4]}
 
 
+def time_scan_backwards(torch, dev, ops, ref, rw, card) -> dict:
+    """K2's and K3's backwards at the training shapes, as the train phase
+    calls them (no final-state gradient, h0 None): each kernel and its plain
+    version interleaved (``time_pair``), the bound, and K2's in bf16 and its
+    bound on the tensor cores.
+    Returns {name: (ms, plain ms, bound, library ms, bf16 ms, tensor-core
+    bound ms)}."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+    r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 700, 8, 512, 32, 64, f32)
+    s0.zero_()
+    dy, _ = rwkv_cotangents(torch, dev, 750, r, s0, f32)
+    states = rw.rwkv6_scan_cuda(r, k, v, logw, u, s0, return_states=True)[2]
+    kms, pms, runs = time_pair(
+        lambda: ops.rwkv6_scan_bwd(r, k, v, logw, u, s0, states, dy),
+        lambda: ref.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, dy), 5)
+    rb, kb, vb, dyb = (x.to(bf16) for x in (r, k, v, dy))
+    states_b = rw.rwkv6_scan_cuda(rb, kb, vb, logw, u, s0, return_states=True)[2]
+    bf16_ms = time_ms(lambda: ops.rwkv6_scan_bwd(rb, kb, vb, logw, u, s0, states_b, dyb))
+    bound = rwkv6_bwd_bound(r, k, v, logw, u, s0, dy)
+    out["rwkv6_scan_bwd"] = (kms, pms, bound[:4], None, bf16_ms, bound[4])
+    shape = "B=8 S=512 H=32 N=64 L=32, no final-state gradient"
+    log(f"[time] rwkv6_scan_bwd kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
+    log(f"[time] rwkv6_scan_bwd kernel bf16 r/k/v {shape}: {bf16_ms!r} ms {card}")
+    log(f"[time] rwkv6_scan_bwd plain version fp32 (autograd of the sequential scan) {shape}: "
+        f"{pms!r} ms {card}")
+    log(f"[time] rwkv6_scan_bwd bound with its four N^2 products as 3xTF32 on the tensor "
+        f"cores: {bound[4]!r} ms by {bound[5]} {card}")
+    del r, k, v, logw, u, s0, dy, states, rb, kb, vb, dyb, states_b
+
+    a, b, _ = rglru_inputs(torch, dev, 800, 8, 512, 4096)
+    h = ops.rglru_scan(a, b, None)
+    dh = torch.randn(a.shape, generator=torch.Generator(device=dev).manual_seed(850), device=dev)
+    kms, pms, runs = time_pair(lambda: ops.rglru_scan_bwd(a, None, h, dh),
+                               lambda: ref.rglru_scan_bwd_ref(a, None, h, dh), 10)
+    out["rglru_scan_bwd"] = (kms, pms, rglru_bwd_bound(a, None, h, dh), None, None, None)
+    log(f"[time] rglru_scan_bwd kernel fp32 B=8 S=512 R=4096, h0=None: {kms!r} ms {card} "
+        f"(runs {runs})")
+    log(f"[time] rglru_scan_bwd plain version fp32 B=8 S=512 R=4096: {pms!r} ms {card}")
+    return out
+
+
 # K4's timed shapes: label, (T, E, k); the draws of phase 2's case of the
 # same shape (seed 400 + position).
 ROUTER_SHAPES = (
@@ -1633,7 +2255,9 @@ def main() -> int:
     errs = {"flash_attention": check_flash_attention(torch, dev, ops, ref),
             "flash_attention_bwd": check_flash_attention_bwd(torch, dev, ops, ref),
             "rwkv6_scan": check_rwkv6(torch, dev, ops, ref),
+            "rwkv6_scan_bwd": check_rwkv6_bwd(torch, dev, ops, ref, rw),
             "rglru_scan": check_rglru(torch, dev, ops, ref),
+            "rglru_scan_bwd": check_rglru_bwd(torch, dev, ops, ref),
             "moe_router": check_moe_router(torch, dev, ops, ref)}
     # K4's few microseconds a launch and K2's two kernels' device times are
     # read from the profiler here, early: late in a long run, sessions have
@@ -1644,6 +2268,8 @@ def main() -> int:
     r0 = router[ROUTER_SHAPES[0][0]]
     k2_info = infos[KERNELS.index("rwkv6_scan")]
     k2_passes = report_k2_build(torch, ops, rw, _build._nvcc(), k2_info.path, k2_info.log, card)
+    k2b_info = infos[KERNELS.index("rwkv6_scan_bwd")]
+    k2_bwd_passes = report_k2_bwd_build(torch, ops, rw, k2b_info.log, card)
 
     # -- 3. train smollm-135m at full width --------------------------------------------------------
     train = run_train(card, torch, ops, dev)
@@ -1656,6 +2282,14 @@ def main() -> int:
     per_path[f"{TRAIN_ARCH} sweep"] = sweep["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 3c. train rwkv6-1.6b and a cut recurrentgemma-9b through the scan kernels -------------
+    train_r = {}
+    for arch, n_layers in TRAIN_R:
+        train_r[arch] = run_train_recurrent(card, torch, ops, dev, arch, n_layers)
+        per_path[f"{arch} train"] = train_r[arch]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # -- 4 and 5. serve each model at full width, then its times -----------------------------------
     for arch in ARCHS:
@@ -1700,18 +2334,24 @@ def main() -> int:
     shape = "B=8 S=512 R=4096"
     log(f"[time] rglru_scan kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
     log(f"[time] rglru_scan plain version fp32 {shape}: {pms!r} ms {card}")
+    del a, b, h0
+
+    bwd_times = time_scan_backwards(torch, dev, ops, ref, rw, card)
+    times.update((name, t[:4]) for name, t in bwd_times.items())
     times["moe_router"] = (r0["ms"], r0["plain_ms"], r0["bound"], None)
-    log("[time] rwkv6_scan, rglru_scan, moe_router: no single PyTorch call computes any of "
-        "these functions, so library_ms is null")
+    log("[time] rwkv6_scan, rwkv6_scan_bwd, rglru_scan, rglru_scan_bwd, moe_router: no single "
+        "PyTorch call computes any of these functions, so library_ms is null")
     for name, (kms, pms, (bms, by, flops, nbytes), lms) in times.items():
         log(f"[time] {name} bound: {bms!r} ms by {by} ({flops:.4g} flop, {nbytes:.4g} bytes; "
             f"H100 SXM peaks at 700 W) {card}")
 
-    # K1's backward is the gradient of the same TPU kernel (forward-only in JAX)
+    # The backwards are the gradients of the same TPU kernels (forward-only in JAX)
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:77",
                "flash_attention_bwd": "src/repro/kernels/flash_attention.py:77",
                "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:74",
+               "rwkv6_scan_bwd": "src/repro/kernels/rwkv6_scan.py:74",
                "rglru_scan": "src/repro/kernels/rglru_scan.py:44",
+               "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:44",
                "moe_router": "src/repro/kernels/moe_router.py:45"}
     kernels = []
     for name in KERNELS:
@@ -1723,9 +2363,11 @@ def main() -> int:
             "launches": sum(paths.values()), "launches_per_path": paths,
             "max_abs_err": errs[name], "ms": kms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "library_ms": lms,
-            # K1's forward and backward run on the tensor cores (3xTF32 in fp32)
+            # the bound on the tensor cores (3xTF32 in fp32): K1's forward and backward
+            # run there; K2's backward could run its N^2 products there
             "tensor_core_bound_ms": {"flash_attention": k1["tensor_core_bound_ms"],
-                                     "flash_attention_bwd": k1b["tensor_core_bound_ms"]}.get(name),
+                                     "flash_attention_bwd": k1b["tensor_core_bound_ms"],
+                                     "rwkv6_scan_bwd": bwd_times["rwkv6_scan_bwd"][5]}.get(name),
         })
     kernels[KERNELS.index("moe_router")].update(
         host_ms=r0["host_ms"], launch_floor=floor,
@@ -1733,6 +2375,11 @@ def main() -> int:
                 for label, r in router.items()})
     k2 = kernels[KERNELS.index("rwkv6_scan")]
     k2.update(bf16_ms=bf16_ms, pass_ms=k2_passes)
+    kernels[KERNELS.index("rwkv6_scan_bwd")].update(
+        bf16_ms=bwd_times["rwkv6_scan_bwd"][4], pass_ms=k2_bwd_passes,
+        train_step={k: v for k, v in train_r["rwkv6-1.6b"].items() if k != "launches"})
+    kernels[KERNELS.index("rglru_scan_bwd")]["train_step"] = {
+        k: v for k, v in train_r["recurrentgemma-9b"].items() if k != "launches"}
     kernels[KERNELS.index("flash_attention")]["shapes"] = {
         label: {key: val for key, val in r.items() if key != "bound"} for label, r in attn.items()}
     kernels[KERNELS.index("flash_attention_bwd")].update(

@@ -7,10 +7,12 @@ Each wrapper's ``launches`` counts its kernel's launches, so that a run can
 show that its main path went through the kernel.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
-card only flash attention has a backward kernel: a call whose q, k or v
-needs a gradient goes through ``FlashAttentionFn``, whose backward is
-``flash_attention_bwd``.  The other kernels raise on a CUDA tensor that
-needs a gradient rather than return an output cut off from autograd.
+card flash attention, the RWKV-6 scan and the RG-LRU scan have backward
+kernels: a call whose inputs need a gradient goes through
+``FlashAttentionFn``, ``RWKV6ScanFn`` or ``RGLRUScanFn``, whose backwards
+are ``flash_attention_bwd``, ``rwkv6_scan_bwd`` and ``rglru_scan_bwd``.
+The MoE router has none yet: it raises on a CUDA tensor that needs a
+gradient rather than return an output cut off from autograd.
 """
 from __future__ import annotations
 
@@ -24,13 +26,18 @@ from . import ref
 from . import rglru_scan as _rglru
 from . import rwkv6_scan as _rwkv
 
-__all__ = ["flash_attention", "flash_attention_bwd", "rwkv6_scan", "rglru_scan",
-           "moe_router"]
+__all__ = ["flash_attention", "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
+           "rglru_scan", "rglru_scan_bwd", "moe_router"]
+
+
+def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd would need a gradient through a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def _no_backward(name: str, *tensors: torch.Tensor) -> None:
     """Raise if autograd would need a gradient through ``name``'s kernel."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    if _needs_grad(*tensors):
         raise NotImplementedError(
             f"{name} has no backward kernel on the card yet (ROADMAP Queue 2): "
             "call it under torch.no_grad() or on CPU tensors")
@@ -54,7 +61,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                        window=window, softcap=softcap)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if _needs_grad(q, k, v):
         out = _fa.FlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal, window, softcap)
     else:
         out = _fa.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal,
@@ -91,25 +98,65 @@ def rwkv6_scan(
     u (H,N); state (B,H,N,N) fp32 -> (y (B,S,H,N) in r's dtype, final state).
 
     The kernel works in chunks of ``min(chunk, S)`` steps and masks a ragged
-    last chunk itself; the plain version steps one token at a time."""
+    last chunk itself; the plain version steps one token at a time.  On the
+    card, with grad enabled and an input needing a gradient, the call goes
+    through ``RWKV6ScanFn`` (the same forward, which also keeps its chunk
+    states, and the backward kernels)."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, logw, u, state)
-    _no_backward("rwkv6_scan", r, k, v, logw, u, state)
-    out = _rwkv.rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk)
+    if _needs_grad(r, k, v, logw, u, state):
+        out = _rwkv.RWKV6ScanFn.apply(r, k, v, logw, u, state, chunk)
+    else:
+        out = _rwkv.rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk)
     rwkv6_scan.launches += 1
     return out
+
+
+def rwkv6_scan_bwd(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state: torch.Tensor, states: Optional[torch.Tensor], dy: torch.Tensor,
+    ds_out: Optional[torch.Tensor] = None, chunk: int = 32,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradients (dr, dk, dv, dlogw, du, dstate) of ``rwkv6_scan`` given the
+    forward's workspace of chunk states ``states`` (``RWKV6ScanFn`` keeps
+    it), the gradient ``dy`` of y and ``ds_out`` of the final state (None
+    when it is not used).  The plain version steps one token at a time and
+    reads no workspace, so on the CPU ``states`` is None.
+    ``RWKV6ScanFn.backward`` calls it; one call launches the kernel's three
+    passes and counts one."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_scan_bwd_ref(r, k, v, logw, u, state, dy, ds_out)
+    grads = _rwkv.rwkv6_scan_bwd_cuda(r, k, v, logw, u, state, states, dy, ds_out,
+                                      chunk=chunk)
+    rwkv6_scan_bwd.launches += 1
+    return grads
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t.  a/b (B,S,R) fp32; h0 (B,R) or None
-    (zeros) -> h (B,S,R)."""
+    (zeros) -> h (B,S,R).  On the card, with grad enabled and an input
+    needing a gradient, the call goes through ``RGLRUScanFn``."""
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
-    _no_backward("rglru_scan", a, b, h0)
-    out = _rglru.rglru_scan_cuda(a, b, h0)
+    if _needs_grad(a, b, h0):
+        out = _rglru.RGLRUScanFn.apply(a, b, h0)
+    else:
+        out = _rglru.rglru_scan_cuda(a, b, h0)
     rglru_scan.launches += 1
     return out
+
+
+def rglru_scan_bwd(a: torch.Tensor, h0: Optional[torch.Tensor], h: torch.Tensor,
+                   dh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Gradients (da, db, dh0) of ``rglru_scan`` from its output ``h`` and
+    the gradient ``dh`` of h; dh0 is None when h0 is.  ``RGLRUScanFn.backward``
+    calls it."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan_bwd_ref(a, h0, h, dh)
+    grads = _rglru.rglru_scan_bwd_cuda(a, h0, h, dh)
+    rglru_scan_bwd.launches += 1
+    return grads
 
 
 def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -132,5 +179,7 @@ def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Te
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 rwkv6_scan.launches = 0
+rwkv6_scan_bwd.launches = 0
 rglru_scan.launches = 0
+rglru_scan_bwd.launches = 0
 moe_router.launches = 0

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "rwkv6_scan_ref",
-           "rglru_scan_ref", "moe_router_ref"]
+           "rwkv6_scan_bwd_ref", "rglru_scan_ref", "rglru_scan_bwd_ref", "moe_router_ref"]
 
 
 def _allowed(q_pos, k_pos, causal, window) -> torch.Tensor:
@@ -120,6 +120,28 @@ def rwkv6_scan_ref(
     return torch.stack(ys, dim=1).to(r.dtype), S
 
 
+def rwkv6_scan_bwd_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state: torch.Tensor, dy: torch.Tensor,
+    ds_out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradients (dr, dk, dv, dlogw, du, dstate) of ``rwkv6_scan_ref`` given
+    ``dy``, the gradient of y, and ``ds_out``, that of the final state
+    (None: the final state is not used, as in training).  Autograd of the
+    sequential recurrence on fp32 copies of the inputs; each gradient is
+    returned in its input's dtype."""
+    xs = (r, k, v, logw, u, state)
+    leaves = [x.detach().float().requires_grad_() for x in xs]
+    with torch.enable_grad():
+        y, s = rwkv6_scan_ref(*leaves)
+        outs, grads = [y], [dy.float()]
+        if ds_out is not None:
+            outs.append(s)
+            grads.append(ds_out.float())
+        g = torch.autograd.grad(outs, leaves, grads)
+    return tuple(gi.to(x.dtype) for gi, x in zip(g, xs))
+
+
 def rglru_scan_ref(
     a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -133,6 +155,27 @@ def rglru_scan_ref(
         h = af[:, t] * h + bf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def rglru_scan_bwd_ref(
+    a: torch.Tensor, h0: Optional[torch.Tensor], h: torch.Tensor, dh: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Gradients (da, db, dh0) of ``rglru_scan_ref`` from its output ``h``
+    and the gradient ``dh`` of h, in fp32, one step at a time in reverse:
+    with h_{-1} = h0 (zeros when None) and g_S = 0,
+    g_t = dh_t + a_{t+1} g_{t+1};  da_t = g_t h_{t-1};  db_t = g_t;
+    dh0 = a_0 g_0 (None when h0 is None)."""
+    af, hf, dhf = a.float(), h.float(), dh.float()
+    h_prev = torch.cat([(h0.float() if h0 is not None else torch.zeros_like(hf[:, 0]))[:, None],
+                        hf[:, :-1]], dim=1)
+    g = torch.zeros_like(dhf[:, 0])
+    gs = []
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dhf[:, t] + (af[:, t + 1] * g if t + 1 < a.shape[1] else 0.0)
+        gs.append(g)
+    gs = torch.stack(gs[::-1], dim=1)
+    dh0 = af[:, 0] * gs[:, 0] if h0 is not None else None
+    return (gs * h_prev).to(a.dtype), gs.to(a.dtype), dh0
 
 
 def moe_router_ref(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,28 +1,34 @@
-"""ctypes wrapper of the CUDA RWKV-6 WKV scan (``csrc/rwkv6_scan.cu``).
+"""ctypes wrappers of the CUDA RWKV-6 WKV scan (``csrc/rwkv6_scan.cu``) and
+its backward (``csrc/rwkv6_scan_bwd.cu``), and ``RWKV6ScanFn``, the two
+joined for autograd.
 
-Checks what the kernels take, allocates y, the final state and the
-workspace of chunk states, and launches the two kernels (the chunk states,
-then the outputs) on PyTorch's current stream without synchronising.  The
-kernels mask a ragged last chunk themselves, so nothing is padded; inputs
-that are already contiguous (the model's are) are not copied, and ``u`` is
-cast to fp32.
+The forward checks what the kernels take, allocates y, the final state and
+the workspace of chunk states, and launches the two kernels (the chunk
+states, then the outputs) on PyTorch's current stream without
+synchronising; the backward launches its three (the gradients of the chunk
+states in reverse, then dr/dk/dv/dlogw and each chunk's part of du, then
+du).  The kernels mask a ragged last chunk themselves, so nothing is padded;
+inputs that are already contiguous (the model's are) are not copied, and
+``u`` is cast to fp32.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["rwkv6_scan_cuda", "occupancy", "HEAD_SIZE", "DTYPES", "MAX_CHUNK", "PASSES"]
+__all__ = ["rwkv6_scan_cuda", "rwkv6_scan_bwd_cuda", "RWKV6ScanFn", "occupancy",
+           "bwd_occupancy", "HEAD_SIZE", "DTYPES", "MAX_CHUNK", "PASSES", "BWD_PASSES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZE = 64      # rwkv6-1.6b's; the kernel is built for this one
 MAX_CHUNK = 32      # every config's rwkv_chunk
 PASSES = ("states", "outputs")   # the two kernels, rwkv6_scan_<pass>_kernel, in launch order
+BWD_PASSES = ("states", "grads", "du")   # the backward's, rwkv6_scan_bwd_<pass>_kernel
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,17 +42,8 @@ def _fn():
     return fn
 
 
-def rwkv6_scan_cuda(
-    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
-    u: torch.Tensor, state: torch.Tensor, chunk: int = 32,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the two kernels; same contract as ``ref.rwkv6_scan_ref``,
-    computed in chunks of ``min(chunk, S)`` steps.
-
-    Raises on anything the kernel does not take: a tensor off the card, r/k/v
-    of a dtype other than float32/bfloat16 (or not one dtype), logw or state
-    not float32, a head size other than ``HEAD_SIZE``, a chunk outside
-    1..``MAX_CHUNK``, mismatched shapes, or a launch that CUDA refuses."""
+def _check(r, k, v, logw, u, state, chunk) -> int:
+    """Raise on what the kernels do not take; return the chunk length."""
     ts = (r, k, v, logw, u, state)
     if not all(t.is_cuda for t in ts):
         raise ValueError("rwkv6_scan_cuda takes CUDA tensors only")
@@ -68,6 +65,25 @@ def rwkv6_scan_cuda(
     L = min(chunk, S)
     if not 1 <= L <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk}: need 1..{MAX_CHUNK}")
+    return L
+
+
+def rwkv6_scan_cuda(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state: torch.Tensor, chunk: int = 32, return_states: bool = False,
+):
+    """Launch the two kernels; same contract as ``ref.rwkv6_scan_ref``,
+    computed in chunks of ``min(chunk, S)`` steps.  With ``return_states``
+    also the workspace the first kernel wrote, the state entering each
+    chunk after the first (B, H, ceil(S/L) - 1, N, N) fp32, which the
+    backward reads.
+
+    Raises on anything the kernel does not take: a tensor off the card, r/k/v
+    of a dtype other than float32/bfloat16 (or not one dtype), logw or state
+    not float32, a head size other than ``HEAD_SIZE``, a chunk outside
+    1..``MAX_CHUNK``, mismatched shapes, or a launch that CUDA refuses."""
+    L = _check(r, k, v, logw, u, state, chunk)
+    B, S, H, N = r.shape
     r, k, v, logw, state = (t.contiguous() for t in (r, k, v, logw, state))
     u = u.to(torch.float32).contiguous()
     y = torch.empty_like(r)
@@ -80,7 +96,95 @@ def rwkv6_scan_cuda(
                 DTYPES[r.dtype], B, S, H, N, L, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_fwd launch failed: cudaError_t {err}")
-    return y, s_out
+    return (y, s_out, ws) if return_states else (y, s_out)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    fn = _build.load_library("rwkv6_scan_bwd").rwkv6_scan_bwd
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, P, P, P, P,   # r k v logw u state ws dy ds_out
+                   P, P, P, P, P, P,            # dr dk dv dlogw du dstate
+                   P, P,                        # dws du_part
+                   I, I, I, I, I, I,            # dtype B S H N L
+                   P]                           # stream
+    fn.restype = I
+    return fn
+
+
+def rwkv6_scan_bwd_cuda(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
+    ds_out: Optional[torch.Tensor] = None, chunk: int = 32,
+) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward's three kernels; same contract as
+    ``ref.rwkv6_scan_bwd_ref``: (dr, dk, dv) in r's dtype, dlogw, dstate fp32
+    and du in u's dtype.  ``states`` is the forward's workspace at the same
+    chunk (``rwkv6_scan_cuda(..., return_states=True)``), ``dy`` the
+    gradient of y (cast to r's dtype), ``ds_out`` that of the final state or
+    None for zeros.  Raises as ``rwkv6_scan_cuda`` does, and on a states,
+    dy or ds_out of another shape or off the card."""
+    L = _check(r, k, v, logw, u, state, chunk)
+    B, S, H, N = r.shape
+    nc = -(-S // L)
+    if dy.shape != r.shape or not dy.is_cuda:
+        raise ValueError(f"dy {tuple(dy.shape)} must be a CUDA tensor of r's shape")
+    if ds_out is not None and (ds_out.shape != state.shape or not ds_out.is_cuda):
+        raise ValueError(f"ds_out {tuple(ds_out.shape)} must be a CUDA tensor of state's shape")
+    if (states.shape != (B, H, nc - 1, N, N) or states.dtype != torch.float32
+            or states.device != r.device):
+        raise ValueError(f"states {tuple(states.shape)} {states.dtype} on {states.device}: "
+                         f"need the forward's workspace {(B, H, nc - 1, N, N)} float32 on "
+                         f"{r.device}")
+    r, k, v, logw, state, states = (t.contiguous() for t in (r, k, v, logw, state, states))
+    dy = dy.to(r.dtype).contiguous()
+    if ds_out is not None:
+        ds_out = ds_out.to(torch.float32).contiguous()
+    u32 = u.to(torch.float32).contiguous()
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dlogw = torch.empty_like(logw)
+    du = torch.empty_like(u32)
+    dstate = torch.empty_like(state)
+    dws = torch.empty((B, H, nc, N, N), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, nc, H, N), dtype=torch.float32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _bwd_fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u32.data_ptr(),
+                    state.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                    ds_out.data_ptr() if ds_out is not None else None,
+                    dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
+                    du.data_ptr(), dstate.data_ptr(), dws.data_ptr(), du_part.data_ptr(),
+                    DTYPES[r.dtype], B, S, H, N, L, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd launch failed: cudaError_t {err}")
+    return dr, dk, dv, dlogw, du.to(u.dtype), dstate
+
+
+class RWKV6ScanFn(torch.autograd.Function):
+    """The CUDA forward with its CUDA backward, for CUDA tensors that need a
+    gradient (``ops.rwkv6_scan`` routes them here).  The forward keeps its
+    inputs and its workspace of chunk states; the backward runs
+    ``ops.rwkv6_scan_bwd``, which counts its launches, and returns a
+    gradient only where one is needed.  The final state's gradient may be
+    None (training drops the state)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state, chunk):
+        y, s_out, states = rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk,
+                                           return_states=True)
+        ctx.save_for_backward(r, k, v, logw, u, state, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)   # an unused output's gradient stays None
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, ds_out):
+        from . import ops   # ops imports this module
+        r, k, v, logw, u, state, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        grads = ops.rwkv6_scan_bwd(r, k, v, logw, u, state, states, dy, ds_out,
+                                   chunk=ctx.chunk)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,3 +207,24 @@ def occupancy(dtype: torch.dtype, chunk: int = MAX_CHUNK) -> dict:
         raise RuntimeError(f"rwkv6_scan_occupancy failed: cudaError_t {err}")
     return {name: {"smem_bytes": smem[i], "blocks_per_sm": blocks[i]}
             for i, name in enumerate(PASSES)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_occupancy_fn():
+    fn = _build.load_library("rwkv6_scan_bwd").rwkv6_scan_bwd_occupancy
+    I, P = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [I, I, P, P]      # dtype L -> smem_bytes[3] blocks_per_sm[3]
+    fn.restype = I
+    return fn
+
+
+def bwd_occupancy(dtype: torch.dtype, chunk: int = MAX_CHUNK) -> dict:
+    """``occupancy`` for each kernel of the backward (``BWD_PASSES``)."""
+    if dtype not in DTYPES or not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"no kernel for {dtype}, chunk {chunk}")
+    smem, blocks = (ctypes.c_int * 3)(), (ctypes.c_int * 3)()
+    err = _bwd_occupancy_fn()(DTYPES[dtype], chunk, smem, blocks)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd_occupancy failed: cudaError_t {err}")
+    return {name: {"smem_bytes": smem[i], "blocks_per_sm": blocks[i]}
+            for i, name in enumerate(BWD_PASSES)}

@@ -8,9 +8,11 @@
 Counterpart of ``repro.launch.train``, with the same flags plus ``--device``
 (default ``cuda``; with no card it raises).  AdamW under a linear-warmup
 cosine schedule, on the synthetic LM stream of ``data/pipeline.py``.  On the
-card attention runs the CUDA flash-attention kernel, forward and backward
-(``attn_impl="pallas"``, as ``launch/serve.py`` sets it); on the CPU it runs
-the plain version, differentiated by autograd.  Weights are random, drawn on
+card (``device_model``) attention runs the CUDA flash-attention kernel,
+forward and backward (``attn_impl="pallas"``, as ``launch/serve.py`` sets
+it), and so do the RWKV-6 and RG-LRU scans of the ssm and hybrid families
+(``kernel_impl="pallas"``); on the CPU the plain versions run,
+differentiated by autograd.  Weights are random, drawn on
 the training device from seed 0, as JAX draws them from ``key(0)``.
 ``train`` is the function behind the command line; it also times each step
 (to the device's end).
@@ -46,12 +48,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def device_model(cfg: ModelConfig, dev: torch.device) -> ModelConfig:
+    """The config trained on ``dev``: on the card attention runs the CUDA
+    kernel (``attn_impl="pallas"``), and the ssm and hybrid families' scans
+    theirs (``kernel_impl="pallas"``), each launched or raising.  The moe
+    family keeps ``kernel_impl="jnp"``: the router kernel has no backward
+    yet (ROADMAP Queue 1 item 3), and JAX's MoE layer never calls its router
+    kernel either.  Elsewhere the config is returned as it is."""
+    if dev.type != "cuda":
+        return cfg
+    kernel_impl = "pallas" if cfg.family in ("ssm", "hybrid") else cfg.kernel_impl
+    return dataclasses.replace(cfg, attn_impl="pallas", kernel_impl=kernel_impl)
+
+
 def train(cfg: ModelConfig, steps: int, batch: int, seq_len: int, lr: float = 3e-4,
           warmup: int = 10, device="cuda", log_every: int = 10,
           out: Optional[str] = None) -> TrainResult:
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    cfg = device_model(cfg, dev)
     if cfg.frontend is not None:
         raise SystemExit(f"{cfg.arch_id}: the {cfg.frontend} frontend is not yet ported "
                          "to repro_torch (see ROADMAP.md, Queue 1)")

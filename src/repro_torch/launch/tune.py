@@ -10,9 +10,10 @@
 Counterpart of ``repro.launch.tune``, with the same flags, schedulers,
 searchers, results table and closing lines, plus ``--device`` (default
 ``cuda``; with no card it raises, as ``launch/train.py`` does).  Each trial is
-a ``ModelTrainable`` on that device; on the card its attention runs the CUDA
-flash-attention kernel, forward and backward (``attn_impl="pallas"``), and
-never the plain version.
+a ``ModelTrainable`` on that device; on the card it trains through the
+kernels ``launch/train.py`` picks (``device_model``: flash attention, and the
+RWKV-6 and RG-LRU scans of the ssm and hybrid families, forward and
+backward), and never through their plain versions.
 
 ``--executor`` picks the execution tier over a virtual ``SlicePool`` of
 ``--total-devices``: ``serial`` (host time-slicing), ``concurrent`` (one
@@ -31,7 +32,6 @@ quickstarts), through the port's copy of the control plane.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 from typing import Any, Dict, Optional, Sequence
 
@@ -44,6 +44,7 @@ from ..core import (ASHAScheduler, FIFOScheduler, GPSearcher,
 from ..dist.submesh import SlicePool
 from ..models import ModelConfig
 from ..train.trainable import make_model_trainable, model_trainable_factory
+from .train import device_model
 
 # Executors of the original that the port does not run yet, and the ROADMAP
 # item (Queue 1) that ports each.
@@ -73,11 +74,9 @@ def build_scheduler(name: str, max_iters: int):
 
 
 def trial_model(cfg: ModelConfig, device) -> ModelConfig:
-    """The config a trial trains on ``device``: on the card, attention runs
-    the CUDA kernel (launched or raising), as in ``launch/train.py``."""
-    if resolve_device(device).type == "cuda":
-        cfg = dataclasses.replace(cfg, attn_impl="pallas")
-    return cfg
+    """The config a trial trains on ``device``: the kernels of
+    ``launch/train.py`` (``device_model``) on the card."""
+    return device_model(cfg, resolve_device(device))
 
 
 def sweep_model(args: argparse.Namespace) -> ModelConfig:

@@ -11,10 +11,13 @@ RG-LRU:  r_t = sigmoid(x W_a + b_a), i_t = sigmoid(x W_i + b_i)
          log a_t = -c * softplus(lambda) * r_t            (c = 8)
          h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-A prompt evaluates the linear recurrence with ``kernel_impl="pallas"`` (the
-JAX name) through the CUDA scan kernel (``kernels/ops.rglru_scan``), or with
-``"jnp"`` through ``_rglru_scan``, a log-depth (Hillis-Steele) associative
-scan written out in PyTorch; decode is the single step in either case.
+A prompt or a training sequence evaluates the linear recurrence with
+``kernel_impl="pallas"`` (the JAX name) through the CUDA scan kernel
+(``kernels/ops.rglru_scan``; in training its gradients come from the
+backward kernel through ``RGLRUScanFn``), or with ``"jnp"`` through
+``_rglru_scan``, a log-depth (Hillis-Steele) associative scan written out in
+PyTorch and differentiated by autograd; decode is the single step in either
+case.
 Griffin's block-diagonal gate matrices are dense, as in the JAX package.
 """
 from __future__ import annotations

@@ -7,10 +7,13 @@ Time-mixing:   S_t = diag(w_t) S_{t-1} + k_t v_t^T,
 with per-channel data-dependent decay w_t = exp(-exp(w0 + lora_w(x))) and
 data-dependent token-shift interpolation (DDLerp) for r/k/v/w/g.
 
-A prompt runs the exact chunked evaluation: ``kernel_impl="pallas"`` (the
-JAX name, kept so that configs compare equal) launches the CUDA WKV kernel
-(``kernels/ops.rwkv6_scan``), ``"jnp"`` runs ``_wkv_chunked`` in PyTorch.
-Decode (one token) is the plain single-step recurrence in either case.
+A prompt or a training sequence runs the exact chunked evaluation:
+``kernel_impl="pallas"`` (the JAX name, kept so that configs compare equal)
+launches the CUDA WKV kernel (``kernels/ops.rwkv6_scan``; in training its
+gradients come from the backward kernels through ``RWKV6ScanFn``, u's in
+u's dtype), ``"jnp"`` runs ``_wkv_chunked`` in PyTorch, differentiated by
+autograd.  Decode (one token) is the plain single-step recurrence in
+either case.
 ``TimeMix`` and ``ChannelMix`` are the JAX ``init_*``: parameters under the
 JAX leaf names, dense weights in ``nn.Linear``'s (out, in) layout.
 

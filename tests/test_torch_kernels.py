@@ -8,6 +8,7 @@ plain version by the ``gpu`` tests, which skip without a card.
 """
 import importlib.util
 from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,8 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
+from repro_torch.kernels import rglru_scan as prg
+from repro_torch.kernels import rwkv6_scan as prw
 
 # Tolerances of tests/test_kernels.py.
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -258,20 +261,13 @@ def test_grad_path_off_the_cpu_never_runs_the_plain_version():
     assert (pops.flash_attention.launches, pops.flash_attention_bwd.launches) == before
 
 
-@pytest.mark.parametrize("name", ["rwkv6_scan", "rglru_scan", "moe_router"])
+@pytest.mark.parametrize("name", ["moe_router"])
 def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu(name):
-    """rwkv6_scan, rglru_scan and moe_router have no backward kernel yet: off
-    the CPU, a call that autograd would differentiate raises instead of
-    returning an output cut off from the graph; without a gradient the call
-    reaches the kernel, which refuses a tensor off the card."""
+    """moe_router has no backward kernel yet: off the CPU, a call that
+    autograd would differentiate raises instead of returning an output cut
+    off from the graph; without a gradient the call reaches the kernel,
+    which refuses a tensor off the card."""
     def call(grad):
-        if name == "rwkv6_scan":
-            r, k, v, logw = _meta(*[(1, 8, 2, 64)] * 4, grad=grad)
-            u, s0 = _meta((2, 64), (1, 2, 64, 64))
-            return pops.rwkv6_scan(r, k, v, logw, u, s0)
-        if name == "rglru_scan":
-            a, b = _meta((1, 8, 16), (1, 8, 16), grad=grad)
-            return pops.rglru_scan(a, b)
         return pops.moe_router(*_meta((4, 8), grad=grad), 2)
     before = getattr(pops, name).launches
     with pytest.raises(NotImplementedError, match=f"{name} has no backward kernel"):
@@ -281,6 +277,50 @@ def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu(name):
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors only"):
         call(grad=True)
     assert getattr(pops, name).launches == before
+
+
+@pytest.mark.parametrize("name", ["rwkv6_scan", "rglru_scan"])
+def test_scan_grad_path_off_the_cpu_never_runs_the_plain_version(name):
+    """A tensor off the CPU that needs a gradient goes through the scan's
+    autograd Function (RWKV6ScanFn, RGLRUScanFn), whose kernel refuses what
+    is not on the card; so does the backward's wrapper, and without a
+    gradient the forward's.  No counter moves."""
+    def call(grad):
+        if name == "rwkv6_scan":
+            r, k, v, logw = _meta(*[(1, 8, 2, 64)] * 4, grad=grad)
+            u, s0 = _meta((2, 64), (1, 2, 64, 64))
+            return pops.rwkv6_scan(r, k, v, logw, u, s0)
+        a, b = _meta((1, 8, 16), (1, 8, 16), grad=grad)
+        return pops.rglru_scan(a, b)
+
+    def backward():
+        if name == "rwkv6_scan":
+            r, k, v, logw, dy = _meta(*[(1, 8, 2, 64)] * 5)
+            u, s0, states = _meta((2, 64), (1, 2, 64, 64), (1, 2, 0, 64, 64))
+            return pops.rwkv6_scan_bwd(r, k, v, logw, u, s0, states, dy)
+        a, h, dh = _meta(*[(1, 8, 16)] * 3)
+        return pops.rglru_scan_bwd(a, None, h, dh)
+    fns = {"rwkv6_scan": pref.rwkv6_scan_ref, "rglru_scan": pref.rglru_scan_ref}
+    counters = (getattr(pops, name), getattr(pops, f"{name}_bwd"))
+    before = [c.launches for c in counters]
+    entered = []
+    fn_class = {"rwkv6_scan": prw.RWKV6ScanFn, "rglru_scan": prg.RGLRUScanFn}[name]
+    real_forward = fn_class.forward
+
+    def spy(ctx, *args):
+        entered.append(name)
+        return real_forward(ctx, *args)
+    with mock.patch.object(fn_class, "forward", staticmethod(spy)), \
+            mock.patch.object(pref, fns[name].__name__, side_effect=AssertionError("plain")):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            call(grad=True)
+        assert entered == [name]
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            backward()
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            call(grad=False)
+    assert entered == [name]
+    assert [c.launches for c in counters] == before
 
 
 def test_bwd_tile_config_refuses_what_has_no_kernel():
@@ -315,8 +355,8 @@ def test_every_kernel_source_has_its_own_hash():
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert names == ["flash_attention", "flash_attention_bwd", "moe_router", "rglru_scan",
-                     "rwkv6_scan"]
-    assert len({_build.source_digest(_build.CSRC_DIR / f"{n}.cu") for n in names}) == 5
+                     "rglru_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd"]
+    assert len({_build.source_digest(_build.CSRC_DIR / f"{n}.cu") for n in names}) == 7
 
 
 def test_threads_that_reach_a_kernel_together_build_it_once(tmp_path, monkeypatch):

@@ -4,9 +4,14 @@ On a CPU tensor ``repro_torch.kernels.ops.rwkv6_scan`` / ``rglru_scan`` run
 their plain versions; they are held against the JAX Pallas kernels
 (interpret mode, as tests/test_kernels.py runs them) and against
 ``repro.kernels.ref``, on the cases of ``TestRWKV6Scan`` and
-``TestRGLRUScan``.  The CUDA kernels themselves are held against the plain
-versions by the ``gpu`` tests, which skip without a card.
+``TestRGLRUScan``.  Their backwards (``rwkv6_scan_bwd``, ``rglru_scan_bwd``;
+JAX has no backward kernel and differentiates jnp) are held against
+``jax.grad`` of JAX's ``rwkv6_scan_ref``, of ``models.rwkv6._wkv_chunked``
+and of ``rglru_scan_ref``, and so is the backward kernel's chunked
+algorithm, emulated in plain PyTorch.  The CUDA kernels themselves are held
+against the plain versions by the ``gpu`` tests, which skip without a card.
 """
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -18,6 +23,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import rwkv6 as jrwkv6
 
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
@@ -29,6 +35,16 @@ from repro_torch.kernels import rwkv6_scan as prw
 # 1e-5 for the RG-LRU recurrence (one multiply-add per step).
 RWKV_ATOL = {"float32": 1e-4, "bfloat16": 5e-2}
 RGLRU_ATOL = 1e-5
+# Gradients against jax.grad, normwise (max |port - jax| over max(1, max
+# |jax|)): the kernel tolerances of tests/test_kernels.py, 2e-5 in fp32 (the
+# sums of a chunk, or of the sequential steps, in another order; readings at
+# most 6.2e-7 on these cases) and 2e-2 with bf16 r/k/v (each side rounds
+# its fp32 gradient to bf16 once).
+GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# K2's backward kernel against the plain backward on the card, normwise: the
+# limits chip_smoke.py holds it to (readings on an H100 at most 1.0e-6 in
+# fp32 and 3.6e-3, one bf16 ulp, with bf16 r/k/v).
+CARD_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
 
 
 def _rwkv_inputs(seed, B, S, H, N):
@@ -155,6 +171,206 @@ def test_two_pass_split_matches_jax(B, S, H, N, chunk, dtype, zero_state):
         np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=RWKV_ATOL[dtype])
 
 
+# -- K2's backward ----------------------------------------------------------------
+
+def _normwise(port, ref) -> float:
+    port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(port - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+def _cotangents(seed, B, S, H, N):
+    """dy and ds_out, the gradients of y and of the final state."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, N)).astype(np.float32),
+            rng.standard_normal((B, H, N, N)).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wkv_vjp(name, which):
+    """jax.vjp of JAX's sequential reference (``which="ref"``) or of its
+    chunked model scan (``"chunked"``), jitted, at the inputs of
+    ``BWD_CASES[name]``; one trace a case, shared by the tests."""
+    arrays, _, _, chunk, dtype = _bwd_case(name, False)
+    fn = jax.jit(jref.rwkv6_scan_ref if which == "ref"
+                 else functools.partial(jrwkv6._wkv_chunked, chunk=chunk))
+    jd = getattr(jnp, dtype)
+    xs = (*(jnp.asarray(a).astype(jd) for a in arrays[:3]), *(jnp.asarray(a) for a in arrays[3:]))
+    (y, s), vjp = jax.vjp(fn, *xs)
+    return vjp, y.dtype, s
+
+
+def _jax_wkv_grads(name, which, dy, ds_out):
+    """JAX's gradients of r, k, v, logw, u and the initial state at case
+    ``name``, for cotangents dy and ds_out (None: zeros)."""
+    vjp, y_dtype, s = _jax_wkv_vjp(name, which)
+    cot = (jnp.asarray(dy).astype(y_dtype),
+           jnp.zeros_like(s) if ds_out is None else jnp.asarray(ds_out))
+    return [np.asarray(g, np.float32) for g in vjp(cot)]
+
+
+def _bwd_emulation(r, k, v, logw, u, s0, dy, ds_out, chunk):
+    """K2's backward kernels in plain PyTorch, fp32, in chunks of min(chunk, S)
+    rows, term by term as ``csrc/rwkv6_scan_bwd.cu`` forms them: the chunk
+    states entering each chunk (the forward's workspace); the states
+    kernel's reverse walk, dS = e^{cL} dS' + (r e^{ce})^T dy, keeping the dS'
+    leaving each chunk; then every chunk at once: dr, dk and dv from A, dA,
+    S and dS', du summed over b and t, and dlogw_j = sum_{t>j} rho_t -
+    sum_{s>=j} kappa_s + sigma.  Returns (dr, dk, dv, dlogw, du, dstate)."""
+    B, S, H, N = r.shape
+    L = min(chunk, S)
+    nc = -(-S // L)
+    rc, kc, vc, wc, yc = (torch.nn.functional.pad(a.float(), (0, 0, 0, 0, 0, nc * L - S))
+                          .reshape(B, nc, L, H, N).permute(0, 3, 1, 2, 4)      # (B,H,nc,L,N)
+                          for a in (r, k, v, logw, dy))
+    cum = wc.cumsum(3)
+    ce = cum - wc
+    cl = cum[:, :, :, -1]                                                    # (B,H,nc,N)
+    kd = torch.exp(cl[:, :, :, None] - cum)                                  # e^{cL - c}
+    entering, state = [], s0.float()
+    for c in range(nc):
+        entering.append(state)
+        state = (torch.exp(cl[:, :, c])[..., None] * state
+                 + (kc[:, :, c] * kd[:, :, c]).transpose(-1, -2) @ vc[:, :, c])
+    S_in = torch.stack(entering, 2)                                          # (B,H,nc,N,N)
+    dS = torch.zeros_like(s0.float()) if ds_out is None else ds_out.float()
+    leaving = [None] * nc
+    for c in reversed(range(nc)):                                            # states kernel
+        leaving[c] = dS
+        dS = (torch.exp(cl[:, :, c])[..., None] * dS
+              + (rc[:, :, c] * torch.exp(ce[:, :, c])).transpose(-1, -2) @ yc[:, :, c])
+    dSp = torch.stack(leaving, 2)
+    below = torch.tril(torch.ones((L, L), dtype=torch.bool), diagonal=-1)    # grads kernel
+    E = torch.exp((ce[..., :, None, :] - cum[..., None, :, :]).masked_fill(
+        ~below[..., None], float("-inf")))                                   # (...,t,s,n)
+    uf = u.float()[None, :, None, None, :]
+    A = (torch.einsum("...tn,...sn,...tsn->...ts", rc, kc, E)
+         + torch.diag_embed((rc * uf * kc).sum(-1)))
+    dA = yc @ vc.transpose(-1, -2)
+    dA_below = dA * below
+    dA_diag = torch.diagonal(dA, dim1=-2, dim2=-1)[..., None]
+    intra_r = torch.einsum("...ts,...sn,...tsn->...tn", dA_below, kc, E)
+    inter_r = torch.exp(ce) * (yc @ S_in.transpose(-1, -2))
+    intra_k = torch.einsum("...ts,...tn,...tsn->...sn", dA_below, rc, E)
+    inter_k = kd * (vc @ dSp.transpose(-1, -2))
+    dr = intra_r + uf * kc * dA_diag + inter_r
+    dk = intra_k + uf * rc * dA_diag + inter_k
+    dv = (A * ~below.T).transpose(-1, -2) @ yc + (kc * kd) @ dSp
+    du = (rc * kc * dA_diag).sum((0, 2, 3))
+    rho, kappa = rc * (intra_r + inter_r), kc * (intra_k + inter_k)
+    sigma = torch.exp(cl) * (S_in * dSp).sum(-1) + (kc * inter_k).sum(3)
+    from_end = lambda x: x.flip(3).cumsum(3).flip(3)                         # sum over t >= j
+    dlogw = from_end(rho) - rho - from_end(kappa) + sigma[:, :, :, None]
+    back = lambda x: x.permute(0, 2, 3, 1, 4).reshape(B, nc * L, H, N)[:, :S]
+    return (back(dr).to(r.dtype), back(dk).to(r.dtype), back(dv).to(r.dtype), back(dlogw),
+            du, dS)
+
+
+BWD_CASES = {   # (B, S, H, N), chunk, dtype, zero initial state
+    "ragged last chunk": ((2, 50, 3, 16), 16, "float32", False),
+    "one row in the last chunk": ((1, 33, 2, 16), 16, "float32", False),
+    "one chunk shorter than L": ((2, 20, 2, 16), 32, "float32", False),
+    "zero initial state, 3 chunks": ((1, 96, 2, 16), 32, "float32", True),
+    "bf16 r/k/v, ragged": ((2, 50, 2, 16), 16, "bfloat16", False),
+}
+
+
+def _bwd_case(name, with_ds_out):
+    shape, chunk, dtype, zero = BWD_CASES[name]
+    arrays = list(_rwkv_inputs(12, *shape))
+    if zero:
+        arrays[5] = np.zeros_like(arrays[5])
+    dy, ds_out = _cotangents(13, *shape)
+    return arrays, dy, ds_out if with_ds_out else None, chunk, dtype
+
+
+def _port(arrays, dy, ds_out, dtype):
+    td = getattr(torch, dtype)
+    return (*(torch.from_numpy(a).to(td) for a in arrays[:3]),
+            *(torch.from_numpy(a) for a in arrays[3:]), torch.from_numpy(dy).to(td),
+            None if ds_out is None else torch.from_numpy(ds_out))
+
+
+def _assert_grads_close(port, expect, dtype, tol=GRAD_TOL):
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate")
+    errs = {n: _normwise(p.float().numpy(), e) for n, p, e in zip(names, port, expect)}
+    assert max(errs.values()) <= tol[dtype], errs
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+@pytest.mark.parametrize("with_ds_out", [False, True])
+def test_rwkv6_bwd_ref_matches_jax_grad(name, with_ds_out):
+    """The plain backward against jax.grad of JAX's sequential reference and
+    of its chunked model scan; without ds_out the final state is unused, as
+    in training."""
+    arrays, dy, ds_out, chunk, dtype = _bwd_case(name, with_ds_out)
+    xs = _port(arrays, dy, ds_out, dtype)
+    port = pops.rwkv6_scan_bwd(*xs[:6], None, *xs[6:])   # the plain version reads no states
+    td = getattr(torch, dtype)
+    assert [g.dtype for g in port] == [td, td, td] + [torch.float32] * 3
+    for which in ("ref", "chunked"):
+        _assert_grads_close(port, _jax_wkv_grads(name, which, dy, ds_out), dtype)
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+@pytest.mark.parametrize("with_ds_out", [False, True])
+def test_backward_split_matches_jax_grad(name, with_ds_out):
+    """The backward kernels' chunked algorithm (``_bwd_emulation``) gives
+    jax.grad of JAX's sequential reference."""
+    arrays, dy, ds_out, chunk, dtype = _bwd_case(name, with_ds_out)
+    port = _bwd_emulation(*_port(arrays, dy, ds_out, dtype), chunk)
+    _assert_grads_close(port, _jax_wkv_grads(name, "ref", dy, ds_out), dtype)
+
+
+# -- K3's backward ---------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,R", [(1, 32, 16), (3, 77, 40), (2, 5, 300)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_bwd_ref_matches_jax_grad(B, S, R, with_h0):
+    a, b, h0 = _rglru_inputs(14, B, S, R)
+    dh = np.random.default_rng(15).standard_normal((B, S, R)).astype(np.float32)
+    if with_h0:
+        h_j, vjp = jax.vjp(jref.rglru_scan_ref, *(jnp.asarray(x) for x in (a, b, h0)))
+        expect = vjp(jnp.asarray(dh))
+    else:
+        h_j, vjp = jax.vjp(lambda a_, b_: jref.rglru_scan_ref(a_, b_), jnp.asarray(a),
+                           jnp.asarray(b))
+        expect = (*vjp(jnp.asarray(dh)), None)
+    at, h0t = torch.from_numpy(a), torch.from_numpy(h0) if with_h0 else None
+    h = pops.rglru_scan(at, torch.from_numpy(b), h0t)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_j), atol=RGLRU_ATOL)
+    got = pops.rglru_scan_bwd(at, h0t, h, torch.from_numpy(dh))
+    assert (got[2] is None) == (not with_h0)
+    for g, e in zip(got, expect):
+        if e is not None:
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=RGLRU_ATOL)
+
+
+def test_backwards_on_cpu_run_the_plain_versions_without_counting():
+    """On CPU tensors ``rwkv6_scan_bwd`` and ``rglru_scan_bwd`` are the plain
+    versions, and autograd of ``rwkv6_scan`` / ``rglru_scan`` (the plain
+    forwards) gives the same gradients."""
+    arrays, dy, ds_out, chunk, _ = _bwd_case("ragged last chunk", True)
+    r, k, v, logw, u, s0, dyt, dst = _port(arrays, dy, ds_out, "float32")
+    a, b, h0 = (torch.from_numpy(x) for x in _rglru_inputs(16, 2, 20, 8))
+    dh = torch.from_numpy(np.random.default_rng(17).standard_normal((2, 20, 8)).astype(np.float32))
+    before = (pops.rwkv6_scan_bwd.launches, pops.rglru_scan_bwd.launches)
+    got = pops.rwkv6_scan_bwd(r, k, v, logw, u, s0, None, dyt, dst, chunk=chunk)
+    h = pops.rglru_scan(a, b, h0)
+    got3 = pops.rglru_scan_bwd(a, h0, h, dh)
+    assert (pops.rwkv6_scan_bwd.launches, pops.rglru_scan_bwd.launches) == before
+    for x, e in zip(got, pref.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, dyt, dst)):
+        torch.testing.assert_close(x, e, rtol=0, atol=0)
+    xs = [x.clone().requires_grad_() for x in (r, k, v, logw, u, s0)]
+    torch.autograd.backward(pops.rwkv6_scan(*xs, chunk=chunk), [dyt, dst])
+    for x, g in zip(xs, got):
+        torch.testing.assert_close(x.grad, g, rtol=0, atol=1e-6)
+    ys = [x.clone().requires_grad_() for x in (a, b, h0)]
+    pops.rglru_scan(*ys).backward(dh)
+    for x, g in zip(ys, got3):
+        torch.testing.assert_close(x.grad, g, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("B,S,R", [(1, 32, 16), (3, 77, 40), (2, 128, 64)])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_rglru_shape_sweep(B, S, R, with_h0):
@@ -277,6 +493,105 @@ def test_k2_kernel_names_match_the_trace_filter():
     assert _smoke().KERNELS_PER_CALL["rwkv6_scan"] == len(prw.PASSES) == 2
 
 
+@pytest.mark.parametrize("S,chunk,with_ds_out", [(64, 32, False), (50, 32, True), (20, 32, False)])
+def test_chip_smoke_rwkv6_bwd_bound(S, chunk, with_ds_out):
+    """Bytes: r, k, v, logw, u, state, dy (and ds_out) read once, their six
+    gradients written once.  Operations: the backward's, counted chunk by
+    chunk over the rows each holds, with one exponential a pair and channel
+    shared by A, dr and dk; on the tensor cores its four N^2 products as
+    3xTF32 beside the rest on the CUDA cores."""
+    smoke = _smoke()
+    B, H, N = 2, 3, 64
+    ts = [torch.from_numpy(a) for a in _rwkv_inputs(6, B, S, H, N)]
+    dy, ds_out = (torch.from_numpy(a) for a in _cotangents(7, B, S, H, N))
+    ms, by, flops, nbytes, tc_ms, tc_by = smoke.rwkv6_bwd_bound(
+        *ts, dy, ds_out if with_ds_out else None, chunk=chunk)
+    L = min(chunk, S)
+    ops = mm = 0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        P = n * (n - 1) // 2
+        ops += 15 * N * P + 39 * n * N + 4 * N * N + 3 * N
+        mm += 8 * n * N * N
+    assert flops == B * H * (ops + mm)
+    x, st = 4 * B * S * H * N, 4 * B * H * N * N
+    assert nbytes == 2 * (4 * x + 4 * H * N + st) + x + (st if with_ds_out else 0)
+    assert ms == pytest.approx(1e3 * max(flops / smoke.PEAK_FP32_FLOPS,
+                                         nbytes / smoke.PEAK_HBM_BYTES))
+    t_ops = max(B * H * ops / smoke.PEAK_FP32_FLOPS, 3 * B * H * mm / smoke.PEAK_TF32_FLOPS)
+    assert tc_ms == pytest.approx(1e3 * max(t_ops, nbytes / smoke.PEAK_HBM_BYTES))
+    assert tc_by == ("operations" if t_ops >= nbytes / smoke.PEAK_HBM_BYTES else "bytes")
+    assert tc_ms <= ms
+
+
+def test_chip_smoke_rwkv6_bwd_bound_at_the_training_shape():
+    """At B=8 S=512 H=32 N=64 L=32 the CUDA-core bound is set by operations
+    and the tensor-core bound by bytes (about 310 MB)."""
+    smoke = _smoke()
+    B, S, H, N = 8, 512, 32, 64
+    t = torch.empty((B, S, H, N), device="meta")
+    u, st = torch.empty((H, N), device="meta"), torch.empty((B, H, N, N), device="meta")
+    ms, by, flops, nbytes, tc_ms, tc_by = smoke.rwkv6_bwd_bound(t, t, t, t, u, st, t)
+    assert by == "operations" and tc_by == "bytes"
+    assert nbytes == 9 * 4 * B * S * H * N + 2 * 4 * H * N + 2 * 4 * B * H * N * N
+    assert tc_ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_chip_smoke_rglru_bwd_bound(with_h0):
+    smoke = _smoke()
+    a, b, h0 = (torch.from_numpy(x) for x in _rglru_inputs(7, 2, 30, 24))
+    h0 = h0 if with_h0 else None
+    ms, by, flops, nbytes = smoke.rglru_bwd_bound(a, h0, b, a)
+    lanes = 0 if h0 is None else h0.numel()
+    assert flops == 3 * a.numel() + 2 * lanes
+    assert nbytes == 4 * (5 * a.numel() + 2 * lanes)
+    assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
+
+
+def test_k2_bwd_kernel_names_match_the_trace_filter():
+    """chip_smoke finds the backward's kernels by ``rwkv6_scan_bwd_`` and
+    counts three launches a call, and no filter of a forward takes a
+    backward kernel for its own."""
+    smoke = _smoke()
+    src = (Path(prw.__file__).parent / "csrc" / "rwkv6_scan_bwd.cu").read_text()
+    names = [f"rwkv6_scan_bwd_{p}_kernel" for p in prw.BWD_PASSES]
+    assert all(f"{n}(" in src or f"{n}<" in src for n in names)
+    assert smoke.KERNELS_PER_CALL["rwkv6_scan_bwd"] == len(prw.BWD_PASSES) == 3
+    assert "rglru_scan_bwd_kernel" in (Path(prg.__file__).parent / "csrc"
+                                       / "rglru_scan_bwd.cu").read_text()
+    keys = [f"void (anonymous namespace)::{n}<float>(Params)" for n in names] + \
+        ["(anonymous namespace)::rglru_scan_bwd_kernel(float const*)"]
+    for key in keys:
+        owners = [n for n in smoke.KERNELS if smoke.ours(n, key)]
+        assert owners == ["rglru_scan_bwd" if "rglru" in key else "rwkv6_scan_bwd"], key
+    for n in ("rwkv6_scan_states_kernel", "rwkv6_scan_outputs_kernel", "rglru_scan_kernel"):
+        key = f"void (anonymous namespace)::{n}<float>(Params)"
+        assert [k for k in smoke.KERNELS if smoke.ours(k, key)] == [n[:10]], key
+
+
+@pytest.mark.parametrize("arch,n_layers,expect", [
+    ("rwkv6-1.6b", None, {"rwkv6_scan": 24, "rwkv6_scan_bwd": 24}),
+    ("recurrentgemma-9b", 3, {"rglru_scan": 4, "rglru_scan_bwd": 2, "flash_attention": 2,
+                              "flash_attention_bwd": 1}),
+    ("recurrentgemma-9b", 6, {"rglru_scan": 8, "rglru_scan_bwd": 4, "flash_attention": 4,
+                              "flash_attention_bwd": 2}),
+    ("smollm-135m", None, {"flash_attention": 30, "flash_attention_bwd": 30}),
+])
+def test_chip_smoke_expected_train_launches(arch, n_layers, expect):
+    """A train step launches each kernel's forward and backward once a layer,
+    and with remat (recurrentgemma) each forward once more."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    smoke = _smoke()
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    got = smoke.expected_train_launches(cfg, 2)
+    assert got == {n: 2 * expect.get(n, 0) for n in smoke.KERNELS}
+
+
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_chip_smoke_rglru_bound(with_h0):
     smoke = _smoke()
@@ -344,3 +659,88 @@ def test_rglru_kernel_matches_plain_version_on_card(cuda_device, B, S, R, with_h
     torch.cuda.synchronize()
     assert pops.rglru_scan.launches == before + 1
     torch.testing.assert_close(h, pref.rglru_scan_ref(a, b, h0), rtol=0, atol=RGLRU_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,N,chunk,with_ds_out", [
+    (8, 512, 32, 64, 32, False),   # rwkv6-1.6b train, the final state unused
+    (2, 50, 3, 64, 32, True),      # ragged last chunk
+    (2, 20, 2, 64, 32, True),      # one chunk shorter than L
+    (1, 33, 4, 64, 16, True),      # one row in the last chunk
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_bwd_kernel_matches_plain_version_on_card(cuda_device, B, S, H, N, chunk,
+                                                        with_ds_out, dtype):
+    """K2's backward against the plain backward, and two runs bit for bit."""
+    r, k, v, logw, u, s0 = (torch.from_numpy(a).to(cuda_device)
+                            for a in _rwkv_inputs(18, B, S, H, N))
+    dy, ds_out = (torch.from_numpy(a).to(cuda_device) for a in _cotangents(19, B, S, H, N))
+    r, k, v, dy = (t.to(getattr(torch, dtype)) for t in (r, k, v, dy))
+    ds_out = ds_out if with_ds_out else None
+    states = prw.rwkv6_scan_cuda(r, k, v, logw, u, s0, chunk=chunk, return_states=True)[2]
+    before = pops.rwkv6_scan_bwd.launches
+    got = pops.rwkv6_scan_bwd(r, k, v, logw, u, s0, states, dy, ds_out, chunk=chunk)
+    again = pops.rwkv6_scan_bwd(r, k, v, logw, u, s0, states, dy, ds_out, chunk=chunk)
+    torch.cuda.synchronize()
+    assert pops.rwkv6_scan_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    expect = pref.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, dy, ds_out)
+    _assert_grads_close([g.cpu() for g in got], [e.float().cpu().numpy() for e in expect],
+                        dtype, CARD_GRAD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_scan_fn_matches_autograd_of_plain_on_card(cuda_device, dtype):
+    """A call that needs a gradient goes through RWKV6ScanFn: its gradients
+    against autograd of the plain forward, in the inputs' dtypes."""
+    arrays = _rwkv_inputs(20, 2, 100, 4, 64)
+    dy, ds_out = (torch.from_numpy(a).to(cuda_device) for a in _cotangents(21, 2, 100, 4, 64))
+    td = getattr(torch, dtype)
+    xs = [torch.from_numpy(a).to(cuda_device).to(td if i < 3 else torch.float32)
+          .requires_grad_() for i, a in enumerate(arrays)]
+    before = (pops.rwkv6_scan.launches, pops.rwkv6_scan_bwd.launches)
+    torch.autograd.backward(pops.rwkv6_scan(*xs), [dy.to(td), ds_out])
+    assert (pops.rwkv6_scan.launches, pops.rwkv6_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    xr = [x.detach().float().requires_grad_() for x in xs]
+    torch.autograd.backward(pref.rwkv6_scan_ref(*xr), [dy.to(td).float(), ds_out])
+    assert [x.grad.dtype for x in xs] == [x.dtype for x in xs]
+    _assert_grads_close([x.grad.cpu() for x in xs], [x.grad.cpu().numpy() for x in xr], dtype,
+                        CARD_GRAD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,R", [(8, 512, 4096), (3, 77, 40), (2, 5, 300)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_bwd_kernel_matches_plain_version_on_card(cuda_device, B, S, R, with_h0):
+    a, b, h0 = (torch.from_numpy(x).to(cuda_device) for x in _rglru_inputs(22, B, S, R))
+    h0 = h0 if with_h0 else None
+    dh = torch.randn(a.shape, generator=torch.Generator(device=cuda_device).manual_seed(23),
+                     device=cuda_device)
+    h = pops.rglru_scan(a, b, h0)
+    before = pops.rglru_scan_bwd.launches
+    got = pops.rglru_scan_bwd(a, h0, h, dh)
+    again = pops.rglru_scan_bwd(a, h0, h, dh)
+    torch.cuda.synchronize()
+    assert pops.rglru_scan_bwd.launches == before + 2
+    assert all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, again))
+    for x, y in zip(got, pref.rglru_scan_bwd_ref(a, h0, h, dh)):
+        assert (x is None) == (y is None)
+        if x is not None:
+            torch.testing.assert_close(x, y, rtol=0, atol=RGLRU_ATOL)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_fn_matches_autograd_of_plain_on_card(cuda_device):
+    xs = [torch.from_numpy(x).to(cuda_device).requires_grad_()
+          for x in _rglru_inputs(24, 2, 300, 1000)]
+    dh = torch.randn((2, 300, 1000), device=cuda_device)
+    before = (pops.rglru_scan.launches, pops.rglru_scan_bwd.launches)
+    pops.rglru_scan(*xs).backward(dh)
+    assert (pops.rglru_scan.launches, pops.rglru_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    xr = [x.detach().clone().requires_grad_() for x in xs]
+    pref.rglru_scan_ref(*xr).backward(dh)
+    for x, y in zip(xs, xr):
+        torch.testing.assert_close(x.grad, y.grad, rtol=0, atol=RGLRU_ATOL)
