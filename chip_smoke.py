@@ -486,6 +486,25 @@ def rwkv6_design_floor(r, k, v, logw, u, state, chunk=32):
     return nbytes / PEAK_HBM_BYTES * 1e3, nbytes
 
 
+def rwkv6_bwd_design_floor(r, k, v, logw, u, state, dy, ds_out=None, chunk=32):
+    """Least time of K2's backward as its three passes are designed, on this
+    card: the bytes they must move over HBM, workspaces included.  The
+    states kernel reads r, logw, dy (and ds_out) and writes dS' of every
+    chunk (the workspace dws, (B, H, nc, N, N) fp32) and dstate; the grads
+    kernel reads r, k, v, dy, logw, u, the initial state, the forward's
+    workspace (the state entering chunks 1 .. nc-1) and dws, and writes dr,
+    dk, dv, dlogw and a partial of du a (b, chunk) (B, nc, H, N fp32); the
+    du kernel reads the partials and writes du.  Returns (ms, bytes)."""
+    B, S, H, N = r.shape
+    nc = -(-S // min(chunk, S))
+    ws, dws, du_part = (B * H * (nc - 1) * N * N * 4, B * H * nc * N * N * 4,
+                        B * nc * H * N * 4)
+    nbytes = (_nbytes(r, logw, dy, ds_out) + dws + _nbytes(state)
+              + _nbytes(r, k, v, dy, logw, u, state) + ws + dws + _nbytes(r, k, v, logw) + du_part
+              + du_part + _nbytes(u))
+    return nbytes / PEAK_HBM_BYTES * 1e3, nbytes
+
+
 def rglru_bound(a, b, h0=None):
     """Least time for h_t = a_t h_{t-1} + b_t: 2 flops per element; a and b
     (and h0) read once, h written once."""
@@ -544,13 +563,19 @@ def moe_router_bound(logits, top_k):
     return _bound(T * ((5 + top_k) * E + 2 * top_k), _nbytes(logits) + T * top_k * 8)
 
 
-def rwkv_inputs(torch, dev, seed, B, S, H, N, dtype):
+# logw = -exp(N(0, 0.5) + shift): TestRWKV6Scan's draw, about 0.14 an
+# e-fold a step; STRONG_DECAY about 3.1, so e^{ce_t - c_s} spans tens of
+# e-folds within a chunk (about 100 over 32 rows).
+USUAL_DECAY, STRONG_DECAY = -2.0, 1.0
+
+
+def rwkv_inputs(torch, dev, seed, B, S, H, N, dtype, decay=USUAL_DECAY):
     """The draws of TestRWKV6Scan, on the card: r/k/v in ``dtype``; logw, u
-    and the initial state in fp32."""
+    and the initial state in fp32; ``decay`` shifts log(-logw)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     n = lambda shape, scale: torch.randn(shape, generator=g, device=dev) * scale
     r, k, v = (n((B, S, H, N), 0.5).to(dtype) for _ in range(3))
-    logw = -torch.exp(n((B, S, H, N), 0.5) - 2.0)
+    logw = -torch.exp(n((B, S, H, N), 0.5) + decay)
     return r, k, v, logw, n((H, N), 0.3), n((B, H, N, N), 0.2)
 
 
@@ -723,15 +748,29 @@ def report_k2_build(torch, ops, rw, nvcc: str, lib: Path, build_log: str, card: 
     return out
 
 
-def report_k2_bwd_build(torch, ops, rw, build_log: str, card: str) -> dict:
+def sass_counts(ins) -> dict:
+    """One kernel's SASS (``parse_sass``) counted: all its instructions,
+    HMMA (tensor core), MUFU.EX2 (exponentials), LDS (shared-memory loads,
+    LDSM among them) and LDSM (ldmatrix)."""
+    ops_ = [op for _, op, _ in ins]
+    return {"instructions": len(ops_), "HMMA": sum(o.startswith("HMMA") for o in ops_),
+            "MUFU.EX2": ops_.count("MUFU.EX2"), "LDS": sum(o.startswith("LDS") for o in ops_),
+            "LDSM": sum(o.startswith("LDSM") for o in ops_)}
+
+
+def report_k2_bwd_build(torch, ops, rw, nvcc: str, lib: Path, build_log: str,
+                        card: str) -> tuple:
     """For each of the kernels of K2's backward (``rw.BWD_PASSES``) and
     dtype: registers and spills (ptxas), dynamic shared memory and blocks an
-    SM (the card), and device ms a call at the training shape
+    SM (the card), its SASS counted (``sass_counts``: instructions, HMMA,
+    MUFU.EX2, LDS), and device ms a call at the training shape
     (``device_kernels``, B=8 S=512 H=32 N=64 L=32, no final-state
-    gradient).  Returns {dtype: {pass: ms}}."""
+    gradient).  The grads kernel must hold HMMA: its products run on the
+    tensor cores.  Returns {dtype: {pass: ms}} and {dtype: {pass: counts}}."""
     ptx = ptxas_kernels(build_log)
+    sass = {fn: sass_counts(ins) for fn, ins in sass_instructions(nvcc, lib).items()}
     dev = torch.device("cuda", 0)
-    out = {}
+    out, counts = {}, {}
     for dtype, tag in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
         name = str(dtype)[6:]
         r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 700, 8, 512, 32, 64, dtype)
@@ -741,18 +780,22 @@ def report_k2_bwd_build(torch, ops, rw, build_log: str, card: str) -> dict:
         found = device_kernels(torch, f"rwkv6_scan_bwd {name} kernels",
                                lambda: ops.rwkv6_scan_bwd(r, k, v, logw, u, s0, states, dy))
         occ = rw.bwd_occupancy(dtype, 32)
-        out[name] = {}
+        out[name], counts[name] = {}, {}
         for pas in rw.BWD_PASSES:
             kernel = f"rwkv6_scan_bwd_{pas}_kernel"
-            regs = [c for fn, c in ptx.items() if kernel in fn and (pas == "du" or f"I{tag}E" in fn)]
-            assert len(regs) == 1, f"no single {kernel} for {name}"
+            mine = lambda fn: kernel in fn and (pas == "du" or f"I{tag}E" in fn)
+            regs = [c for fn, c in ptx.items() if mine(fn)]
+            code = [c for fn, c in sass.items() if mine(fn)]
+            assert len(regs) == 1 and len(code) == 1, f"no single {kernel} for {name}"
+            counts[name][pas] = code[0]
             out[name][pas] = None if found is None else per_call_ms(found, 10, kernel)
             assert out[name][pas] is None or out[name][pas] > 0, f"no device time for {kernel}"
             log(f"[build] rwkv6_scan_bwd {pas} kernel {name}: {regs[0]}, "
                 f"{occ[pas]['smem_bytes']} B of dynamic shared memory (L=32), "
-                f"{occ[pas]['blocks_per_sm']} blocks an SM; {out[name][pas]!r} ms device time a "
-                f"call at B=8 S=512 H=32 N=64 L=32 {card}")
-    return out
+                f"{occ[pas]['blocks_per_sm']} blocks an SM; SASS {code[0]}; "
+                f"{out[name][pas]!r} ms device time a call at B=8 S=512 H=32 N=64 L=32 {card}")
+        assert counts[name]["grads"]["HMMA"] > 0, f"K2's backward grads kernel runs no HMMA ({name})"
+    return out, counts
 
 
 # -- phase 2 ---------------------------------------------------------------------------
@@ -989,8 +1032,11 @@ def check_rglru(torch, dev, ops, ref) -> float:
 # 1.0e-6 in fp32 (du at the training shape, a sum over 8 x 512 steps) and
 # 3.6e-3 with bf16 r/k/v (about one bf16 ulp of dr): 1e-5 and 1.5e-2, K1's
 # backward's limits; RWKV6ScanFn against autograd of the plain forward at
-# most 3.9e-7.  K3 at most 9.5e-7 (RGLRUScanFn 1.9e-6): 1e-5, the RG-LRU
-# tolerance of tests/test_kernels.py.
+# most 3.9e-7.  With strong decay (STRONG_DECAY) fp32 reads 5.5e-6, whatever
+# the kernel's design: a chunked scan takes each exponent as a difference of
+# running sums of logw near -100, which rounds it by about 6e-6.  K3 at most
+# 9.5e-7 (RGLRUScanFn 1.9e-6): 1e-5, the RG-LRU tolerance of
+# tests/test_kernels.py.
 K2_BWD_TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
 K3_BWD_TOL = 1e-5
 RWKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "dstate")
@@ -1022,10 +1068,17 @@ def check_rwkv6_bwd(torch, dev, ops, ref, rw) -> float:
         ("one row in the last chunk", (1, 33, 4, 64), 16, f32, False, True),
         ("one chunk shorter than L", (2, 20, 4, 64), 32, f32, False, True),
         ("chunks are all the parallelism", (1, 2051, 2, 64), 32, f32, False, False),
+        # the grads kernel's sub-chunks are 16 rows: chunks of 24 (and a
+        # last one of 3) cut one short; strong decay, tens of e-folds a chunk
+        ("chunk 24, not a multiple of 16", (1, 75, 4, 64), 24, f32, False, True),
+        ("chunk 24 bf16", (1, 75, 4, 64), 24, bf16, False, True),
+        ("strong decay", (2, 100, 32, 64), 32, f32, False, True),
+        ("strong decay bf16", (2, 100, 32, 64), 32, bf16, False, True),
     ]
     main_err = None
     for i, (name, shape, chunk, dtype, zero, with_ds) in enumerate(cases):
-        r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 700 + i, *shape, dtype)
+        decay = STRONG_DECAY if name.startswith("strong") else USUAL_DECAY
+        r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 700 + i, *shape, dtype, decay)
         if zero:
             s0.zero_()
         dy, ds_out = rwkv_cotangents(torch, dev, 750 + i, r, s0, dtype)
@@ -2090,10 +2143,10 @@ def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed) -
 def time_scan_backwards(torch, dev, ops, ref, rw, card) -> dict:
     """K2's and K3's backwards at the training shapes, as the train phase
     calls them (no final-state gradient, h0 None): each kernel and its plain
-    version interleaved (``time_pair``), the bound, and K2's in bf16 and its
-    bound on the tensor cores.
-    Returns {name: (ms, plain ms, bound, library ms, bf16 ms, tensor-core
-    bound ms)}."""
+    version interleaved (``time_pair``), the bound, and K2's in bf16, its
+    bound on the tensor cores and its design's floor
+    (``rwkv6_bwd_design_floor``).  Returns {name: (ms, plain ms, bound,
+    library ms, bf16 ms, tensor-core bound ms, design floor ms)}."""
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     r, k, v, logw, u, s0 = rwkv_inputs(torch, dev, 700, 8, 512, 32, 64, f32)
@@ -2107,7 +2160,8 @@ def time_scan_backwards(torch, dev, ops, ref, rw, card) -> dict:
     states_b = rw.rwkv6_scan_cuda(rb, kb, vb, logw, u, s0, return_states=True)[2]
     bf16_ms = time_ms(lambda: ops.rwkv6_scan_bwd(rb, kb, vb, logw, u, s0, states_b, dyb))
     bound = rwkv6_bwd_bound(r, k, v, logw, u, s0, dy)
-    out["rwkv6_scan_bwd"] = (kms, pms, bound[:4], None, bf16_ms, bound[4])
+    floor_ms, floor_bytes = rwkv6_bwd_design_floor(r, k, v, logw, u, s0, dy)
+    out["rwkv6_scan_bwd"] = (kms, pms, bound[:4], None, bf16_ms, bound[4], floor_ms)
     shape = "B=8 S=512 H=32 N=64 L=32, no final-state gradient"
     log(f"[time] rwkv6_scan_bwd kernel fp32 {shape}: {kms!r} ms {card} (runs {runs})")
     log(f"[time] rwkv6_scan_bwd kernel bf16 r/k/v {shape}: {bf16_ms!r} ms {card}")
@@ -2115,6 +2169,8 @@ def time_scan_backwards(torch, dev, ops, ref, rw, card) -> dict:
         f"{pms!r} ms {card}")
     log(f"[time] rwkv6_scan_bwd bound with its four N^2 products as 3xTF32 on the tensor "
         f"cores: {bound[4]!r} ms by {bound[5]} {card}")
+    log(f"[time] rwkv6_scan_bwd three-pass design's floor fp32 {shape}: {floor_ms!r} ms by "
+        f"bytes ({floor_bytes:.4g} bytes, workspaces included) {card}")
     del r, k, v, logw, u, s0, dy, states, rb, kb, vb, dyb, states_b
 
     a, b, _ = rglru_inputs(torch, dev, 800, 8, 512, 4096)
@@ -2122,7 +2178,7 @@ def time_scan_backwards(torch, dev, ops, ref, rw, card) -> dict:
     dh = torch.randn(a.shape, generator=torch.Generator(device=dev).manual_seed(850), device=dev)
     kms, pms, runs = time_pair(lambda: ops.rglru_scan_bwd(a, None, h, dh),
                                lambda: ref.rglru_scan_bwd_ref(a, None, h, dh), 10)
-    out["rglru_scan_bwd"] = (kms, pms, rglru_bwd_bound(a, None, h, dh), None, None, None)
+    out["rglru_scan_bwd"] = (kms, pms, rglru_bwd_bound(a, None, h, dh), None, None, None, None)
     log(f"[time] rglru_scan_bwd kernel fp32 B=8 S=512 R=4096, h0=None: {kms!r} ms {card} "
         f"(runs {runs})")
     log(f"[time] rglru_scan_bwd plain version fp32 B=8 S=512 R=4096: {pms!r} ms {card}")
@@ -2269,7 +2325,8 @@ def main() -> int:
     k2_info = infos[KERNELS.index("rwkv6_scan")]
     k2_passes = report_k2_build(torch, ops, rw, _build._nvcc(), k2_info.path, k2_info.log, card)
     k2b_info = infos[KERNELS.index("rwkv6_scan_bwd")]
-    k2_bwd_passes = report_k2_bwd_build(torch, ops, rw, k2b_info.log, card)
+    k2_bwd_passes, k2_bwd_sass = report_k2_bwd_build(torch, ops, rw, _build._nvcc(),
+                                                     k2b_info.path, k2b_info.log, card)
 
     # -- 3. train smollm-135m at full width --------------------------------------------------------
     train = run_train(card, torch, ops, dev)
@@ -2374,9 +2431,10 @@ def main() -> int:
         shapes={label: {key: val for key, val in r.items() if key != "bound"}
                 for label, r in router.items()})
     k2 = kernels[KERNELS.index("rwkv6_scan")]
-    k2.update(bf16_ms=bf16_ms, pass_ms=k2_passes)
+    k2.update(bf16_ms=bf16_ms, pass_ms=k2_passes, design_floor_ms=floor_ms)
     kernels[KERNELS.index("rwkv6_scan_bwd")].update(
-        bf16_ms=bwd_times["rwkv6_scan_bwd"][4], pass_ms=k2_bwd_passes,
+        bf16_ms=bwd_times["rwkv6_scan_bwd"][4], pass_ms=k2_bwd_passes, sass=k2_bwd_sass,
+        design_floor_ms=bwd_times["rwkv6_scan_bwd"][6],
         train_step={k: v for k, v in train_r["rwkv6-1.6b"].items() if k != "launches"})
     kernels[KERNELS.index("rglru_scan_bwd")]["train_step"] = {
         k: v for k, v in train_r["recurrentgemma-9b"].items() if k != "launches"}

@@ -99,6 +99,12 @@ def rwkv6_scan_cuda(
     return (y, s_out, ws) if return_states else (y, s_out)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it in a fresh allocation when its data does not
+    start on a 16-byte boundary (a contiguous view at an odd offset)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_fn():
     fn = _build.load_library("rwkv6_scan_bwd").rwkv6_scan_bwd
@@ -136,8 +142,9 @@ def rwkv6_scan_bwd_cuda(
         raise ValueError(f"states {tuple(states.shape)} {states.dtype} on {states.device}: "
                          f"need the forward's workspace {(B, H, nc - 1, N, N)} float32 on "
                          f"{r.device}")
-    r, k, v, logw, state, states = (t.contiguous() for t in (r, k, v, logw, state, states))
-    dy = dy.to(r.dtype).contiguous()
+    # the grads kernel reads its tiles 16 bytes at a time
+    r, k, v, logw, state, states, dy = (_aligned(t.contiguous())
+                                        for t in (r, k, v, logw, state, states, dy.to(r.dtype)))
     if ds_out is not None:
         ds_out = ds_out.to(torch.float32).contiguous()
     u32 = u.to(torch.float32).contiguous()

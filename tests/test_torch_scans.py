@@ -7,8 +7,9 @@ their plain versions; they are held against the JAX Pallas kernels
 ``TestRGLRUScan``.  Their backwards (``rwkv6_scan_bwd``, ``rglru_scan_bwd``;
 JAX has no backward kernel and differentiates jnp) are held against
 ``jax.grad`` of JAX's ``rwkv6_scan_ref``, of ``models.rwkv6._wkv_chunked``
-and of ``rglru_scan_ref``, and so is the backward kernel's chunked
-algorithm, emulated in plain PyTorch.  The CUDA kernels themselves are held
+and of ``rglru_scan_ref``, and so are the backward kernels' chunked
+algorithm and its grads kernel's sub-chunk decomposition, emulated in
+plain PyTorch.  The CUDA kernels themselves are held
 against the plain versions by the ``gpu`` tests, which skip without a card.
 """
 import functools
@@ -43,16 +44,24 @@ RGLRU_ATOL = 1e-5
 GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # K2's backward kernel against the plain backward on the card, normwise: the
 # limits chip_smoke.py holds it to (readings on an H100 at most 1.0e-6 in
-# fp32 and 3.6e-3, one bf16 ulp, with bf16 r/k/v).
+# fp32, 5.5e-6 with strong decay, and 3.6e-3, one bf16 ulp, with bf16
+# r/k/v).
 CARD_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
 
 
-def _rwkv_inputs(seed, B, S, H, N):
-    """The draws of TestRWKV6Scan._inputs, made with numpy."""
+# log(-logw) ~ N(shift, 0.5): TestRWKV6Scan's draw (-2.0, about 0.14 an
+# e-fold a step), and a strong decay (about 3.1 a step: e^{ce_t - c_s}
+# spans tens of e-folds within a chunk).
+USUAL_DECAY, STRONG_DECAY = -2.0, 1.0
+
+
+def _rwkv_inputs(seed, B, S, H, N, decay=USUAL_DECAY):
+    """The draws of TestRWKV6Scan._inputs, made with numpy; ``decay`` shifts
+    log(-logw)."""
     rng = np.random.default_rng(seed)
     n = lambda shape, scale: (rng.standard_normal(shape) * scale).astype(np.float32)
     r, k, v = n((B, S, H, N), 0.5), n((B, S, H, N), 0.5), n((B, S, H, N), 0.5)
-    logw = -np.exp(n((B, S, H, N), 0.5) - 2.0)
+    logw = -np.exp(n((B, S, H, N), 0.5) + decay)
     return r, k, v, logw, n((H, N), 0.3), n((B, H, N, N), 0.2)
 
 
@@ -208,14 +217,11 @@ def _jax_wkv_grads(name, which, dy, ds_out):
     return [np.asarray(g, np.float32) for g in vjp(cot)]
 
 
-def _bwd_emulation(r, k, v, logw, u, s0, dy, ds_out, chunk):
-    """K2's backward kernels in plain PyTorch, fp32, in chunks of min(chunk, S)
-    rows, term by term as ``csrc/rwkv6_scan_bwd.cu`` forms them: the chunk
-    states entering each chunk (the forward's workspace); the states
-    kernel's reverse walk, dS = e^{cL} dS' + (r e^{ce})^T dy, keeping the dS'
-    leaving each chunk; then every chunk at once: dr, dk and dv from A, dA,
-    S and dS', du summed over b and t, and dlogw_j = sum_{t>j} rho_t -
-    sum_{s>=j} kappa_s + sigma.  Returns (dr, dk, dv, dlogw, du, dstate)."""
+def _chunks(r, k, v, logw, dy, chunk):
+    """(r, k, v, logw, dy) padded to whole chunks of L = min(chunk, S) rows
+    (0, and logw 0, past S) as (B, H, nc, L, N) fp32, with the running sums
+    c (inclusive) and ce (exclusive) of logw and cL, c at each chunk's last
+    row (B, H, nc, N)."""
     B, S, H, N = r.shape
     L = min(chunk, S)
     nc = -(-S // L)
@@ -223,22 +229,48 @@ def _bwd_emulation(r, k, v, logw, u, s0, dy, ds_out, chunk):
                           .reshape(B, nc, L, H, N).permute(0, 3, 1, 2, 4)      # (B,H,nc,L,N)
                           for a in (r, k, v, logw, dy))
     cum = wc.cumsum(3)
-    ce = cum - wc
-    cl = cum[:, :, :, -1]                                                    # (B,H,nc,N)
+    return rc, kc, vc, yc, cum, cum - wc, cum[:, :, :, -1]
+
+
+def _state_walks(rc, kc, vc, yc, cum, ce, cl, s0, ds_out):
+    """The forward's chunk states S entering each chunk, and the states
+    kernel's reverse walk, dS = e^{cL} dS' + (r e^{ce})^T dy, keeping the
+    dS' leaving each chunk: (S (B,H,nc,N,N), dS' (B,H,nc,N,N), dstate)."""
+    nc = rc.shape[2]
     kd = torch.exp(cl[:, :, :, None] - cum)                                  # e^{cL - c}
     entering, state = [], s0.float()
     for c in range(nc):
         entering.append(state)
         state = (torch.exp(cl[:, :, c])[..., None] * state
                  + (kc[:, :, c] * kd[:, :, c]).transpose(-1, -2) @ vc[:, :, c])
-    S_in = torch.stack(entering, 2)                                          # (B,H,nc,N,N)
     dS = torch.zeros_like(s0.float()) if ds_out is None else ds_out.float()
     leaving = [None] * nc
-    for c in reversed(range(nc)):                                            # states kernel
+    for c in reversed(range(nc)):
         leaving[c] = dS
         dS = (torch.exp(cl[:, :, c])[..., None] * dS
               + (rc[:, :, c] * torch.exp(ce[:, :, c])).transpose(-1, -2) @ yc[:, :, c])
-    dSp = torch.stack(leaving, 2)
+    return torch.stack(entering, 2), torch.stack(leaving, 2), dS
+
+
+def _unchunk(x, S):
+    B, H, nc, L, N = x.shape
+    return x.permute(0, 2, 3, 1, 4).reshape(B, nc * L, H, N)[:, :S]
+
+
+def _bwd_emulation(r, k, v, logw, u, s0, dy, ds_out, chunk):
+    """K2's backward's chunked algorithm in plain PyTorch, fp32, in chunks of
+    min(chunk, S) rows, with every pair's decay e^{ce_t - c_s} taken over
+    the whole chunk: the chunk states entering each chunk (the forward's
+    workspace); the states kernel's reverse walk, dS = e^{cL} dS' +
+    (r e^{ce})^T dy, keeping the dS' leaving each chunk; then every chunk at
+    once: dr, dk and dv from A, dA, S and dS', du summed over b and t, and
+    dlogw_j = sum_{t>j} rho_t - sum_{s>=j} kappa_s + sigma.  Returns (dr,
+    dk, dv, dlogw, du, dstate)."""
+    S = r.shape[1]
+    rc, kc, vc, yc, cum, ce, cl = _chunks(r, k, v, logw, dy, chunk)
+    L = rc.shape[3]
+    kd = torch.exp(cl[:, :, :, None] - cum)                                  # e^{cL - c}
+    S_in, dSp, dS = _state_walks(rc, kc, vc, yc, cum, ce, cl, s0, ds_out)
     below = torch.tril(torch.ones((L, L), dtype=torch.bool), diagonal=-1)    # grads kernel
     E = torch.exp((ce[..., :, None, :] - cum[..., None, :, :]).masked_fill(
         ~below[..., None], float("-inf")))                                   # (...,t,s,n)
@@ -260,23 +292,102 @@ def _bwd_emulation(r, k, v, logw, u, s0, dy, ds_out, chunk):
     sigma = torch.exp(cl) * (S_in * dSp).sum(-1) + (kc * inter_k).sum(3)
     from_end = lambda x: x.flip(3).cumsum(3).flip(3)                         # sum over t >= j
     dlogw = from_end(rho) - rho - from_end(kappa) + sigma[:, :, :, None]
-    back = lambda x: x.permute(0, 2, 3, 1, 4).reshape(B, nc * L, H, N)[:, :S]
-    return (back(dr).to(r.dtype), back(dk).to(r.dtype), back(dv).to(r.dtype), back(dlogw),
-            du, dS)
+    return (_unchunk(dr, S).to(r.dtype), _unchunk(dk, S).to(r.dtype),
+            _unchunk(dv, S).to(r.dtype), _unchunk(dlogw, S), du, dS)
 
 
-BWD_CASES = {   # (B, S, H, N), chunk, dtype, zero initial state
-    "ragged last chunk": ((2, 50, 3, 16), 16, "float32", False),
-    "one row in the last chunk": ((1, 33, 2, 16), 16, "float32", False),
-    "one chunk shorter than L": ((2, 20, 2, 16), 32, "float32", False),
-    "zero initial state, 3 chunks": ((1, 96, 2, 16), 32, "float32", True),
-    "bf16 r/k/v, ragged": ((2, 50, 2, 16), 16, "bfloat16", False),
+SUBCHUNK = 16   # the grads kernel's sub-chunk rows (csrc/rwkv6_scan_bwd.cu, LS)
+
+
+def _exp_le1(x, scale):
+    """e^x for exponents that are never above 0, but for the rounding of the
+    running sums (of magnitude ``scale``) that they are differences of: what
+    keeps the factors of the sub-chunk decomposition from overflowing."""
+    assert float(x.max()) <= 8 * 2.0**-24 * max(1.0, scale), float(x.max())
+    return torch.exp(x)
+
+
+def _subchunk_emulation(r, k, v, logw, u, s0, dy, ds_out, chunk, ls=SUBCHUNK):
+    """K2's backward as ``csrc/rwkv6_scan_bwd.cu``'s grads kernel forms it
+    since its redesign, in plain PyTorch, fp32, term by term.  Within a chunk
+    the rows fall in sub-chunks of ``ls``.  A pair (t, s) in one sub-chunk
+    (a diagonal block) has one exponential e^{ce_t - c_s} a channel, made
+    once and used for A, dr and dk.  A pair in different sub-chunks factors
+    its decay at a sub-chunk boundary b, both exponents <= 0: for A and dr
+    at the start of t's sub-chunk, A = (r e^{ce - ce_b})(k e^{ce_b - c})^T and
+    dr_t += e^{ce_t - ce_b} (dA (k e^{ce_b - c}))_t; for dk at the end e of
+    s's sub-chunk, dk_s += e^{c_e - c_s} (dA^T (r e^{ce - c_e}))_s.  e^{cL - c}
+    and e^{ce} are made once an entry.  dA's diagonal, du and the u terms as
+    before; rho and kappa from their own terms; dlogw one running sum a
+    channel from the last row: acc = sigma; acc -= kappa_j; dlogw_j = acc;
+    acc += rho_j.  Returns (dr, dk, dv, dlogw, du, dstate)."""
+    S = r.shape[1]
+    rc, kc, vc, yc, cum, ce, cl = _chunks(r, k, v, logw, dy, chunk)
+    L = rc.shape[3]
+    ex = functools.partial(_exp_le1, scale=float(cum.abs().max()))
+    fl = ex(cl[:, :, :, None] - cum)                                   # e^{cL - c}
+    S_in, dSp, dS = _state_walks(rc, kc, vc, yc, cum, ce, cl, s0, ds_out)
+    uf = u.float()[None, :, None, None, :]
+    dA = yc @ vc.transpose(-1, -2)
+    dAd = torch.diagonal(dA, dim1=-2, dim2=-1)[..., None]                    # dA[t, t]
+    A = torch.zeros(dA.shape)
+    intra_r, intra_k = torch.zeros_like(rc), torch.zeros_like(kc)
+    starts = range(0, L, ls)
+    for b in starts:
+        t = slice(b, min(b + ls, L))
+        n = t.stop - t.start
+        # the diagonal block: one exponential a (t, s, n), for A, dr and dk
+        below = torch.tril(torch.ones((n, n), dtype=torch.bool), diagonal=-1)
+        diff = (ce[..., t, None, :] - cum[..., None, t, :]).masked_fill(~below[..., None], -1.0)
+        E = ex(diff) * below[..., None]                                # (...,t,s,n)
+        dAb = dA[..., t, t] * below
+        A[..., t, t] = (torch.einsum("...tn,...sn,...tsn->...ts", rc[..., t, :], kc[..., t, :], E)
+                        + torch.diag_embed((rc * uf * kc)[..., t, :].sum(-1)))
+        intra_r[..., t, :] += torch.einsum("...ts,...sn,...tsn->...tn", dAb, kc[..., t, :], E)
+        intra_k[..., t, :] += torch.einsum("...ts,...tn,...tsn->...sn", dAb, rc[..., t, :], E)
+        if b:   # the rows before t's sub-chunk, factored at b
+            ft = ex(ce[..., t, :] - ce[..., b:b + 1, :])
+            ks_ = kc[..., :b, :] * ex(ce[..., b:b + 1, :] - cum[..., :b, :])
+            A[..., t, :b] = (rc[..., t, :] * ft) @ ks_.transpose(-1, -2)
+            intra_r[..., t, :] += ft * (dA[..., t, :b] @ ks_)
+        e = t.stop
+        if e < L:   # the rows after s's sub-chunk, factored at its end e
+            fs = ex(cum[..., e - 1:e, :] - cum[..., t, :])
+            rt = rc[..., e:, :] * ex(ce[..., e:, :] - cum[..., e - 1:e, :])
+            intra_k[..., t, :] += fs * (dA[..., e:, t].transpose(-1, -2) @ rt)
+    inter_r = ex(ce) * (yc @ S_in.transpose(-1, -2))                   # e^{ce} (S dy)
+    inter_k = fl * (vc @ dSp.transpose(-1, -2))                              # e^{cL - c} (dS' v)
+    dr = intra_r + uf * kc * dAd + inter_r
+    dk = intra_k + uf * rc * dAd + inter_k
+    dv = A.transpose(-1, -2) @ yc + (kc * fl) @ dSp
+    du = (rc * kc * dAd).sum((0, 2, 3))
+    rho, kappa = rc * (intra_r + inter_r), kc * (intra_k + inter_k)
+    acc = ex(cl) * (S_in * dSp).sum(-1) + (kc * inter_k).sum(3)        # sigma
+    dlogw = torch.zeros_like(rho)
+    for j in reversed(range(L)):
+        acc = acc - kappa[:, :, :, j]
+        dlogw[:, :, :, j] = acc
+        acc = acc + rho[:, :, :, j]
+    return (_unchunk(dr, S).to(r.dtype), _unchunk(dk, S).to(r.dtype),
+            _unchunk(dv, S).to(r.dtype), _unchunk(dlogw, S), du, dS)
+
+
+BWD_CASES = {   # (B, S, H, N), chunk, dtype, zero initial state, decay
+    "ragged last chunk": ((2, 50, 3, 16), 16, "float32", False, USUAL_DECAY),
+    "one row in the last chunk": ((1, 33, 2, 16), 16, "float32", False, USUAL_DECAY),
+    "one chunk shorter than L": ((2, 20, 2, 16), 32, "float32", False, USUAL_DECAY),
+    "zero initial state, 3 chunks": ((1, 96, 2, 16), 32, "float32", True, USUAL_DECAY),
+    "bf16 r/k/v, ragged": ((2, 50, 2, 16), 16, "bfloat16", False, USUAL_DECAY),
+    # chunks of 24 rows and a last one of 3: sub-chunks of 16, 8 and 3
+    "chunk not a multiple of the sub-chunk": ((1, 75, 2, 16), 24, "float32", False,
+                                              USUAL_DECAY),
+    "strong decay": ((2, 70, 2, 16), 32, "float32", False, STRONG_DECAY),
 }
 
 
 def _bwd_case(name, with_ds_out):
-    shape, chunk, dtype, zero = BWD_CASES[name]
-    arrays = list(_rwkv_inputs(12, *shape))
+    shape, chunk, dtype, zero, decay = BWD_CASES[name]
+    arrays = list(_rwkv_inputs(12, *shape, decay))
     if zero:
         arrays[5] = np.zeros_like(arrays[5])
     dy, ds_out = _cotangents(13, *shape)
@@ -319,6 +430,22 @@ def test_backward_split_matches_jax_grad(name, with_ds_out):
     arrays, dy, ds_out, chunk, dtype = _bwd_case(name, with_ds_out)
     port = _bwd_emulation(*_port(arrays, dy, ds_out, dtype), chunk)
     _assert_grads_close(port, _jax_wkv_grads(name, "ref", dy, ds_out), dtype)
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+@pytest.mark.parametrize("with_ds_out", [False, True])
+def test_subchunk_backward_matches_jax_grad(name, with_ds_out):
+    """The grads kernel's sub-chunk decomposition (``_subchunk_emulation``:
+    the decay factored at a sub-chunk boundary off the diagonal blocks, one
+    exponential a (t, s, n) on them, dlogw's running sum) gives jax.grad of
+    JAX's sequential reference and of its chunked model scan; no factor's
+    exponent is above 0, strong decay included."""
+    arrays, dy, ds_out, chunk, dtype = _bwd_case(name, with_ds_out)
+    port = _subchunk_emulation(*_port(arrays, dy, ds_out, dtype), chunk)
+    td = getattr(torch, dtype)
+    assert [g.dtype for g in port] == [td, td, td] + [torch.float32] * 3
+    for which in ("ref", "chunked"):
+        _assert_grads_close(port, _jax_wkv_grads(name, which, dy, ds_out), dtype)
 
 
 # -- K3's backward ---------------------------------------------------------------
@@ -423,6 +550,19 @@ def test_non_cpu_tensors_never_run_the_plain_versions():
     assert (pops.rwkv6_scan.launches, pops.rglru_scan.launches) == before
 
 
+def test_rwkv6_bwd_wrapper_copies_only_misaligned_inputs():
+    """The backward's grads kernel reads its tiles 16 bytes at a time: a
+    contiguous view that does not start on a 16-byte boundary is copied
+    into a fresh allocation, anything else passes through untouched."""
+    base = torch.arange(1 + 2 * 8 * 64, dtype=torch.float32)
+    aligned = base[:-1].view(2, 8, 64)
+    odd = base[1:].view(2, 8, 64)
+    assert aligned.data_ptr() % 16 == 0 and odd.data_ptr() % 16 == 4 and odd.is_contiguous()
+    assert prw._aligned(aligned) is aligned
+    copy = prw._aligned(odd)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, odd)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     r, k, v, logw, u, s0 = (torch.from_numpy(a) for a in _rwkv_inputs(5, 1, 8, 1, 16))
     with pytest.raises(ValueError, match="CUDA tensors only"):
@@ -482,6 +622,61 @@ def test_chip_smoke_rwkv6_design_floor(S, chunk):
     x, st, ws = 4 * B * S * H * N, 4 * B * H * N * N, 4 * B * H * N * N * (-(-S // chunk) - 1)
     assert nbytes == (3 * x + st + ws + st) + (4 * x + 4 * H * N + st + ws + x)
     assert ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
+
+
+@pytest.mark.parametrize("S,chunk,with_ds_out", [(512, 32, False), (50, 32, True), (20, 32, False)])
+def test_chip_smoke_rwkv6_bwd_design_floor(S, chunk, with_ds_out):
+    """K2's backward design floor: the states kernel reads r, logw, dy (and
+    ds_out) and writes dS' of every chunk and dstate; the grads kernel reads
+    r, k, v, dy, logw, u, the initial state, the forward's workspace and the
+    dS' of every chunk, and writes dr, dk, dv, dlogw and a du partial a
+    (b, chunk); the du kernel reads the partials and writes du."""
+    smoke = _smoke()
+    B, H, N = 1, 2, 16
+    ts = [torch.from_numpy(a) for a in _rwkv_inputs(6, B, S, H, N)]
+    dy, ds_out = (torch.from_numpy(a) for a in _cotangents(7, B, S, H, N))
+    ms, nbytes = smoke.rwkv6_bwd_design_floor(*ts, dy, ds_out if with_ds_out else None,
+                                              chunk=chunk)
+    nc = -(-S // chunk)
+    x, st, uu = 4 * B * S * H * N, 4 * B * H * N * N, 4 * H * N
+    ws, dws, part = st * (nc - 1), st * nc, 4 * B * nc * H * N
+    states = 3 * x + (st if with_ds_out else 0) + dws + st
+    grads = 5 * x + uu + st + ws + dws + 4 * x + part
+    assert nbytes == states + grads + part + uu
+    assert ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
+
+
+def test_chip_smoke_rwkv6_bwd_design_floor_at_the_training_shape():
+    """610 MB at B=8 S=512 H=32 N=64 L=32, fp32 (0.182 ms): above the
+    backward's bound by bytes (310 MB), which counts no workspace."""
+    smoke = _smoke()
+    B, S, H, N = 8, 512, 32, 64
+    t = torch.empty((B, S, H, N), device="meta")
+    u, st = torch.empty((H, N), device="meta"), torch.empty((B, H, N, N), device="meta")
+    ms, nbytes = smoke.rwkv6_bwd_design_floor(t, t, t, t, u, st, t)
+    assert nbytes == 610_287_616
+    assert ms > smoke.rwkv6_bwd_bound(t, t, t, t, u, st, t)[4]
+
+
+def test_chip_smoke_counts_the_backward_sass():
+    """sass_counts: every instruction, the tensor core's HMMA, the
+    exponentials (MUFU.EX2, not other MUFU), shared loads (LDSM among
+    them) and ldmatrix."""
+    smoke = _smoke()
+    sass = """
+        Function : _ZN12_GLOBAL__N_127rwkv6_scan_bwd_grads_kernelIfEEvNS_6ParamsE
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   HMMA.1688.F32.TF32 R8, R4, R12, R8 ;
+        /*0020*/                   HMMA.1688.F32.TF32 R8, R4, R14, R8 ;
+        /*0030*/                   LDS R16, [R3] ;
+        /*0040*/                   MUFU.EX2 R17, R16 ;
+        /*0050*/                   MUFU.RCP R18, R16 ;
+        /*0060*/                   LDS.64 R20, [R3+0x8] ;
+        /*0070*/                   EXIT ;
+"""
+    ins = smoke.parse_sass(sass)["_ZN12_GLOBAL__N_127rwkv6_scan_bwd_grads_kernelIfEEvNS_6ParamsE"]
+    assert smoke.sass_counts(ins) == {"instructions": 8, "HMMA": 2, "MUFU.EX2": 1, "LDS": 3,
+                                      "LDSM": 1}
 
 
 def test_k2_kernel_names_match_the_trace_filter():
@@ -662,18 +857,20 @@ def test_rglru_kernel_matches_plain_version_on_card(cuda_device, B, S, R, with_h
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,H,N,chunk,with_ds_out", [
-    (8, 512, 32, 64, 32, False),   # rwkv6-1.6b train, the final state unused
-    (2, 50, 3, 64, 32, True),      # ragged last chunk
-    (2, 20, 2, 64, 32, True),      # one chunk shorter than L
-    (1, 33, 4, 64, 16, True),      # one row in the last chunk
+@pytest.mark.parametrize("B,S,H,N,chunk,with_ds_out,decay", [
+    (8, 512, 32, 64, 32, False, USUAL_DECAY),   # rwkv6-1.6b train, the final state unused
+    (2, 50, 3, 64, 32, True, USUAL_DECAY),      # ragged last chunk
+    (2, 20, 2, 64, 32, True, USUAL_DECAY),      # one chunk shorter than L
+    (1, 33, 4, 64, 16, True, USUAL_DECAY),      # one row in the last chunk
+    (1, 75, 4, 64, 24, True, USUAL_DECAY),      # chunks not a multiple of the sub-chunk
+    (2, 100, 4, 64, 32, True, STRONG_DECAY),    # tens of e-folds within a chunk
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rwkv6_bwd_kernel_matches_plain_version_on_card(cuda_device, B, S, H, N, chunk,
-                                                        with_ds_out, dtype):
+                                                        with_ds_out, decay, dtype):
     """K2's backward against the plain backward, and two runs bit for bit."""
     r, k, v, logw, u, s0 = (torch.from_numpy(a).to(cuda_device)
-                            for a in _rwkv_inputs(18, B, S, H, N))
+                            for a in _rwkv_inputs(18, B, S, H, N, decay))
     dy, ds_out = (torch.from_numpy(a).to(cuda_device) for a in _cotangents(19, B, S, H, N))
     r, k, v, dy = (t.to(getattr(torch, dtype)) for t in (r, k, v, dy))
     ds_out = ds_out if with_ds_out else None
