@@ -8,11 +8,12 @@ Phases, in order; any failure ends the run with its traceback and a
 non-zero exit:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-   build the seven CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
+   build the eight CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` each, all started together) and print ptxas' reports; K1's
    tiles, shared memory and blocks an SM for each (dtype, head_dim), and the
    HMMA (tensor-core) instructions in each of its kernels' SASS; the same
-   for K1's two backward kernels, with their registers and spills.
+   for K1's two backward kernels, with their registers and spills; K4's
+   SASS and its backward's registers and spills.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and edge cases (ragged lengths, initial states, a
    sequence run in two halves, a sequence whose chunks are all K2's
@@ -21,13 +22,17 @@ non-zero exit:
    bf16, two runs of it bit for bit, and ``FlashAttentionFn`` against
    autograd of the plain forward; the same for K2's and K3's backwards at
    the training shapes and edge cases (a ragged last chunk, an initial
-   state, a final-state gradient), with ``RWKV6ScanFn`` and ``RGLRUScanFn``.
+   state, a final-state gradient), with ``RWKV6ScanFn`` and ``RGLRUScanFn``;
+   and K4's backward at K4's cases, on the kernel forward's outputs, with
+   ``MoERouterFn`` against autograd of the plain router.
    Then K4's times: at granite-moe's prefill and decode shapes and
    deepseek-moe's, its device time a launch, the wrapper's time a call
    paced by the host, the bound, and beside them the card's launch floor
    (a one-element fill kernel's device time, a one-element in-place op's
-   time a call); K2's and its backward's kernels: registers, shared memory,
-   blocks an SM and device ms.
+   time a call); the same for K4's backward at granite-moe's and
+   deepseek-moe's training shapes, beside its plain version's; K2's and its
+   backward's kernels: registers, shared memory, blocks an SM and device
+   ms.
 3. train: ``repro_torch.launch.train`` at full width on smollm-135m (fp32,
    batch 8, sequence 512, 4 steps), every launch count set to 0 just before
    and read just after (30 K1 forwards and 30 K1 backwards a step); the
@@ -63,6 +68,14 @@ non-zero exit:
    limits.  On rwkv6, both paths' first-step gradients against the plain
    path in float64, and K2's gradients on the model's own inputs against
    float64, within 2x the plain chunked scan's distance.
+3d. train the moe family the same way: granite-moe-3b-a800m at full width
+   with remat, its depth cut to 26 of 32 layers (26 K1 and 26 K4
+   backwards a step, twice as many forwards), every launch count set to 0
+   just before and read just after, its routing recorded; the steady step
+   time, tokens/s, peak memory and a trace of one warm step; the plain
+   path on the same weights and batches,
+   its routing teacher-forced to the kernel path's (each flip a near-tie):
+   the first step's gradients and the losses within stated limits.
 4. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
    32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
    granite-moe-3b-a800m, one model resident at a time.  Every launch count
@@ -126,19 +139,21 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 KERNELS = ("flash_attention", "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
-           "rglru_scan", "rglru_scan_bwd", "moe_router")
+           "rglru_scan", "rglru_scan_bwd", "moe_router", "moe_router_bwd")
 # CUDA kernels a wrapper call launches and what their names hold: K1's
 # backward runs its dq kernel, then its dkdv kernel; K2 its chunk-states
 # kernel, then its outputs kernel; K2's backward its reverse chunk-states
 # kernel, its grads kernel and its du kernel.
 KERNELS_PER_CALL = {"flash_attention": 1, "flash_attention_bwd": 2, "rwkv6_scan": 2,
-                    "rwkv6_scan_bwd": 3, "rglru_scan": 1, "rglru_scan_bwd": 1, "moe_router": 1}
+                    "rwkv6_scan_bwd": 3, "rglru_scan": 1, "rglru_scan_bwd": 1, "moe_router": 1,
+                    "moe_router_bwd": 1}
 KERNEL_PREFIX = {"flash_attention": ("flash_attention_fwd_",),
                  "flash_attention_bwd": ("flash_attention_bwd_",),
                  "rwkv6_scan": ("rwkv6_scan_states_kernel", "rwkv6_scan_outputs_kernel"),
                  "rwkv6_scan_bwd": ("rwkv6_scan_bwd_",),
                  "rglru_scan": ("rglru_scan_kernel",), "rglru_scan_bwd": ("rglru_scan_bwd_kernel",),
-                 "moe_router": ("moe_router_",)}
+                 "moe_router": ("moe_router_kernel",),
+                 "moe_router_bwd": ("moe_router_bwd_kernel",)}
 
 
 def ours(name: str, key: str) -> bool:
@@ -561,6 +576,18 @@ def moe_router_bound(logits, top_k):
     once, the fp32 weights and int32 indices written once."""
     T, E = logits.shape
     return _bound(T * ((5 + top_k) * E + 2 * top_k), _nbytes(logits) + T * top_k * 8)
+
+
+def moe_router_bwd_bound(logits, top_k):
+    """Least time for the router's backward.  Operations per row: the
+    softmax again (max, subtract, exponential, sum and divide over E), p *
+    dp and its sum over E, each logit's difference and product (9E); over
+    the k selected, Z's sum, dw * w and its sum, dp's difference and
+    quotient (5k).  Bytes: the logits, the fp32 weights, the int32 indices
+    and the fp32 weight gradients read once, dlogits (the logits' dtype)
+    written once."""
+    T, E = logits.shape
+    return _bound(T * (9 * E + 5 * top_k), 2 * _nbytes(logits) + T * top_k * 12)
 
 
 # logw = -exp(N(0, 0.5) + shift): TestRWKV6Scan's draw, about 0.14 an
@@ -1163,26 +1190,30 @@ def check_rglru_bwd(torch, dev, ops, ref) -> float:
     return main_err
 
 
+# K4's cases on the card: name, (T, E, k), dtype, rows set to zero.  The
+# logits of case i are ``router_logits`` of seed 400 + i.
+ROUTER_CASES = (
+    ("granite-moe prefill", (4096, 40, 8), "float32", None),
+    ("granite-moe decode, 248 padded rows", (256, 40, 8), "float32", slice(8, None)),
+    ("deepseek-moe", (4096, 64, 6), "float32", None),
+    ("all rows zero", (512, 64, 6), "float32", slice(None)),
+    ("odd T, E=250", (77, 250, 8), "float32", None),
+    ("k = E", (64, 8, 8), "float32", None),
+    ("granite-moe prefill bf16", (4096, 40, 8), "bfloat16", None),
+)
+
+
 def check_moe_router(torch, dev, ops, ref) -> float:
     """K4 against ``ref.moe_router_ref``: equal indices, weights within
     ``ROUTER_ATOL``.  On random logits an index may differ only where the
     two candidates' plain probabilities are within one fp32 ulp (the two
     softmaxes sum in other orders); each such case is printed and counted.
     Rows that tie (all zero) must match exactly."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # name, (T, E, k), dtype, rows set to zero
-        ("granite-moe prefill", (4096, 40, 8), f32, None),
-        ("granite-moe decode, 248 padded rows", (256, 40, 8), f32, slice(8, None)),
-        ("deepseek-moe", (4096, 64, 6), f32, None),
-        ("all rows zero", (512, 64, 6), f32, slice(None)),
-        ("odd T, E=250", (77, 250, 8), f32, None),
-        ("k = E", (64, 8, 8), f32, None),
-        ("granite-moe prefill bf16", (4096, 40, 8), bf16, None),
-    ]
+    f32 = torch.float32
     main_err, near_ties = None, 0
-    for i, (name, (T, E, k), dtype, zero) in enumerate(cases):
-        g = torch.Generator(device=dev).manual_seed(400 + i)
-        logits = (torch.randn((T, E), generator=g, device=dev) * 2.0).to(dtype)
+    for i, (name, (T, E, k), dtype, zero) in enumerate(ROUTER_CASES):
+        dtype = getattr(torch, dtype)
+        logits = router_logits(torch, dev, T, E, 400 + i).to(dtype)
         if zero is not None:
             logits[zero] = 0
         w, idx = ops.moe_router(logits, k)
@@ -1209,6 +1240,78 @@ def check_moe_router(torch, dev, ops, ref) -> float:
         if i == 0:
             main_err = err
     log(f"[kernel] moe_router: {near_ties} index differences, each within one fp32 ulp")
+    return main_err
+
+
+# K4's backward against its plain version (``ref.moe_router_bwd_ref``, the
+# chain of JAX's autograd written out), normwise, max |kernel - plain| over
+# max(1, max |plain|) of dlogits, at ``ROUTER_CASES``.  The
+# sums over the k selected experts are taken in another order; in bf16 each
+# side rounds dlogits once, so a value may land one bf16 ulp (2**-8
+# relative) away.  ``MoERouterFn`` against autograd of the plain router on
+# the rows where the two select the same experts: the same limits.  On an
+# H100, fp32 at most 1.79e-7 (1.79e-7 granite-moe prefill, 2.38e-7 for
+# MoERouterFn): 2e-6; bf16 1.95e-3 (2**-9, one bf16 ulp of a gradient
+# between 0.25 and 0.5): one ulp of a gradient up to 1, 2**-8.
+K4_BWD_TOL = {"float32": 2e-6, "bfloat16": 2.0 ** -8}
+
+
+def router_cotangent(torch, dev, seed, T, k):
+    """A seeded gradient of the router's (T, k) weights."""
+    return torch.randn((T, k), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def check_moe_router_bwd(torch, dev, ops, ref, router) -> float:
+    """K4's backward (``ops.moe_router_bwd``) on the kernel's own forward
+    outputs against ``ref.moe_router_bwd_ref`` at the cases of
+    ``check_moe_router`` (the same logits), with seeded weight gradients,
+    and against a second run of itself, bit for bit.  Rows where the
+    kernel's experts differ from the plain version's (near-ties) are held
+    against the plain backward fed the kernel's own indices and weights.
+    Then ``MoERouterFn`` (``ops.moe_router`` on logits that need a
+    gradient) against autograd of ``ref.moe_router_ref``, on the rows where
+    both select the same experts.  Returns the max abs error of the first
+    case."""
+    main_err = None
+    for i, (name, (T, E, k), dtype, zero) in enumerate(ROUTER_CASES):
+        logits = router_logits(torch, dev, T, E, 400 + i).to(getattr(torch, dtype))
+        if zero is not None:
+            logits[zero] = 0
+        dw = router_cotangent(torch, dev, 450 + i, T, k)
+        w, idx = router.moe_router_cuda(logits, k)
+        got = ops.moe_router_bwd(logits, w, idx, dw)
+        again = ops.moe_router_bwd(logits, w, idx, dw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"{name}: two runs differ"
+        assert got.dtype == logits.dtype and got.shape == logits.shape, name
+        assert bool(torch.isfinite(got.float()).all()), f"{name}: non-finite"
+        w_ref, idx_ref = ref.moe_router_ref(logits, k)
+        flips = (idx != idx_ref).any(-1, keepdim=True)
+        exp = ref.moe_router_bwd_ref(logits, torch.where(flips, w, w_ref),
+                                     torch.where(flips, idx, idx_ref), dw)
+        err, rel = max_err(got, exp), normwise(got, exp)
+        tol = K4_BWD_TOL[dtype]
+
+        x = logits.clone().requires_grad_()
+        before = ops.moe_router_bwd.launches
+        wk, ik = ops.moe_router(x, k)
+        wk.backward(dw)
+        torch.cuda.synchronize()
+        assert ops.moe_router_bwd.launches == before + 1, f"{name}: MoERouterFn ran no kernel"
+        assert torch.equal(ik, idx) and torch.equal(x.grad, got), \
+            f"{name}: MoERouterFn is not the kernels' forward and backward"
+        xr = logits.clone().requires_grad_()
+        ref.moe_router_ref(xr, k)[0].backward(dw)
+        keep = ~flips[:, 0]
+        fn_rel = normwise(x.grad[keep], xr.grad[keep])
+        log(f"[kernel] moe_router_bwd {name} (T,E,k)={(T, E, k)} {logits.dtype}: max_abs_err "
+            f"{err!r}, over max(1, max |g|) {rel!r}; MoERouterFn vs autograd of the plain router "
+            f"{fn_rel!r} on {int(keep.sum())} of {T} rows (tol {tol}); {int(flips.sum())} rows "
+            "with another index, fed the kernel's")
+        assert rel <= tol, f"{name}: {rel} > {tol}"
+        assert fn_rel <= tol, f"{name}: MoERouterFn {fn_rel} > {tol}"
+        if i == 0:
+            main_err = err
     return main_err
 
 
@@ -1319,28 +1422,56 @@ class RoutingCheck:
         if bool(rows.any()):
             j = diff[rows].int().argmax(-1)               # the first slot that differs
             n = torch.arange(len(j), device=j.device)
-            p = probs[rows]
+            p = probs.detach()[rows]
             self.gaps.append((self.calls, p[n, idx[rows][n, j].long()]
                               - p[n, kidx[rows][n, j].long()]))
         self.calls += 1
         w = probs.gather(-1, kidx.long())
         return w / w.sum(-1, keepdim=True).clamp_min(1e-9), kidx, probs
 
-    def report(self, arch: str, n_layers: int) -> None:
-        """Count the decisions that differ; each must be a near-tie."""
+    def report(self, tag: str, where) -> dict:
+        """Count the decisions that differ; each must be a near-tie.
+        ``where(call)`` names a call as (group, step, layer): the counts are
+        printed by group (prefill and decode; a train step), the first
+        calls with a difference by step and layer.  Returns the counts."""
         assert self.calls == len(self.kernel_idx), (self.calls, len(self.kernel_idx))
         rows = sum(int(k.shape[0] * k.shape[1]) for k in self.kernel_idx)
         n = sum(len(g) for _, g in self.gaps)
-        n_prefill = sum(len(g) for c, g in self.gaps if c < n_layers)
+        by_group = {where(c)[0]: 0 for c in range(self.calls)}
+        for c, g in self.gaps:
+            by_group[where(c)[0]] += len(g)
         gaps = [float(x) for _, g in self.gaps for x in g.tolist()]
-        log(f"[serve] {arch}: routing decisions (layer, token row) that differ between the "
-            f"paths: {n} of {rows} ({n_prefill} in prefill, {n - n_prefill} in decode); "
+        log(f"{tag}: routing decisions (layer, token row) that differ between the paths: {n} of "
+            f"{rows} ({', '.join(f'{v} in {k}' for k, v in by_group.items())}); "
             f"plain-probability gaps: max {max(gaps, default=0.0)!r}, min "
             f"{min(gaps, default=0.0)!r} (limit {FLIP_GAP})")
         for c, g in self.gaps[:20]:
-            step = "prefill" if c < n_layers else f"decode step {c // n_layers}"
-            log(f"[serve]   {step} layer {c % n_layers}: {len(g)} rows, gaps {g.tolist()}")
-        assert all(0.0 <= x <= FLIP_GAP for x in gaps), f"{arch}: a routing flip beyond {FLIP_GAP}"
+            _, step, layer = where(c)
+            log(f"{tag.split()[0]}   {step} layer {layer}: {len(g)} rows, gaps {g.tolist()}")
+        assert all(0.0 <= x <= FLIP_GAP for x in gaps), f"{tag}: a routing flip beyond {FLIP_GAP}"
+        return {"differ": n, "decisions": rows, "max_gap": max(gaps, default=0.0)}
+
+
+def serve_call(n_layers: int):
+    """``RoutingCheck.report``'s names of a serve's router calls: a prefill,
+    then one decode step after another, ``n_layers`` calls each."""
+    def where(c):
+        step = "prefill" if c < n_layers else f"decode step {c // n_layers}"
+        return step.split()[0], step, c % n_layers
+    return where
+
+
+def train_call(n_layers: int, remat: bool = True):
+    """``RoutingCheck.report``'s names of the router calls of one step after
+    another: the forward, layer 0 first, then under remat the backward's
+    recompute, the last layer first."""
+    per = 2 * n_layers if remat else n_layers
+
+    def where(c):
+        step, i = c // per, c % per
+        part, layer = ("forward", i) if i < n_layers else ("recompute", per - 1 - i)
+        return f"step {step}", f"step {step} {part}", layer
+    return where
 
 
 # The train phase: smollm-135m at full width, fp32, B x S tokens a step.
@@ -1467,13 +1598,16 @@ TRAIN_R_LOSS_TOL = {"rwkv6-1.6b": 4e-3, "recurrentgemma-9b": 1e-6}
 
 def expected_train_launches(cfg, steps: int) -> dict:
     """Launches of each wrapper in ``steps`` train steps of ``cfg`` on the
-    kernel path: a forward and a backward for each attention, RWKV-6 and
-    RG-LRU layer, and with remat one more forward (``torch.utils.checkpoint``
-    runs each repeat's forward again in the backward)."""
+    kernel path: a forward and a backward for each attention, RWKV-6,
+    RG-LRU and MoE layer (every attention layer of the moe family), and
+    with remat one more forward (``torch.utils.checkpoint`` runs each
+    repeat's forward again in the backward)."""
     pattern = cfg.pattern_for_layers()
     fwd = 2 if cfg.remat else 1
-    n = {"flash_attention": sum(t in ("attention", "local_attn") for t in pattern),
-         "rwkv6_scan": pattern.count("rwkv6"), "rglru_scan": pattern.count("rglru")}
+    n_attn = sum(t in ("attention", "local_attn") for t in pattern)
+    n = {"flash_attention": n_attn, "rwkv6_scan": pattern.count("rwkv6"),
+         "rglru_scan": pattern.count("rglru"),
+         "moe_router": n_attn if cfg.family == "moe" else 0}
     expect = {name: 0 for name in KERNELS}
     for name, layers in n.items():
         expect[name] = fwd * layers * steps
@@ -1488,24 +1622,18 @@ def first_step_grads(torch, forward_train, params, batch, cfg):
     return float(loss.detach()), dict(zip(names, torch.autograd.grad(loss, tensors)))
 
 
-def run_train_recurrent(card, torch, ops, dev, arch, n_layers) -> dict:
-    """Phase 3c for one model: train it through ``launch.train`` with every
-    launch count set to 0 just before and read just after; time it and
-    trace one warm step; hold it against the plain path; on rwkv6 also
-    measure how far one fp32 ulp on K2's outputs moves the first step's
-    gradients, and hold K2's gradients on the model's own inputs against
-    float64 (``wkv_bwd_precision``)."""
-    from repro_torch.configs import get_config
+def train_traced(card, torch, ops, dev, cfg, tag: str) -> dict:
+    """Train ``cfg`` for ``TRAIN_R_STEPS`` steps through ``launch.train``,
+    with every launch count set to 0 just before and read just after and
+    held to ``expected_train_launches``; print the steady step time,
+    tokens/s and peak memory; trace one warm step.  Returns the config
+    trained (``device_model``'s), its losses, the launch counts, the
+    figures, the batches and the optimizer, with the trained state freed."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
-    from repro_torch.kernels import rwkv6_scan as k2
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import forward_train, init_params, param_count
-    from repro_torch.train import TrainState, adamw, linear_warmup_cosine, make_train_step
+    from repro_torch.models import param_count
+    from repro_torch.train import adamw, linear_warmup_cosine, make_train_step
 
-    cfg = get_config(arch)
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    tag = f"{arch}" + (f" ({n_layers} of {get_config(arch).n_layers} layers)" if n_layers else "")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1519,7 +1647,7 @@ def run_train_recurrent(card, torch, ops, dev, arch, n_layers) -> dict:
     expect = expected_train_launches(cfg, TRAIN_R_STEPS)
     log(f"[train] {tag}: kernel launches on the main path: {launches} ({TRAIN_R_STEPS} steps; "
         f"remat {cfg.remat}; expected {expect})")
-    assert launches == expect, f"{arch} train: expected {expect} launches"
+    assert launches == expect, f"{cfg.arch_id} train: expected {expect} launches"
     assert (cfg.attn_impl, cfg.kernel_impl) == ("pallas", "pallas")
     assert len(res.losses) == TRAIN_R_STEPS and all(math.isfinite(x) for x in res.losses)
     steady = min(res.step_s[1:])
@@ -1534,16 +1662,42 @@ def run_train_recurrent(card, torch, ops, dev, arch, n_layers) -> dict:
                for i in range(TRAIN_R_STEPS)]
     opt = adamw(linear_warmup_cosine(3e-4, 10, TRAIN_R_STEPS))   # launch.train's defaults
     kstep, held = make_train_step(cfg, opt), {"state": res.state}
+    losses = res.losses
+    # ``held`` alone keeps the trained state: a step makes new moments, and
+    # for granite-moe the old ones kept alive beside them would not fit
+    del res
 
     def one_step():
         held["state"], _ = kstep(held["state"], batches[0])
 
     one_step()                                                # warm-up
     trace(f"{tag} train step (warm)", one_step, card, ops)
-    kernel_losses = res.losses
-    del held, res, kstep
+    del held, kstep
     gc.collect()
     torch.cuda.empty_cache()
+    return {"cfg": cfg, "losses": losses, "launches": launches, "batches": batches, "opt": opt,
+            "figures": {"steady_step_s": steady, "tokens_per_s": B * S / steady,
+                        "peak_bytes": peak, "params": n_params}}
+
+
+def run_train_recurrent(card, torch, ops, dev, arch, n_layers) -> dict:
+    """Phase 3c for one model: train it through ``launch.train`` with every
+    launch count set to 0 just before and read just after; time it and
+    trace one warm step; hold it against the plain path; on rwkv6 also
+    measure how far one fp32 ulp on K2's outputs moves the first step's
+    gradients, and hold K2's gradients on the model's own inputs against
+    float64 (``wkv_bwd_precision``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan as k2
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    tag = f"{arch}" + (f" ({n_layers} of {get_config(arch).n_layers} layers)" if n_layers else "")
+    run = train_traced(card, torch, ops, dev, cfg, tag)
+    cfg, batches, opt, kernel_losses = run["cfg"], run["batches"], run["opt"], run["losses"]
 
     # the first step's gradients, kernel path and plain path, on the weights
     # launch.train drew (seed 0 on the same device); on rwkv6 the inputs of
@@ -1593,9 +1747,122 @@ def run_train_recurrent(card, torch, ops, dev, arch, n_layers) -> dict:
     torch.cuda.empty_cache()
     if kept:
         wkv_bwd_precision(torch, kept, cfg.rwkv_chunk)
-    return {"launches": launches, "steady_step_s": steady, "tokens_per_s": B * S / steady,
-            "peak_bytes": peak, "grad_rel_err": grad_err, "loss_rel_err": max(loss_err),
-            "params": n_params, **f64}
+    return {"launches": run["launches"], **run["figures"], "grad_rel_err": grad_err,
+            "loss_rel_err": max(loss_err), **f64}
+
+
+# Phase 3d: the moe family trained through ``launch.train`` at full width,
+# fp32, B x S tokens a step, TRAIN_R_STEPS steps, on K4's forward and
+# backward and K1's: granite-moe-3b-a800m (32 layers, d 1536, 24 heads / 8
+# kv heads, 40 experts top-8, d_expert 512, vocab 49,155; 3.30 B parameters,
+# 52.8 GB with their gradients and two AdamW moments) with remat, its
+# config's own field: without it the einsum dispatch keeps about 1.4 GB a
+# layer for the backward (disp_k (G,S,k,E,C) 336 MB, expert_in and
+# expert_out 252 MB each, the hidden tensors), past the card over 32
+# layers.  At full depth the first step's AdamW update ran out of the card
+# (on an H100 80GB HBM3 at 700 W, 77.48 GiB allocated): it holds the
+# parameters, gradients, clipped gradients and old and new moments, 28 B a
+# parameter, 92.4 GB at 3.30 B.  So the depth is cut to TRAIN_MOE_LAYERS of
+# 32: 26 layers, 2.69 B parameters, 75.4 GB at the update.  Kernel path
+# against the plain path (``attn_impl="naive"``, ``kernel_impl="jnp"``,
+# remat) on the same weights and batches, its routing
+# teacher-forced to the kernel path's (``RoutingCheck``; each flip must be a
+# near-tie within FLIP_GAP): the first step's gradient of every parameter,
+# max |plain - kernel| over max(1, max |kernel|), both paths with remat so
+# that their router calls line up, forward then recompute; and each step's
+# loss, |plain - kernel| over max(1, |kernel|), the plain path's forward on
+# the kernel path's weights of that step.  Not on a trajectory of its own,
+# as phase 3c's plain path: AdamW's first update is about lr times the sign
+# of each gradient, so an element whose gradient the two paths give within
+# rounding of 0 moves by up to 2 lr apart, and the weights after it differ
+# beyond rounding (on an H100: flips with plain-probability gaps up to
+# 1.54e-4 in steps 1 and 2 against 3.10e-6 in step 0).
+# Each limit is about 10x the largest reading on an H100: the first-step
+# gradients 3.24e-6 (the first layer's router), the losses 8.59e-8: 3e-5
+# and 1e-6.  The same training run again must repeat launch.train's losses
+# within the loss limit (it read them bit for bit).
+TRAIN_MOE, TRAIN_MOE_LAYERS = "granite-moe-3b-a800m", 26
+TRAIN_MOE_GRAD_TOL, TRAIN_MOE_LOSS_TOL = 3e-5, 1e-6
+
+
+def run_train_moe(card, torch, ops, dev) -> dict:
+    """Phase 3d: train ``TRAIN_MOE`` through ``launch.train`` with every
+    launch count set to 0 just before and read just after; time it and
+    trace one warm step; hold its first step's gradients against the plain
+    path, and then at each step of the same training its loss against the
+    plain path's on the same weights, each time with the plain path's
+    routing teacher-forced to the kernel path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import TrainState, make_train_step
+
+    full = get_config(TRAIN_MOE)
+    cfg = dataclasses.replace(full, remat=True, n_layers=TRAIN_MOE_LAYERS)
+    tag = f"{TRAIN_MOE} ({TRAIN_MOE_LAYERS} of {full.n_layers} layers)"
+    run = train_traced(card, torch, ops, dev, cfg, tag)
+    cfg, batches, opt, kernel_losses = run["cfg"], run["batches"], run["opt"], run["losses"]
+    assert cfg.remat
+    n_moe = cfg.n_layers
+
+    # the first step's gradients, kernel path and plain path, on the weights
+    # launch.train drew (seed 0 on the same device); the plain path's
+    # routing teacher-forced to the kernel path's
+    plain = dataclasses.replace(cfg, attn_impl="naive", kernel_impl="jnp")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    first_routing = RoutingCheck(torch, moe_mod)
+    with patched(moe_mod, "_route", first_routing.record):
+        first = {"kernel": first_step_grads(torch, forward_train, params, batches[0], cfg)}
+    with patched(moe_mod, "_route", first_routing.forced):
+        first["plain"] = first_step_grads(torch, forward_train, params, batches[0], plain)
+    first_flips = first_routing.report(f"[train] {tag} first step", train_call(n_moe))
+    rel = {n: normwise(first["plain"][1][n], g) for n, g in first["kernel"][1].items()}
+    worst = max(rel, key=rel.get)
+    grad_err, median = rel[worst], statistics.median(rel.values())
+    routers = [n for n in rel if n.endswith("moe.router")]
+    assert len(routers) == n_moe and all(float(first["kernel"][1][n].abs().max()) > 0
+                                         for n in routers), "a router took no gradient"
+    log(f"[train] {tag} first-step gradients, kernel path vs plain path, max abs err over "
+        f"max(1, max |g|): {grad_err!r} ({worst}; median over the {len(rel)} parameters "
+        f"{median!r}; the routers' at most {max(rel[n] for n in routers)!r}); loss "
+        f"{first['kernel'][0]!r} vs {first['plain'][0]!r} (limit {TRAIN_MOE_GRAD_TOL})")
+    assert grad_err <= TRAIN_MOE_GRAD_TOL, \
+        f"{TRAIN_MOE} first-step gradient {worst}: {grad_err} > {TRAIN_MOE_GRAD_TOL}"
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same training again, step by step: before each step the kernel
+    # path's loss (its routing recorded) and the plain path's on the same
+    # weights and batch, teacher-forced; then the kernel path's step
+    step = make_train_step(cfg, opt)
+    state = TrainState(params, opt.init(dict(params.named_parameters())), 0)
+    routing = RoutingCheck(torch, moe_mod)
+    losses = {"kernel": [], "plain": [], "step": []}
+    for b in batches:
+        with torch.no_grad():
+            for path, c, check in (("kernel", cfg, routing.record),
+                                   ("plain", plain, routing.forced)):
+                with patched(moe_mod, "_route", check):
+                    losses[path].append(float(forward_train(state.params, b, c)[1]["loss"]))
+        state, metrics = step(state, b)
+        losses["step"].append(float(metrics["loss"]))
+    flips = routing.report(f"[train] {tag} {TRAIN_R_STEPS} steps' forwards",
+                           train_call(n_moe, remat=False))
+    loss_err = [abs(p - k) / max(1.0, abs(k)) for p, k in zip(losses["plain"], losses["kernel"])]
+    again = [abs(a - k) / max(1.0, abs(k)) for a, k in zip(losses["step"], kernel_losses)]
+    log(f"[train] {tag} losses at each step's weights, kernel path {losses['kernel']}, plain "
+        f"path {losses['plain']}; differences over max(1, |loss|) {loss_err} (limit "
+        f"{TRAIN_MOE_LOSS_TOL}); the same training's step losses {losses['step']} against "
+        f"launch.train's {kernel_losses}: {again}")
+    assert max(loss_err) <= TRAIN_MOE_LOSS_TOL, f"{TRAIN_MOE} losses differ: {loss_err}"
+    assert max(again) <= TRAIN_MOE_LOSS_TOL, f"{TRAIN_MOE}: the training did not repeat: {again}"
+    del state, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"], **run["figures"], "grad_rel_err": grad_err,
+            "loss_rel_err": max(loss_err), "layers": cfg.n_layers, "routing_flips": flips,
+            "first_step_routing_flips": first_flips}
 
 
 def first_step_grads_f64(torch, forward_train, params, batch, cfg, noise_seed=None):
@@ -1972,7 +2239,7 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
             logits, caches = decode_step(res.params, caches, res.tokens[:, i], S + i, plain)
             close("decode_logits", logits, res.step_logits[i])
     if routing:
-        routing.report(arch, n_moe)
+        routing.report(f"[serve] {arch}", serve_call(n_moe))
     for pseg, kseg in zip(caches, res.caches):
         for pst, kst in zip(pseg, kseg):
             pl, kl = list(leaves(pst)), list(leaves(kst))
@@ -2264,6 +2531,47 @@ def time_router(torch, dev, ops, ref, card, label, shape, seed) -> dict:
             "bound": bound, "bound_ms": bound[0]}
 
 
+# K4's backward's timed shapes: label, (T, E, k); the logits of phase 2's
+# case of the same shape (seed 400 + position there).
+ROUTER_BWD_SHAPES = (
+    ("granite-moe train", (4096, 40, 8), 400),
+    ("deepseek-moe train", (4096, 64, 6), 402),
+)
+
+
+def time_router_bwd(torch, dev, ops, ref, router, card, label, shape, seed) -> dict:
+    """K4's backward at one training shape, on the kernel forward's outputs
+    and a seeded weight gradient: its device time a launch in turns with
+    the plain version's a call (profiler), each one's time a call paced by
+    the host (``paced_ms``), and the bound.  No single PyTorch call computes
+    this gradient."""
+    T, E, k = shape
+    logits = router_logits(torch, dev, T, E, seed)
+    dw = router_cotangent(torch, dev, seed + 50, T, k)
+    w, idx = router.moe_router_cuda(logits, k)
+    kernel = lambda: ops.moe_router_bwd(logits, w, idx, dw)
+    plain = lambda: ref.moe_router_bwd_ref(logits, w, idx, dw)
+    runs = {}
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        runs.setdefault(turn, []).append(
+            device_ms(torch, f"moe_router_bwd {label}", kernel, "moe_router_bwd_kernel")
+            if turn == "kernel" else device_ms(torch, f"moe_router_bwd plain {label}", plain))
+    kms, pms = (min((x for x in runs[t] if x is not None), default=None)
+                for t in ("kernel", "plain"))
+    host = {"kernel": paced_ms(torch, kernel), "plain": paced_ms(torch, plain)}
+    bound = moe_router_bwd_bound(logits, k)
+    where = f"{label} T={T} E={E} k={k}"
+    log(f"[time] moe_router_bwd kernel fp32 {where}: {kms!r} ms device time a launch, bound "
+        f"{bound[0]!r} ms by {bound[1]} ({bound[2]:.4g} flop, {bound[3]:.4g} bytes) {card} "
+        f"(runs {runs})")
+    log(f"[time] moe_router_bwd plain version fp32 {where}: {pms!r} ms device time a call {card}")
+    log(f"[time] moe_router_bwd per call, paced by the host (perf_counter over {HOST_CALLS} "
+        f"back-to-back calls), fp32 {where}: kernel wrapper {host['kernel']!r} ms, plain "
+        f"version {host['plain']!r} ms {card}")
+    return {"ms": kms, "plain_ms": pms, "host_ms": host["kernel"],
+            "plain_host_ms": host["plain"], "bound": bound, "bound_ms": bound[0]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2273,6 +2581,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_router as k4
     from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.launch import serve
     from repro_torch.models import decode_step, prefill
@@ -2306,6 +2615,8 @@ def main() -> int:
     for (dtype, vpl), c in k4_sass.items():
         log(f"[build] moe_router {dtype}, {vpl} values a lane, SASS: {c}")
     assert k4_sass and all(c["REDUX"] > 0 for c in k4_sass.values()), "K4 runs no redux.sync"
+    for fn, c in ptxas_kernels(infos[KERNELS.index("moe_router_bwd")].log).items():
+        log(f"[build] moe_router_bwd ptxas {fn}: {c}")
 
     # -- 2. kernels against their plain versions, on the card --------------------------------
     errs = {"flash_attention": check_flash_attention(torch, dev, ops, ref),
@@ -2314,7 +2625,8 @@ def main() -> int:
             "rwkv6_scan_bwd": check_rwkv6_bwd(torch, dev, ops, ref, rw),
             "rglru_scan": check_rglru(torch, dev, ops, ref),
             "rglru_scan_bwd": check_rglru_bwd(torch, dev, ops, ref),
-            "moe_router": check_moe_router(torch, dev, ops, ref)}
+            "moe_router": check_moe_router(torch, dev, ops, ref),
+            "moe_router_bwd": check_moe_router_bwd(torch, dev, ops, ref, k4)}
     # K4's few microseconds a launch and K2's two kernels' device times are
     # read from the profiler here, early: late in a long run, sessions have
     # kept some records and dropped others.
@@ -2322,6 +2634,9 @@ def main() -> int:
     router = {label: time_router(torch, dev, ops, ref, card, label, shape, 400 + i)
               for i, (label, shape) in enumerate(ROUTER_SHAPES)}
     r0 = router[ROUTER_SHAPES[0][0]]
+    router_bwd = {label: time_router_bwd(torch, dev, ops, ref, k4, card, label, shape, seed)
+                  for label, shape, seed in ROUTER_BWD_SHAPES}
+    rb0 = router_bwd[ROUTER_BWD_SHAPES[0][0]]
     k2_info = infos[KERNELS.index("rwkv6_scan")]
     k2_passes = report_k2_build(torch, ops, rw, _build._nvcc(), k2_info.path, k2_info.log, card)
     k2b_info = infos[KERNELS.index("rwkv6_scan_bwd")]
@@ -2347,6 +2662,12 @@ def main() -> int:
         per_path[f"{arch} train"] = train_r[arch]["launches"]
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- 3d. train granite-moe-3b-a800m through K4's forward and backward ------------------------
+    train_moe = run_train_moe(card, torch, ops, dev)
+    per_path[f"{TRAIN_MOE} train"] = train_moe["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 4 and 5. serve each model at full width, then its times -----------------------------------
     for arch in ARCHS:
@@ -2396,8 +2717,10 @@ def main() -> int:
     bwd_times = time_scan_backwards(torch, dev, ops, ref, rw, card)
     times.update((name, t[:4]) for name, t in bwd_times.items())
     times["moe_router"] = (r0["ms"], r0["plain_ms"], r0["bound"], None)
-    log("[time] rwkv6_scan, rwkv6_scan_bwd, rglru_scan, rglru_scan_bwd, moe_router: no single "
-        "PyTorch call computes any of these functions, so library_ms is null")
+    times["moe_router_bwd"] = (rb0["ms"], rb0["plain_ms"], rb0["bound"], None)
+    log("[time] rwkv6_scan, rwkv6_scan_bwd, rglru_scan, rglru_scan_bwd, moe_router, "
+        "moe_router_bwd: no single PyTorch call computes any of these functions, so library_ms "
+        "is null")
     for name, (kms, pms, (bms, by, flops, nbytes), lms) in times.items():
         log(f"[time] {name} bound: {bms!r} ms by {by} ({flops:.4g} flop, {nbytes:.4g} bytes; "
             f"H100 SXM peaks at 700 W) {card}")
@@ -2409,7 +2732,8 @@ def main() -> int:
                "rwkv6_scan_bwd": "src/repro/kernels/rwkv6_scan.py:74",
                "rglru_scan": "src/repro/kernels/rglru_scan.py:44",
                "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:44",
-               "moe_router": "src/repro/kernels/moe_router.py:45"}
+               "moe_router": "src/repro/kernels/moe_router.py:45",
+               "moe_router_bwd": "src/repro/kernels/moe_router.py:45"}
     kernels = []
     for name in KERNELS:
         kms, pms, (bms, by, _, _), lms = times[name]
@@ -2430,6 +2754,11 @@ def main() -> int:
         host_ms=r0["host_ms"], launch_floor=floor,
         shapes={label: {key: val for key, val in r.items() if key != "bound"}
                 for label, r in router.items()})
+    kernels[KERNELS.index("moe_router_bwd")].update(
+        host_ms=rb0["host_ms"], launch_floor=floor,
+        shapes={label: {key: val for key, val in r.items() if key != "bound"}
+                for label, r in router_bwd.items()},
+        train_step={k: v for k, v in train_moe.items() if k != "launches"})
     k2 = kernels[KERNELS.index("rwkv6_scan")]
     k2.update(bf16_ms=bf16_ms, pass_ms=k2_passes, design_floor_ms=floor_ms)
     kernels[KERNELS.index("rwkv6_scan_bwd")].update(

@@ -38,34 +38,14 @@
 // The sum of the exponentials stays a shuffle tree: redux.sync adds
 // integers only.  expf and the division are the accurate ones (no fast
 // math): an index may differ from the plain version's only where two
-// probabilities are within an ulp.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
+// probabilities are within an ulp.  The softmax is row_exp of
+// moe_router.cuh, which the backward (moe_router_bwd.cu) shares, so that
+// its probabilities are these bit for bit.
+#include "moe_router.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;      // rows per block
-constexpr int MAX_K = 8;      // top_k
-constexpr int MAX_E = 256;    // experts: 8 values a lane
-constexpr unsigned FULL = 0xffffffffu;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// fp32 -> unsigned with the same order (-inf lowest): flip a negative's
-// bits, set a non-negative's sign bit.
-__device__ __forceinline__ unsigned order_bits(float x) {
-  const unsigned b = __float_as_uint(x);
-  return (b & 0x80000000u) ? ~b : b | 0x80000000u;
-}
-__device__ __forceinline__ float from_order_bits(unsigned u) {
-  return __uint_as_float((u & 0x80000000u) ? u & 0x7fffffffu : ~u);
-}
+using namespace moe_router;
 
 template <typename T, int VPL>
 __global__ void __launch_bounds__(WARPS * 32) moe_router_kernel(
@@ -76,24 +56,9 @@ __global__ void __launch_bounds__(WARPS * 32) moe_router_kernel(
   if (row >= n_rows) return;   // the whole warp leaves together
   const T* x = logits + row * E;
 
-  // softmax in fp32; slots past E hold -inf
+  // softmax in fp32 (moe_router.cuh, shared with the backward)
   float p[VPL];
-  float m = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const int e = j * 32 + lane;
-    p[j] = e < E ? to_f32(x[e]) : -INFINITY;
-    m = fmaxf(m, p[j]);
-  }
-  m = from_order_bits(__reduce_max_sync(FULL, order_bits(m)));
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    p[j] = j * 32 + lane < E ? expf(p[j] - m) : 0.f;
-    s += p[j];
-  }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  const float s = row_exp<T, VPL>(x, E, lane, p);
   // keys: a live probability's bits + 1; 0 for a slot past E or a winner
   unsigned key[VPL];
 #pragma unroll

@@ -1,6 +1,8 @@
-"""ctypes wrapper of the CUDA MoE router (``csrc/moe_router.cu``).
+"""ctypes wrappers of the CUDA MoE router (``csrc/moe_router.cu``) and its
+backward (``csrc/moe_router_bwd.cu``), and ``MoERouterFn``, the two joined
+for autograd.
 
-The host's work a call is kept to what a call must do, because the kernel
+The host's work a forward call is kept to what a call must do, because the kernel
 takes a few microseconds and runs once per MoE layer of every decode step:
 - the (shape, dtype, top_k) check runs once per distinct key and is
   remembered (``plan``); the device is checked on every call;
@@ -24,7 +26,8 @@ import torch
 
 from . import _build
 
-__all__ = ["moe_router_cuda", "check", "plan", "DTYPES", "MAX_EXPERTS", "MAX_TOP_K"]
+__all__ = ["moe_router_cuda", "moe_router_bwd_cuda", "MoERouterFn", "check", "plan", "DTYPES",
+           "MAX_EXPERTS", "MAX_TOP_K"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_EXPERTS, MAX_TOP_K = 256, 8
@@ -86,3 +89,70 @@ def moe_router_cuda(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, tor
     if err != 0:
         raise RuntimeError(f"moe_router_fwd launch failed: cudaError_t {err}")
     return w.view(torch.float32), idx
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    fn = _build.load_library("moe_router_bwd").moe_router_bwd
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, I, I, I, I, P]      # logits w idx dw dlogits dtype T E k stream
+    fn.restype = I
+    return fn
+
+
+def moe_router_bwd_cuda(logits: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                        dw: torch.Tensor) -> torch.Tensor:
+    """Launch the backward; same contract as ``ref.moe_router_bwd_ref``:
+    logits (..., E) fp32 or bf16, the forward's weights ``w`` (..., k) fp32
+    and indices ``idx`` (..., k) int32, the gradient ``dw`` of w (..., k)
+    -> dlogits (..., E) in the logits' dtype.
+
+    Raises on a tensor off the card, tensors on two devices, what ``check``
+    refuses, shapes or dtypes that do not match, or a launch that CUDA
+    refuses."""
+    ts = (logits, w, idx, dw)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("moe_router_bwd_cuda takes CUDA tensors only")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("logits, w, idx and dw must be on one device")
+    top_k = idx.shape[-1] if idx.dim() else 0
+    T, E, code, _ = plan(logits.shape, logits.dtype, top_k)
+    want = (*logits.shape[:-1], top_k)
+    if any(tuple(t.shape) != want for t in (w, idx, dw)):
+        raise ValueError(f"w {tuple(w.shape)}, idx {tuple(idx.shape)} and dw {tuple(dw.shape)} "
+                         f"must be {want} for logits {tuple(logits.shape)}")
+    if (w.dtype, idx.dtype) != (torch.float32, torch.int32):
+        raise ValueError(f"w {w.dtype} and idx {idx.dtype}: need float32 and int32")
+    logits, w, idx = logits.contiguous(), w.contiguous(), idx.contiguous()
+    dw = dw.to(torch.float32).contiguous()
+    dlogits = torch.empty_like(logits)
+    stream = torch._C._cuda_getCurrentRawStream(logits.get_device())
+    err = _bwd_fn()(logits.data_ptr(), w.data_ptr(), idx.data_ptr(), dw.data_ptr(),
+                    dlogits.data_ptr(), code, T, E, top_k, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_router_bwd launch failed: cudaError_t {err}")
+    return dlogits
+
+
+class MoERouterFn(torch.autograd.Function):
+    """The CUDA router with its CUDA backward, for CUDA logits that need a
+    gradient (``ops.moe_router`` routes them here).  The forward launches
+    the router kernel and keeps the logits and its two outputs; the
+    indices take no gradient.  The backward runs ``ops.moe_router_bwd``,
+    which counts its launches."""
+
+    @staticmethod
+    def forward(ctx, logits, top_k):
+        w, idx = moe_router_cuda(logits, top_k)
+        ctx.mark_non_differentiable(idx)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(logits, w, idx)
+        return w, idx
+
+    @staticmethod
+    def backward(ctx, dw, _didx):
+        from . import ops   # ops imports this module
+        if dw is None:
+            return None, None
+        logits, w, idx = ctx.saved_tensors
+        return ops.moe_router_bwd(logits, w, idx, dw), None

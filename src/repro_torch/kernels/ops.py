@@ -7,12 +7,11 @@ Each wrapper's ``launches`` counts its kernel's launches, so that a run can
 show that its main path went through the kernel.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
-card flash attention, the RWKV-6 scan and the RG-LRU scan have backward
-kernels: a call whose inputs need a gradient goes through
-``FlashAttentionFn``, ``RWKV6ScanFn`` or ``RGLRUScanFn``, whose backwards
-are ``flash_attention_bwd``, ``rwkv6_scan_bwd`` and ``rglru_scan_bwd``.
-The MoE router has none yet: it raises on a CUDA tensor that needs a
-gradient rather than return an output cut off from autograd.
+card every kernel has a backward kernel: a call whose inputs need a
+gradient goes through ``FlashAttentionFn``, ``RWKV6ScanFn``,
+``RGLRUScanFn`` or ``MoERouterFn``, whose backwards are
+``flash_attention_bwd``, ``rwkv6_scan_bwd``, ``rglru_scan_bwd`` and
+``moe_router_bwd``.
 """
 from __future__ import annotations
 
@@ -27,20 +26,12 @@ from . import rglru_scan as _rglru
 from . import rwkv6_scan as _rwkv
 
 __all__ = ["flash_attention", "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
-           "rglru_scan", "rglru_scan_bwd", "moe_router"]
+           "rglru_scan", "rglru_scan_bwd", "moe_router", "moe_router_bwd"]
 
 
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     """Whether autograd would need a gradient through a call on ``tensors``."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-
-
-def _no_backward(name: str, *tensors: torch.Tensor) -> None:
-    """Raise if autograd would need a gradient through ``name``'s kernel."""
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet (ROADMAP Queue 2): "
-            "call it under torch.no_grad() or on CPU tensors")
 
 
 def flash_attention(
@@ -166,13 +157,28 @@ def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Te
     number of rows is taken: the kernel masks the rows past the last
     itself, so nothing is padded.  Called once per MoE layer of every
     decode step, so the dispatch reads the cheap ``is_cpu``, not a
-    ``device`` object."""
+    ``device`` object.  On the card, with grad enabled and the logits
+    needing a gradient, the call goes through ``MoERouterFn`` (the same
+    forward, and the backward kernel)."""
     if logits.is_cpu:
         return ref.moe_router_ref(logits, top_k)
-    if logits.requires_grad:
-        _no_backward("moe_router", logits)
-    out = _router.moe_router_cuda(logits, top_k)
+    if logits.requires_grad and torch.is_grad_enabled():
+        out = _router.MoERouterFn.apply(logits, top_k)
+    else:
+        out = _router.moe_router_cuda(logits, top_k)
     moe_router.launches += 1
+    return out
+
+
+def moe_router_bwd(logits: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                   dw: torch.Tensor) -> torch.Tensor:
+    """Gradient dlogits (..., E), in the logits' dtype, of ``moe_router``'s
+    weights from its outputs ``w`` and ``idx`` (..., k) and the gradient
+    ``dw`` of w.  ``MoERouterFn.backward`` calls it."""
+    if logits.is_cpu:
+        return ref.moe_router_bwd_ref(logits, w, idx, dw)
+    out = _router.moe_router_bwd_cuda(logits, w, idx, dw)
+    moe_router_bwd.launches += 1
     return out
 
 
@@ -183,3 +189,4 @@ rwkv6_scan_bwd.launches = 0
 rglru_scan.launches = 0
 rglru_scan_bwd.launches = 0
 moe_router.launches = 0
+moe_router_bwd.launches = 0

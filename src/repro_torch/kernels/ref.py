@@ -13,7 +13,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "rwkv6_scan_ref",
-           "rwkv6_scan_bwd_ref", "rglru_scan_ref", "rglru_scan_bwd_ref", "moe_router_ref"]
+           "rwkv6_scan_bwd_ref", "rglru_scan_ref", "rglru_scan_bwd_ref", "moe_router_ref",
+           "moe_router_bwd_ref"]
 
 
 def _allowed(q_pos, k_pos, causal, window) -> torch.Tensor:
@@ -191,3 +192,23 @@ def moe_router_ref(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torc
     w, idx = w[..., :top_k], idx[..., :top_k]
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
     return w, idx.to(torch.int32)
+
+
+def moe_router_bwd_ref(logits: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                       dw: torch.Tensor) -> torch.Tensor:
+    """Gradient dlogits (..., E), in the logits' dtype, of the weights of
+    ``moe_router_ref`` given its outputs ``w`` and ``idx`` (..., k) and the
+    gradient ``dw`` of ``w``; the indices take none.  Written out as the
+    chain that autograd of JAX's ``_route`` takes, in fp32:
+    p = softmax(logits); Z = max(sum_j p[idx_j], 1e-9);
+    dp[idx_j] = (dw_j - sum_m dw_m w_m) / Z, 0 elsewhere;
+    dlogits = p * (dp - sum_e p_e dp_e).
+    The last sum is zero but for rounding, so an unselected logit gets the
+    chain's rounding residue, as in JAX, not an exact zero."""
+    p = torch.softmax(logits.float(), dim=-1)
+    idx = idx.long()
+    z = p.gather(-1, idx).sum(-1, keepdim=True).clamp_min(1e-9)
+    dw = dw.float()
+    dp_k = (dw - (dw * w).sum(-1, keepdim=True)) / z
+    dp = torch.zeros_like(p).scatter_(-1, idx, dp_k)
+    return (p * (dp - (p * dp).sum(-1, keepdim=True))).to(logits.dtype)

@@ -11,7 +11,7 @@ cosine schedule, on the synthetic LM stream of ``data/pipeline.py``.  On the
 card (``device_model``) attention runs the CUDA flash-attention kernel,
 forward and backward (``attn_impl="pallas"``, as ``launch/serve.py`` sets
 it), and so do the RWKV-6 and RG-LRU scans of the ssm and hybrid families
-(``kernel_impl="pallas"``); on the CPU the plain versions run,
+and the MoE router of the moe family (``kernel_impl="pallas"``); on the CPU the plain versions run,
 differentiated by autograd.  Weights are random, drawn on
 the training device from seed 0, as JAX draws them from ``key(0)``.
 ``train`` is the function behind the command line; it also times each step
@@ -50,14 +50,13 @@ def _sync(device: torch.device) -> None:
 
 def device_model(cfg: ModelConfig, dev: torch.device) -> ModelConfig:
     """The config trained on ``dev``: on the card attention runs the CUDA
-    kernel (``attn_impl="pallas"``), and the ssm and hybrid families' scans
-    theirs (``kernel_impl="pallas"``), each launched or raising.  The moe
-    family keeps ``kernel_impl="jnp"``: the router kernel has no backward
-    yet (ROADMAP Queue 1 item 3), and JAX's MoE layer never calls its router
-    kernel either.  Elsewhere the config is returned as it is."""
+    kernel (``attn_impl="pallas"``), and the ssm, hybrid and moe families'
+    scans and router theirs (``kernel_impl="pallas"``), forward and
+    backward, each launched or raising.  Elsewhere the config is returned
+    as it is."""
     if dev.type != "cuda":
         return cfg
-    kernel_impl = "pallas" if cfg.family in ("ssm", "hybrid") else cfg.kernel_impl
+    kernel_impl = "pallas" if cfg.family in ("ssm", "hybrid", "moe") else cfg.kernel_impl
     return dataclasses.replace(cfg, attn_impl="pallas", kernel_impl=kernel_impl)
 
 

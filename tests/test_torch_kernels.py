@@ -20,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
 from repro_torch.kernels import flash_attention as pfa
+from repro_torch.kernels import moe_router as prouter
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
 from repro_torch.kernels import rglru_scan as prg
@@ -263,20 +264,29 @@ def test_grad_path_off_the_cpu_never_runs_the_plain_version():
 
 @pytest.mark.parametrize("name", ["moe_router"])
 def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu(name):
-    """moe_router has no backward kernel yet: off the CPU, a call that
-    autograd would differentiate raises instead of returning an output cut
-    off from the graph; without a gradient the call reaches the kernel,
-    which refuses a tensor off the card."""
+    """The router's gradient path off the CPU never runs the plain version:
+    a tensor that needs a gradient goes through MoERouterFn, whose kernel
+    refuses what is not on the card; so does the backward's wrapper, and
+    without a gradient (or under no_grad) the forward's.  No counter
+    moves."""
     def call(grad):
         return pops.moe_router(*_meta((4, 8), grad=grad), 2)
-    before = getattr(pops, name).launches
-    with pytest.raises(NotImplementedError, match=f"{name} has no backward kernel"):
-        call(grad=True)
+    before = pops.moe_router.launches, pops.moe_router_bwd.launches
+    with mock.patch.object(prouter.MoERouterFn, "apply",
+                           wraps=prouter.MoERouterFn.apply) as fn:
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            call(grad=True)
+        assert fn.call_count == 1
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            call(grad=False)
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors only"):
+            call(grad=True)
+        assert fn.call_count == 1
+    logits, w, dw = _meta((4, 8), (4, 2), (4, 2))
+    idx = torch.zeros((4, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        call(grad=False)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors only"):
-        call(grad=True)
-    assert getattr(pops, name).launches == before
+        pops.moe_router_bwd(logits, w, idx, dw)
+    assert (pops.moe_router.launches, pops.moe_router_bwd.launches) == before
 
 
 @pytest.mark.parametrize("name", ["rwkv6_scan", "rglru_scan"])
@@ -354,9 +364,9 @@ def test_build_hash_covers_the_headers_a_source_includes(tmp_path):
 def test_every_kernel_source_has_its_own_hash():
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    assert names == ["flash_attention", "flash_attention_bwd", "moe_router", "rglru_scan",
-                     "rglru_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd"]
-    assert len({_build.source_digest(_build.CSRC_DIR / f"{n}.cu") for n in names}) == 7
+    assert names == ["flash_attention", "flash_attention_bwd", "moe_router", "moe_router_bwd",
+                     "rglru_scan", "rglru_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd"]
+    assert len({_build.source_digest(_build.CSRC_DIR / f"{n}.cu") for n in names}) == 8
 
 
 def test_threads_that_reach_a_kernel_together_build_it_once(tmp_path, monkeypatch):

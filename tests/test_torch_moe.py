@@ -11,10 +11,14 @@ makes a choice and a group of 32 tokens overflows an expert's capacity (20
 and 30 slots).  The CUDA kernel's selection order (its keys, the masked
 winner, the lowest index among equals) is emulated in plain PyTorch and
 held against JAX's router; its wrapper's check runs without a card.  The
-CUDA kernel itself is held against the plain version by the ``gpu`` tests,
-which skip without a card.
+router's plain backward (``ref.moe_router_bwd_ref``) is held against
+``jax.vjp`` of JAX's ``_route`` and against torch autograd of the plain
+router, and so is the CUDA backward's order of sums, emulated.  The CUDA
+kernels themselves are held against the plain versions by the ``gpu``
+tests, which skip without a card.
 """
 import dataclasses
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -241,6 +245,123 @@ def test_router_takes_leading_dims_as_rows():
     assert torch.equal(w.reshape(96, 8), w2) and torch.equal(idx.reshape(96, 8), idx2)
 
 
+# -- the router's backward: plain version against JAX's autograd ------------------------
+
+# dlogits, normwise (max |a - b| over max(1, max |b|)): in fp32 the sums are
+# taken in other orders (readings at most 1.2e-7); in bf16 each side rounds
+# dlogits once, so a value may land one bf16 ulp (2**-8 relative) away.
+BWD_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+
+# (T, E, k, dtype, rows set to zero): top-k of a few, of many, k = E, E=250
+# (8 values a kernel lane, the last lane part-filled), all-zero rows (every
+# expert ties: the lowest k indices), bf16 logits
+BWD_CASES = [(64, 8, 2, "float32", None), (100, 64, 6, "float32", None),
+             (256, 40, 8, "float32", None), (64, 8, 8, "float32", None),
+             (77, 250, 8, "float32", None), (48, 40, 8, "float32", slice(3, 20)),
+             (32, 64, 6, "float32", slice(None)), (96, 40, 8, "bfloat16", None)]
+
+
+def _bwd_case(T, E, k, dtype, zero, seed=40):
+    logits = _rand(seed, T, E, scale=2.0)
+    if zero is not None:
+        logits[zero] = 0.0
+    return logits, _rand(seed + 1, T, k)
+
+
+def _normwise(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_route_vjp(case):
+    """JAX's top-k indices and the gradient of the logits through ``_route``
+    (softmax -> lax.top_k -> renormalise) for ``BWD_CASES[case]``'s logits
+    and weight cotangent; each case once per module."""
+    T, E, k, dtype, zero = BWD_CASES[case]
+    logits, dw = _bwd_case(T, E, k, dtype, zero)
+    moe = dataclasses.replace(jax_get_config("granite-moe-3b-a800m").moe, n_experts=E, top_k=k)
+
+    @jax.jit
+    def route_vjp(x, g):
+        (_, ji), vjp = jax.vjp(lambda x: jmoe._route(x, moe)[:2], x)
+        return ji, vjp((g, np.zeros(ji.shape, jax.dtypes.float0)))[0]
+
+    ji, dx = route_vjp(_j(logits, dtype), jnp.asarray(dw))
+    return np.asarray(ji), np.asarray(dx, np.float32)
+
+
+@pytest.mark.parametrize("case", range(len(BWD_CASES)))
+def test_router_bwd_ref_matches_jax_vjp(case):
+    T, E, k, dtype, zero = BWD_CASES[case]
+    logits, dw = _bwd_case(T, E, k, dtype, zero)
+    ji, jdx = _jax_route_vjp(case)
+    x = _t(logits, dtype)
+    w, idx = pref.moe_router_ref(x, k)
+    np.testing.assert_array_equal(idx.numpy(), ji)
+    dx = pref.moe_router_bwd_ref(x, w, idx, torch.from_numpy(dw))
+    assert dx.dtype == x.dtype and dx.shape == (T, E)
+    assert _normwise(dx.float().numpy(), jdx) <= BWD_TOL[dtype]
+    assert float(dx.float().abs().max()) > 0
+
+
+@pytest.mark.parametrize("T,E,k,dtype,zero", BWD_CASES)
+def test_router_bwd_ref_matches_torch_autograd(T, E, k, dtype, zero):
+    """The written-out chain against autograd of ``moe_router_ref`` (the
+    plain router that the CPU path trains through) on the same outputs."""
+    logits, dw = _bwd_case(T, E, k, dtype, zero)
+    x = _t(logits, dtype).requires_grad_()
+    w, idx = pref.moe_router_ref(x, k)
+    w.backward(torch.from_numpy(dw))
+    dx = pref.moe_router_bwd_ref(x.detach(), w.detach(), idx, torch.from_numpy(dw))
+    assert x.grad.dtype == dx.dtype
+    assert _normwise(dx.float().numpy(), x.grad.float().numpy()) <= BWD_TOL[dtype]
+
+
+def _kernel_bwd_emulation(logits, w, idx, dw):
+    """``csrc/moe_router_bwd.cu``'s order of work in plain PyTorch: the
+    forward's probabilities (exp(x - max) over their sum, then the
+    quotient); Z summed over the rounds in order, round 0 first, as the
+    forward sums it; sum_m dw_m w_m and sum_j p[idx_j] dp_j over the k
+    selected only; each logit's q (dp - that sum)."""
+    x = logits.float()
+    e = torch.exp(x - x.max(-1, keepdim=True).values)
+    q = e / e.sum(-1, keepdim=True)
+    pk = q.gather(-1, idx.long())
+    z = torch.zeros(len(x))
+    for r in range(idx.shape[-1]):
+        z = z + pk[:, r]
+    dp = (dw - (dw * w).sum(-1, keepdim=True)) / z.clamp_min(1e-9)[:, None]
+    d = torch.zeros_like(q).scatter_(-1, idx.long(), dp)
+    return (q * (d - (pk * dp).sum(-1, keepdim=True))).to(logits.dtype)
+
+
+@pytest.mark.parametrize("case", range(len(BWD_CASES)))
+def test_kernel_bwd_order_of_sums_matches_jax(case):
+    """The kernel's Z is the forward's sum bit for bit (the emulated
+    forward's weights are renormalised by it), and its sums over the k
+    selected experts give JAX's gradient within the plain version's
+    tolerance."""
+    T, E, k, dtype, zero = BWD_CASES[case]
+    logits, dw = _bwd_case(T, E, k, dtype, zero)
+    x = _t(logits, dtype)
+    w, idx = _kernel_selection(x, k)
+    ji, jdx = _jax_route_vjp(case)
+    np.testing.assert_array_equal(idx.numpy(), ji)
+    dx = _kernel_bwd_emulation(x, w, idx, torch.from_numpy(dw))
+    assert _normwise(dx.float().numpy(), jdx) <= BWD_TOL[dtype]
+
+
+def test_cpu_bwd_dispatches_to_the_plain_version_without_counting():
+    logits, dw = _bwd_case(256, 40, 8, "float32", None)
+    x = _t(logits)
+    w, idx = pops.moe_router(x, 8)
+    before = pops.moe_router_bwd.launches
+    got = pops.moe_router_bwd(x, w, idx, torch.from_numpy(dw))
+    assert pops.moe_router_bwd.launches == before
+    assert torch.equal(got, pref.moe_router_bwd_ref(x, w, idx, torch.from_numpy(dw)))
+
+
 # -- dispatch ------------------------------------------------------------------------
 
 def test_cpu_dispatches_to_the_plain_version_without_counting():
@@ -435,6 +556,73 @@ def test_chip_smoke_moe_router_bound(T, E, k, dtype):
     assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
 
 
+@pytest.mark.parametrize("T,E,k,dtype", [(4096, 40, 8, "float32"), (4096, 64, 6, "float32"),
+                                         (77, 250, 8, "bfloat16")])
+def test_chip_smoke_moe_router_bwd_bound(T, E, k, dtype):
+    """Bytes: the logits, weights, indices and weight gradients read once,
+    dlogits written once: 416 B a row at granite-moe's shape.  Operations
+    per row: 9E (the softmax again, p * dp and its sum, each logit's
+    difference and product) and 5k."""
+    smoke = _smoke()
+    logits = torch.zeros((T, E), dtype=getattr(torch, dtype))
+    ms, by, flops, nbytes = smoke.moe_router_bwd_bound(logits, k)
+    assert flops == T * (9 * E + 5 * k)
+    assert nbytes == 2 * T * E * logits.element_size() + T * k * 12
+    if (T, E, k, dtype) == (4096, 40, 8, "float32"):
+        assert nbytes == 4096 * 416
+    assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
+
+
+@pytest.mark.parametrize("arch,n_layers,remat,expect", [
+    ("granite-moe-3b-a800m", None, True, {"flash_attention": 64, "flash_attention_bwd": 32,
+                                          "moe_router": 64, "moe_router_bwd": 32}),
+    ("granite-moe-3b-a800m", 3, False, {"flash_attention": 3, "flash_attention_bwd": 3,
+                                        "moe_router": 3, "moe_router_bwd": 3}),
+    ("deepseek-moe-16b", None, True, {"flash_attention": 56, "flash_attention_bwd": 28,
+                                      "moe_router": 56, "moe_router_bwd": 28}),
+])
+def test_chip_smoke_expected_train_launches_of_the_moe_family(arch, n_layers, remat, expect):
+    """A moe train step launches K1 and K4 forward and backward once a
+    layer, and with remat each forward once more (phase 3d: granite-moe at
+    full depth with remat, 64 forwards and 32 backwards of each)."""
+    smoke = _smoke()
+    cfg = dataclasses.replace(get_config(arch), remat=remat)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    assert smoke.expected_train_launches(cfg, 3) == {n: 3 * expect.get(n, 0)
+                                                     for n in smoke.KERNELS}
+
+
+def test_k4_kernel_names_match_the_trace_filter():
+    """chip_smoke finds K4's kernels by name: each filter takes its own
+    kernel and not the other's, one launch a call each way."""
+    smoke = _smoke()
+    csrc = Path(prouter.__file__).parent / "csrc"
+    for name in ("moe_router", "moe_router_bwd"):
+        assert f"{name}_kernel(" in (csrc / f"{name}.cu").read_text()
+        key = f"void (anonymous namespace)::{name}_kernel<float, 2>(float const*, float*)"
+        assert [n for n in smoke.KERNELS if smoke.ours(n, key)] == [name], key
+        assert smoke.KERNELS_PER_CALL[name] == 1
+
+
+def test_routing_check_names_a_train_steps_calls():
+    """Under remat a train step routes each layer in its forward, layer 0
+    first, then in the backward's recompute, the last layer first; a
+    forward alone routes each layer once."""
+    where = _smoke().train_call(4)
+    assert [where(c) for c in (0, 3, 4, 7, 8)] == [
+        ("step 0", "step 0 forward", 0), ("step 0", "step 0 forward", 3),
+        ("step 0", "step 0 recompute", 3), ("step 0", "step 0 recompute", 0),
+        ("step 1", "step 1 forward", 0)]
+    where = _smoke().train_call(4, remat=False)
+    assert [where(c) for c in (3, 4)] == [("step 0", "step 0 forward", 3),
+                                          ("step 1", "step 1 forward", 0)]
+    serve = _smoke().serve_call(4)
+    assert [serve(c) for c in (3, 4, 9)] == [("prefill", "prefill", 3),
+                                             ("decode", "decode step 1", 0),
+                                             ("decode", "decode step 2", 1)]
+
+
 # -- on the card -------------------------------------------------------------------
 
 @pytest.fixture()
@@ -511,3 +699,65 @@ def test_moe_router_takes_strided_logits_and_the_current_stream(cuda_device):
     side.synchronize()
     assert torch.equal(idx, idx_ref)
     torch.testing.assert_close(w, w_ref, rtol=0, atol=ROUTER_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,k,dtype,zero", [
+    (4096, 40, 8, "float32", False),     # granite-moe training
+    (256, 40, 8, "float32", True),       # 248 padded rows: every expert ties
+    (4096, 64, 6, "float32", False),     # deepseek-moe
+    (77, 250, 8, "float32", False),      # 8 values a lane, the last lane part-filled
+    (64, 8, 8, "float32", False),        # k = E
+    (4096, 40, 8, "bfloat16", False),
+])
+def test_moe_router_bwd_kernel_matches_plain_version_on_card(cuda_device, T, E, k, dtype, zero):
+    """On the kernel forward's own outputs: dlogits against the plain
+    backward (``BWD_TOL``), a second run bit for bit, one launch counted."""
+    logits = _t(_rand(41, T, E, scale=2.0), dtype).to(cuda_device)
+    if zero:
+        logits[8:] = 0
+    dw = _t(_rand(42, T, k)).to(cuda_device)
+    w, idx = prouter.moe_router_cuda(logits, k)
+    before = pops.moe_router_bwd.launches
+    got = pops.moe_router_bwd(logits, w, idx, dw)
+    again = pops.moe_router_bwd(logits, w, idx, dw)
+    torch.cuda.synchronize()
+    assert pops.moe_router_bwd.launches == before + 2
+    assert got.dtype == logits.dtype and got.shape == (T, E) and torch.equal(got, again)
+    exp = pref.moe_router_bwd_ref(logits, w, idx, dw)
+    assert _normwise(got.float().cpu().numpy(), exp.float().cpu().numpy()) <= BWD_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_router_fn_matches_autograd_of_the_plain_router_on_card(cuda_device, dtype):
+    """``ops.moe_router`` on logits that need a gradient runs MoERouterFn:
+    the forward kernel, then the backward kernel, against autograd of the
+    plain router (no near-tie in these draws: the indices are equal)."""
+    logits = _t(_rand(43, 3, 256, 40, scale=2.0), dtype).to(cuda_device)
+    dw = _t(_rand(44, 3, 256, 8)).to(cuda_device)
+    x, xr = logits.clone().requires_grad_(), logits.clone().requires_grad_()
+    before = pops.moe_router.launches, pops.moe_router_bwd.launches
+    w, idx = pops.moe_router(x, 8)
+    w.backward(dw)
+    torch.cuda.synchronize()
+    assert (pops.moe_router.launches, pops.moe_router_bwd.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    assert w.grad_fn is not None and not idx.requires_grad
+    wr, idxr = pref.moe_router_ref(xr, 8)
+    wr.backward(dw)
+    assert torch.equal(idx, idxr) and x.grad.dtype == logits.dtype
+    assert _normwise(x.grad.float().cpu().numpy(), xr.grad.float().cpu().numpy()) \
+        <= BWD_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_moe_router_bwd_kernel_refuses_what_it_does_not_take(cuda_device):
+    logits = torch.zeros((8, 40), device=cuda_device)
+    w, idx = prouter.moe_router_cuda(logits, 8)
+    dw = torch.zeros_like(w)
+    for args in ((logits.cpu(), w, idx, dw), (logits, w, idx.long(), dw),
+                 (logits, w[:4], idx[:4], dw[:4]), (logits.half(), w, idx, dw),
+                 (torch.zeros((8, 300), device=cuda_device), w, idx, dw)):
+        with pytest.raises(ValueError):
+            prouter.moe_router_bwd_cuda(*args)

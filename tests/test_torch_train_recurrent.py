@@ -152,13 +152,13 @@ def test_chip_smoke_float64_gradients_of_the_plain_path(jax_reference):
 
 @pytest.mark.parametrize("arch,kernel_impl", [
     ("smollm-135m", "jnp"), ("rwkv6-1.6b", "pallas"), ("recurrentgemma-9b", "pallas"),
-    ("granite-moe-3b-a800m", "jnp"), ("deepseek-moe-16b", "jnp"),
+    ("granite-moe-3b-a800m", "pallas"), ("deepseek-moe-16b", "pallas"),
 ])
 def test_training_on_the_card_picks_the_scan_kernels(monkeypatch, arch, kernel_impl):
     """On a card, ``launch/train.py`` and ``tune.trial_model`` train the ssm
-    and hybrid families through their scan kernels (``kernel_impl="pallas"``)
-    and the moe family through the plain router (its kernel has no backward);
-    attention runs its kernel everywhere.  On the CPU the config is left as
+    and hybrid families through their scan kernels and the moe family
+    through its router kernel (``kernel_impl="pallas"``, each forward and
+    backward); attention runs its kernel everywhere.  On the CPU the config is left as
     it is.  The device check is monkeypatched: no card is needed."""
     cfg = get_config(arch)
     assert launch_train.device_model(cfg, torch.device("cpu")) == cfg
