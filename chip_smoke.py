@@ -56,6 +56,29 @@ non-zero exit:
    process executor (FIFO, 2 iterations), in a worker forked from the port's
    own forkserver: its losses within the train phase's loss limit of the
    serial trial's, its first step (a fresh CUDA context) printed.
+3e. cluster: the same sweep through ``launch.tune`` with ``--executor
+   cluster --hosts 2x4 --placement fixed``: two simulated hosts of 4
+   virtual devices, each trial a socket worker forked from the port's
+   forkserver, all four on the card at once, dialing the controller back
+   over loopback TCP; checkpoints content-addressed through each host's
+   spill directory and fetched to the controller.  The workers report their
+   launches with each result: K1's forward and backward each 30 times the
+   steps run.  Every trial must end TERMINATED with its loss at every
+   iteration within the train phase's loss limit of an uninterrupted serial
+   run of its config (which must itself equal 3b's trials), no worker may
+   outlive the sweep, and the card's free memory must come back within 64
+   MiB.  Printed: wall time and trials/hour beside 3b's, each trial's host
+   and first and steady step, the trace's spans, the control plane's share,
+   the fetch histogram and every fetch's seconds, the card's peak memory in
+   use over all processes.  Then 3b's first config alone (FIFO, 4
+   iterations, ``--max-failures 1``) on two hosts of 2 devices, its worker
+   SIGKILLed as the controller adopts its second checkpoint: it must end
+   TERMINATED with one failure, restarted from iteration 2, its later
+   losses within the same limit; the restart's wall time is printed, from
+   the kill to the end of the first step after it, split into the killed
+   process's exit, the requeue, the controller's export copy, the fetch to
+   the host, the new worker's fork and dial-in, its trainable and fresh CUDA
+   context, the restore and the first step.
 3c. train the ssm and hybrid families through ``repro_torch.launch.train``
    at full width, fp32, batch 8, sequence 512, 3 steps each: rwkv6-1.6b at
    full depth (24 K2 forwards and backwards a step), then recurrentgemma-9b
@@ -107,6 +130,12 @@ non-zero exit:
    of ``scaled_dot_product_attention`` and both of its bounds.  K2's and
    K3's backwards are timed at the training shapes beside their plain
    versions and bounds.
+
+The script leaves no process behind, whether it passes or fails.  It makes
+itself the reaper of its orphaned descendants, and before the last two lines
+(or after a failure) stops, and waits for, every trial worker, the port's
+forkserver, ``multiprocessing``'s resource tracker and anything else still
+below it; the run fails if a process outlives that.
 
 Every ``torch.profiler`` session keeps 50 ms of idle at each end, and one
 that comes back with no kernel record, or with fewer records of this repo's
@@ -1382,13 +1411,18 @@ def wkv_precision(torch, res, prefill) -> None:
 
 @contextlib.contextmanager
 def patched(obj, name: str, fn):
-    """``obj.<name>`` replaced by ``fn`` inside the block."""
+    """``obj.<name>`` replaced by ``fn`` inside the block (an attribute a
+    class inherits is deleted again, not copied onto it)."""
+    own = name in vars(obj)
     real = getattr(obj, name)
     setattr(obj, name, fn)
     try:
         yield
     finally:
-        setattr(obj, name, real)
+        if own:
+            setattr(obj, name, real)
+        else:
+            delattr(obj, name)
 
 
 class RoutingCheck:
@@ -2137,6 +2171,8 @@ def run_sweep(card: str, torch, ops) -> dict:
     assert launches == expect, f"sweep: expected {expect} launches"
     first = trials[0]
     serial_losses = {r.training_iteration: r.metrics["loss"] for r in first.results}
+    losses = {config_key(t.config): {r.training_iteration: r.metrics["loss"] for r in t.results}
+              for t in trials}
     del analysis, trials, t
     gc.collect()
     torch.cuda.empty_cache()
@@ -2156,7 +2192,14 @@ def run_sweep(card: str, torch, ops) -> dict:
     assert gaps and max(gaps.values()) <= TRAIN_LOSS_TOL, f"process trial's losses differ: {gaps}"
     return {"launches": launches, "wall_s": wall, "trials_per_hour": finished * 3600 / wall,
             "control_plane_share": 1 - step_s / wall, "peak_bytes": peak,
-            "process_first_step_s": proc["first_step_s"], "process_loss_gap": max(gaps.values())}
+            "process_first_step_s": proc["first_step_s"], "process_loss_gap": max(gaps.values()),
+            "losses": losses}
+
+
+def config_key(config) -> str:
+    """A trial's hyperparameters, without the executor's own keys, as a key."""
+    return json.dumps({k: v for k, v in config.items() if not k.startswith("_")},
+                      sort_keys=True)
 
 
 def run_process_trial(args, trial, log_dir: str) -> dict:
@@ -2185,6 +2228,560 @@ def run_process_trial(args, trial, log_dir: str) -> dict:
     return {"config": hp, "iterations": pt.training_iteration, "wall_s": wall,
             "first_step_s": p.get("first_step_s"), "steady_step_s": p.get("steady_step_s"),
             "losses": {r.training_iteration: r.metrics["loss"] for r in pt.results}}
+
+
+def with_flags(args, **flags) -> tuple:
+    """``args`` with the value of each ``--flag`` in ``flags`` (underscores read
+    as dashes) replaced, or the flag appended."""
+    out = list(args)
+    for name, value in flags.items():
+        flag = "--" + name.replace("_", "-")
+        if flag in out:
+            out[out.index(flag) + 1] = str(value)
+        else:
+            out += [flag, str(value)]
+    return tuple(out)
+
+
+# The cluster phase (3e): phase 3b's sweep on the cluster tier, through
+# ``repro_torch.launch.tune`` in-process with ``--executor cluster``: a roster
+# of two simulated hosts of 4 virtual devices (3b's pool of 8), placement
+# fixed at 2 devices a trial, so two trials a host and all four at once.  Each
+# trial is a socket worker forked from the port's own forkserver (whose image
+# never touched CUDA) that dials the controller back over loopback TCP and
+# trains on the card through the kernels; each checkpoint is
+# content-addressed, spilled to its host's directory and fetched to the
+# controller before it is adopted.  The parent's launch counters never see a
+# worker's launches, so the worker's trainable is the launcher's own class,
+# subclassed to report with each result the launches each kernel wrapper
+# counted in that worker during the step (``counted_model_trainable``).
+# Then a worker failure: the first config alone (FIFO, 4 iterations, a
+# checkpoint each, --max-failures 1) on two hosts of 2 devices, its worker
+# SIGKILLed when the controller adopts its second checkpoint; the trial must
+# restart from that checkpoint, fetched back across the controller's store,
+# and end with one failure.  Losses are held, within TRAIN_LOSS_TOL, against
+# an uninterrupted serial run of the sweep's four configs for 4 iterations
+# with no checkpoints, which must itself equal 3b's trials where they ran.
+CLUSTER_SWEEP_ARGS = with_flags(SWEEP_ARGS, executor="cluster", hosts="2x4",
+                                placement="fixed", metrics_interval=60)
+FAILURE_ARGS = with_flags(SWEEP_ARGS, scheduler="fifo", num_samples=1, executor="cluster",
+                          hosts="2x2", placement="fixed", max_failures=1)
+FAILURE_KILL_AFTER = 2
+WORKER_NAMES = ("repro-worker-", "repro-cluster-worker-")
+
+
+def counted_model_trainable(model_cfg, **workload):
+    """``make_model_trainable``'s class, whose results also carry the
+    launches each kernel wrapper counted in this process during the step."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainable import make_model_trainable
+
+    base = make_model_trainable(model_cfg, **workload)
+
+    class Counted(base):
+        def step(self):
+            before = {name: getattr(ops, name).launches for name in KERNELS}
+            out = super().step()
+            out.update({f"launches.{name}": getattr(ops, name).launches - before[name]
+                        for name in KERNELS})
+            return out
+
+    Counted.__name__ = Counted.__qualname__ = base.__name__
+    return Counted
+
+
+def counted_factory(model_cfg, **workload):
+    """``model_trainable_factory``'s recipe for ``counted_model_trainable``,
+    which a worker process rebuilds by importing this script."""
+    from repro_torch.core import TrainableFactory
+
+    return TrainableFactory(target="chip_smoke:counted_model_trainable",
+                            kwargs={"model_cfg": model_cfg, **workload}, call=True,
+                            sys_path=(str(ROOT),))
+
+
+def worker_launches(trials) -> dict:
+    """Each kernel's launches over every result of ``trials``."""
+    return {name: sum(int(r.metrics.get(f"launches.{name}", 0))
+                      for t in trials for r in t.results) for name in KERNELS}
+
+
+@contextlib.contextmanager
+def killing_worker_after_checkpoint(n: int, record: dict):
+    """Inside the block, the controller's adoption of a trial's ``n``-th
+    checkpoint SIGKILLs that trial's socket worker at once, from the
+    controller, before a later checkpoint can be adopted.  ``record`` gets
+    the trial, the pid and the wall time of the kill, then of the
+    controller's steps that follow: when its pump saw the worker's end
+    (``death_seen``), and the start and seconds of the runner's requeue
+    (``requeue``, which reaps the killed process) and of the controller's
+    export copy of the checkpoint for the new worker (``export``)."""
+    import multiprocessing as mp
+    import os
+    import signal
+
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.process_executor import ProcessMeshExecutor
+
+    adopt, export_copy = CheckpointManager.adopt, CheckpointManager.export_copy
+    on_death, requeue = ProcessMeshExecutor._on_worker_death, ProcessMeshExecutor.requeue_trial
+
+    def adopt_then_kill(self, trial_id, iteration, store_key):
+        ckpt = adopt(self, trial_id, iteration, store_key)
+        if iteration == n and "pid" not in record:
+            (proc,) = [p for p in mp.active_children()
+                       if p.name == f"repro-cluster-worker-{trial_id}"]
+            record.update(trial_id=trial_id, pid=proc.pid, t=time.time())
+            os.kill(proc.pid, signal.SIGKILL)
+        return ckpt
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.time()
+            out = fn(*a, **kw)
+            if "pid" in record:
+                record.setdefault(name, (t0, time.time() - t0))
+            return out
+        return call
+
+    def seen(self, ws):
+        if "pid" in record:
+            record.setdefault("death_seen", time.time())
+        return on_death(self, ws)
+
+    with patched(CheckpointManager, "adopt", adopt_then_kill), \
+            patched(CheckpointManager, "export_copy", timed("export", export_copy)), \
+            patched(ProcessMeshExecutor, "_on_worker_death", seen), \
+            patched(ProcessMeshExecutor, "requeue_trial", timed("requeue", requeue)):
+        yield record
+
+
+@contextlib.contextmanager
+def timed_fetches(record: list):
+    """Inside the block, each cross-host fetch of the cluster executor is
+    timed into ``record``: key, direction, start, seconds and bytes."""
+    import os
+    from pathlib import PurePath
+
+    from repro_torch.cluster import executor as cluster_executor
+
+    fetch = cluster_executor.fetch
+
+    def timed(key, src, dst):
+        t0 = time.time()
+        out = fetch(key, src, dst)
+        to = "host" if "hosts" in PurePath(dst.spill_dir or "").parts else "controller"
+        record.append({"key": key, "to": to, "t": t0, "s": time.time() - t0,
+                       "bytes": os.path.getsize(dst._spill_path(key))})
+        return out
+
+    with patched(cluster_executor, "fetch", timed):
+        yield record
+
+
+def live_workers() -> list:
+    """Pids of trial worker processes still alive: this process's children
+    of that name, and the children of the port's forkserver."""
+    import multiprocessing as mp
+    import os
+
+    from repro_torch.core import workers
+
+    pids = {p.pid for p in mp.active_children() if p.name.startswith(WORKER_NAMES)}
+    server = getattr(workers._DEFAULT_CTX, "server", None)
+    parent = getattr(server, "_forkserver_pid", None)
+    for status in Path("/proc").glob("[0-9]*/status") if parent else ():
+        try:
+            fields = dict(line.split(":\t", 1) for line in status.read_text().splitlines()
+                          if ":\t" in line)
+        except OSError:
+            continue
+        if fields.get("PPid", "").strip() == str(parent) and not fields.get(
+                "State", "").startswith("Z"):
+            pids.add(int(status.parent.name))
+    return sorted(pids - {os.getpid()})
+
+
+def adopt_orphans() -> bool:
+    """Make this process the reaper of its orphaned descendants (Linux
+    ``PR_SET_CHILD_SUBREAPER``): a worker whose forkserver has exited comes
+    back to this process, not to init, so ``stop_started_processes`` still
+    finds it below this process.  False where the kernel refuses."""
+    import ctypes
+
+    return ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0
+
+
+def descendants(pid: int) -> dict:
+    """{pid: command line} of every process below ``pid`` in the process
+    tree, zombies included, from /proc."""
+    children = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:
+            continue
+        ppid = int(text[text.rindex(")") + 2:].split()[1])
+        children.setdefault(ppid, []).append(int(stat.parent.name))
+    out, todo = {}, [pid]
+    while todo:
+        for child in children.get(todo.pop(), ()):
+            try:
+                cmd = (Path("/proc") / str(child) / "cmdline").read_bytes()
+            except OSError:
+                cmd = b""
+            out[child] = cmd.replace(b"\0", b" ").decode(errors="replace").strip()
+            todo.append(child)
+    return out
+
+
+def _gone(pid: int) -> bool:
+    """Reap ``pid`` if it is this process's child and has ended; whether it
+    no longer runs (ended, or a zombie that its own parent will reap)."""
+    import os
+
+    try:
+        return os.waitpid(pid, os.WNOHANG)[0] == pid
+    except ChildProcessError:
+        try:
+            text = (Path("/proc") / str(pid) / "stat").read_text()
+        except OSError:
+            return True
+        return text[text.rindex(")") + 2] in "ZX"
+
+
+def _stop_pid(pid: int, grace_s: float, sig=None) -> None:
+    """Send ``sig`` (if any) to ``pid``; SIGKILL it if it still runs after
+    ``grace_s``; return once it no longer runs."""
+    import os
+    import signal
+
+    for s, wait_s in ((sig, grace_s), (signal.SIGKILL, 60.0)):
+        if s is not None:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, s)
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline:
+            if _gone(pid):
+                return
+            time.sleep(0.02)
+    raise RuntimeError(f"process {pid} still runs after SIGKILL")
+
+
+def _close_helper(obj, fd_attr: str, pid_attr: str, grace_s: float) -> None:
+    """Stop a multiprocessing helper process (a forkserver, the resource
+    tracker) as its own ``_stop`` does: close the pipe it waits on, so it
+    exits, and wait for it."""
+    import os
+
+    pid, fd = getattr(obj, pid_attr, None), getattr(obj, fd_attr, None)
+    if pid is None:
+        return
+    if fd is not None:
+        with contextlib.suppress(OSError):
+            os.close(fd)
+    setattr(obj, fd_attr, None)
+    setattr(obj, pid_attr, None)
+    _stop_pid(pid, grace_s)
+
+
+def stop_started_processes(grace_s: float = 10.0) -> dict:
+    """Stop every process this script started, and wait for each to end: the
+    trial workers still registered with ``multiprocessing``, the port's
+    forkserver and ``multiprocessing``'s own, its resource tracker (which
+    ends only once the forkservers and every worker have closed its pipe),
+    then anything else still below this process, SIGTERM then SIGKILL.
+    Returns {pid: command line} of that last group: a clean run leaves none.
+    Safe to call again, and where none of these was started."""
+    import multiprocessing as mp
+    import os
+    import signal
+    from multiprocessing import forkserver, resource_tracker
+
+    for p in mp.active_children():
+        with contextlib.suppress(ProcessLookupError):
+            p.terminate()
+        p.join(grace_s)
+        if p.exitcode is None:
+            p.kill()
+            p.join(grace_s)
+    workers = sys.modules.get("repro_torch.core.workers")
+    port_server = getattr(getattr(workers, "_DEFAULT_CTX", None), "server", None)
+    for server in (port_server, forkserver._forkserver):
+        if server is not None:
+            _close_helper(server, "_forkserver_alive_fd", "_forkserver_pid", grace_s)
+    _close_helper(resource_tracker._resource_tracker, "_fd", "_pid", grace_s)
+    left = descendants(os.getpid())
+    for pid in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGTERM)
+    for pid in left:
+        _stop_pid(pid, grace_s)
+    for pid in descendants(os.getpid()):        # zombies handed to this reaper meanwhile
+        _stop_pid(pid, grace_s, signal.SIGKILL)
+    return left
+
+
+class DeviceMemorySampler:
+    """The card's memory in use by every process, sampled from
+    ``torch.cuda.mem_get_info`` on a thread while the block runs."""
+
+    def __init__(self, torch, every_s: float = 0.05):
+        import threading
+
+        self.torch, self.every_s = torch, every_s
+        self.peak_used = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="mem-sampler", daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            free, total = self.torch.cuda.mem_get_info()
+            self.peak_used = max(self.peak_used, total - free)
+            self._stop.wait(self.every_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def free_device_memory(torch) -> int:
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def trace_rows(events) -> dict:
+    """{trial id: its complete events, in time order} of a control-plane
+    trace (Chrome trace-event JSON; row 0 is the control plane's own)."""
+    names = {e["tid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e["name"] == "thread_name"}
+    out = {}
+    for e in events:
+        if e.get("ph") == "X":
+            out.setdefault(names.get(e["tid"], ""), []).append(e)
+    for rows in out.values():
+        rows.sort(key=lambda e: e["ts"])
+    return out
+
+
+def last_metrics(path) -> dict:
+    """The last snapshot of a run's metrics stream (``metrics.jsonl``)."""
+    lines = Path(path).read_text().splitlines()
+    return json.loads(lines[-1])["metrics"] if lines else {}
+
+
+def serial_reference(args) -> dict:
+    """{config key: {iteration: loss}} of the sweep's configs run
+    uninterrupted on the serial executor under FIFO for every iteration,
+    without checkpoints, in this process."""
+    from repro_torch.core import FIFOScheduler, Resources, run_experiments
+    from repro_torch.dist.submesh import SlicePool
+    from repro_torch.launch import tune
+    from repro_torch.train.trainable import make_model_trainable
+
+    run = run_experiments(make_model_trainable(tune.sweep_model(args), **tune.workload(args)),
+                          tune.SPACE, scheduler=FIFOScheduler(metric="loss", mode="min"),
+                          num_samples=args.num_samples,
+                          stop={"training_iteration": args.max_iters},
+                          resources_per_trial=Resources(cpu=1, devices=args.devices_per_trial),
+                          total_devices=args.total_devices,
+                          slice_pool=SlicePool(n_virtual=args.total_devices),
+                          executor="serial", checkpoint_freq=0, seed=args.seed)
+    assert {t.status.value for t in run.trials} == {"TERMINATED"}
+    return {config_key(t.config): {r.training_iteration: r.metrics["loss"] for r in t.results}
+            for t in run.trials}
+
+
+def loss_gaps(losses: dict, reference: dict) -> dict:
+    """{iteration: |loss - reference| / max(1, |reference|)}; every
+    iteration of ``losses`` must be in ``reference``."""
+    return {i: abs(x - reference[i]) / max(1.0, abs(reference[i])) for i, x in losses.items()}
+
+
+def run_cluster(card: str, torch, sweep: dict) -> dict:
+    """Phase 3e: the sweep on the cluster tier, then a worker killed after
+    its second checkpoint; see the constants above."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import tune
+
+    args = tune.parser().parse_args(CLUSTER_SWEEP_ARGS)
+    t0 = time.perf_counter()
+    reference = serial_reference(args)
+    log(f"[cluster] uninterrupted serial reference, {args.num_samples} configs x "
+        f"{args.max_iters} iterations without checkpoints: {time.perf_counter() - t0!r} s "
+        f"{card}")
+    assert set(reference) == set(sweep["losses"]), "the reference runs other configs than 3b"
+    for key, losses in sweep["losses"].items():
+        gaps = loss_gaps(losses, reference[key])
+        log(f"[cluster]   3b's trial {key}: differences from the reference {gaps}")
+        assert max(gaps.values()) <= TRAIN_LOSS_TOL, f"3b's trial differs from the reference: {gaps}"
+
+    # (i) the sweep, four socket workers at once
+    before = free_device_memory(torch)
+    fetches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[cluster] {shutil.disk_usage(tmp).free / 1e9:.1f} GB free on the log directory's "
+            f"disk before the sweep")
+        trace_path = os.path.join(tmp, "cluster_trace.json")
+        log_dir = os.path.join(tmp, "cluster")
+        with patched(tune, "model_trainable_factory", counted_factory), \
+                timed_fetches(fetches), DeviceMemorySampler(torch) as mem:
+            t0 = time.perf_counter()
+            analysis = tune.main([*CLUSTER_SWEEP_ARGS, "--trace", trace_path,
+                                  "--log-dir", log_dir])
+            wall = time.perf_counter() - t0
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        fetch_us = last_metrics(os.path.join(log_dir, "metrics.jsonl")).get("cluster.fetch_us")
+        log(f"[cluster] {shutil.disk_usage(tmp).free / 1e9:.1f} GB free on the log directory's "
+            f"disk after the sweep")
+    alive = live_workers()
+    after = free_device_memory(torch)
+    for _ in range(100):            # a process's memory is returned as it is reaped
+        if abs(after - before) <= SWEEP_MEM_SLACK:
+            break
+        time.sleep(0.1)
+        after = free_device_memory(torch)
+    trials = analysis.trials
+    finished = sum(t.status.value == "TERMINATED" for t in trials)
+    spans, rows = sweep_spans(events), trace_rows(events)
+    step_s = spans.get("step", (0, 0.0))[1]
+    steps = sum(t.training_iteration for t in trials) * args.steps_per_iter
+    launches = worker_launches(trials)
+    log(f"[cluster] {TRAIN_ARCH} ASHA sweep on the cluster tier ({' '.join(CLUSTER_SWEEP_ARGS)}):"
+        f" {finished} of {len(trials)} trials finished in {wall!r} s wall, "
+        f"{finished * 3600 / wall!r} trials/hour; phase 3b on the serial executor: "
+        f"{sweep['wall_s']!r} s, {sweep['trials_per_hour']!r} trials/hour {card}")
+    for t in trials:
+        p = t.profile or {}
+        place = [e["args"] for e in rows.get(t.trial_id, []) if e["name"] == "host.place"]
+        log(f"[cluster]   {t.trial_id} {t.status.value} on {[a.get('host') for a in place]}: "
+            f"{t.training_iteration} iterations, first step {p.get('first_step_s')!r} s, "
+            f"steady step {p.get('steady_step_s')!r} s, losses "
+            f"{[r.metrics['loss'] for r in t.results]} {card}")
+        if t.error:
+            log(f"[cluster]   {t.trial_id} error: {t.error}")
+    for name, (n, s) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
+        log(f"[cluster]   trace span {name}: {n} spans, {s!r} s {card}")
+    log(f"[cluster] control plane's share of the sweep's wall time, 1 - (trial-step spans "
+        f"{step_s!r} s) / (wall {wall!r} s): {1 - step_s / wall!r} (the four workers' steps "
+        f"overlap on the card) {card}")
+    log(f"[cluster] fetch histogram cluster.fetch_us (host to controller): {fetch_us} {card}")
+    for f in fetches:
+        log(f"[cluster]   fetch to the {f['to']} {f['key'][:24]}...: {f['s']!r} s, "
+            f"{f['bytes']} bytes {card}")
+    log(f"[cluster] card memory in use by every process: peak {mem.peak_used / 2**20:.1f} MiB "
+        f"(mem_get_info every 50 ms); free before the sweep {before / 2**20:.1f} MiB, after "
+        f"{after / 2**20:.1f} MiB {card}")
+    log(f"[cluster] kernel launches in the workers: {launches} ({steps} steps; live workers "
+        f"after the sweep: {alive})")
+    assert finished == len(trials) == 4, "every trial of the cluster sweep must end TERMINATED"
+    expect = expected_train_launches(tune.sweep_model(args), steps)
+    assert launches == expect, f"cluster sweep: expected {expect} launches in the workers"
+    for t in trials:
+        gaps = loss_gaps({r.training_iteration: r.metrics["loss"] for r in t.results},
+                         reference[config_key(t.config)])
+        log(f"[cluster]   {t.trial_id} losses against the reference: differences over "
+            f"max(1, |loss|) {gaps} (tol {TRAIN_LOSS_TOL})")
+        assert max(gaps.values()) <= TRAIN_LOSS_TOL, f"{t.trial_id}'s losses differ: {gaps}"
+    assert not alive, f"worker processes outlived the sweep: {alive}"
+    assert abs(after - before) <= SWEEP_MEM_SLACK, "a worker's memory was not returned"
+    out = {"launches": launches, "wall_s": wall, "trials_per_hour": finished * 3600 / wall,
+           "control_plane_share": 1 - step_s / wall, "peak_used_bytes": mem.peak_used,
+           "fetch_us": fetch_us}
+    del analysis, trials
+
+    # (ii) the worker of a lone trial SIGKILLed after its second checkpoint
+    first = next(iter(sweep["losses"]))
+    killed, fetches = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "failure_trace.json")
+        with killing_worker_after_checkpoint(FAILURE_KILL_AFTER, killed), \
+                timed_fetches(fetches):
+            analysis = tune.main([*FAILURE_ARGS, "--trace", trace_path,
+                                  "--log-dir", os.path.join(tmp, "failure")])
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        with open(os.path.join(tmp, "failure", "events.jsonl")) as f:
+            restarts = [e for e in map(json.loads, f) if e.get("event") == "restarted"]
+    (t,) = analysis.trials
+    rows = trace_rows(events)[t.trial_id]
+    its = [r.training_iteration for r in t.results]
+    log(f"[cluster] worker failure ({' '.join(FAILURE_ARGS)}): {t.trial_id} {t.status.value}, "
+        f"{t.num_failures} failure(s), iterations reported {its}; worker {killed.get('pid')} "
+        f"SIGKILLed when checkpoint {FAILURE_KILL_AFTER} was adopted; restarted from "
+        f"iteration {[e['info']['checkpoint_iteration'] for e in restarts]} on hosts "
+        f"{[e['args'].get('host') for e in rows if e['name'] == 'host.place']} {card}")
+    if t.error:
+        log(f"[cluster]   {t.trial_id} error: {t.error}")
+    assert config_key(t.config) == first, "the lone trial is not 3b's first config"
+    assert t.status.value == "TERMINATED" and t.num_failures == 1, (t.status, t.num_failures)
+    assert killed and [e["info"]["checkpoint_iteration"] for e in restarts] == [FAILURE_KILL_AFTER]
+    assert its[:FAILURE_KILL_AFTER] == list(range(1, FAILURE_KILL_AFTER + 1))
+    assert min(its[FAILURE_KILL_AFTER:]) > FAILURE_KILL_AFTER and its[-1] == args.max_iters, its
+    split = restart_split(rows, killed, fetches)
+    log(f"[cluster] restart, seconds from the kill to the end of the first step after it: "
+        f"{split} {card}")
+    gaps = loss_gaps({r.training_iteration: r.metrics["loss"] for r in t.results
+                      if r.training_iteration > FAILURE_KILL_AFTER}, reference[first])
+    log(f"[cluster] restarted trial's losses after the kill against the reference: "
+        f"differences over max(1, |loss|) {gaps} (tol {TRAIN_LOSS_TOL}) {card}")
+    assert sorted(gaps) == list(range(FAILURE_KILL_AFTER + 1, args.max_iters + 1))
+    assert max(gaps.values()) <= TRAIN_LOSS_TOL, f"the restarted trial's losses differ: {gaps}"
+    assert not live_workers(), "worker processes outlived the failure run"
+    out["restart"] = split
+    return out
+
+
+def restart_split(rows, killed: dict, fetches: list) -> dict:
+    """Seconds from the kill to the end of the first step after the
+    restart, in turn: ``exit`` (the kill to the controller seeing the
+    worker's end), ``to_requeue`` (to the runner's requeue), ``requeue``
+    (reaping the dead worker), ``to_export`` (placing the trial again),
+    ``export_copy`` (the controller's private copy of the checkpoint),
+    ``fetch_to_host`` (that copy to the host's spill directory),
+    ``fork_and_dial`` (the new worker forked from the forkserver, its
+    imports, its dial-in), ``spawn_and_context`` (its build span less the
+    restore: the trainable and its CUDA context), ``restore`` (the
+    checkpoint read and put on the card), ``to_step`` and ``first_step``
+    (the kernels' first launches in the process).  Wall times come from
+    ``killed`` (``killing_worker_after_checkpoint``) and ``fetches``; the
+    new worker's spans from the trial's trace row, placed on the wall clock
+    by its first checkpoint's save, which ends as the controller's fetch of
+    it starts."""
+    (restart,) = [e for e in rows if e["name"] == "restart"]
+    after = [e for e in rows if e["ts"] >= restart["ts"]]
+    build = next(e for e in after if e["name"] == "build")
+    restore = next(e for e in after if e["name"] == "ckpt.restore")
+    step = next(e for e in after if e["name"] == "step" and e["ts"] >= build["ts"])
+    save = next(e for e in after if e["name"] == "ckpt.save" and e["ts"] >= step["ts"])
+    (to_host,) = [f for f in fetches if f["to"] == "host" and f["t"] >= killed["t"]]
+    back = min(f["t"] for f in fetches if f["to"] == "controller" and f["t"] >= to_host["t"])
+    us = 1e-6
+    build_t = back - (save["ts"] + save["dur"] - build["ts"]) * us
+    step_end = build_t + (step["ts"] + step["dur"] - build["ts"]) * us
+    (req_t, req_s), (exp_t, exp_s) = killed["requeue"], killed["export"]
+    return {"total": step_end - killed["t"],
+            "exit": killed["death_seen"] - killed["t"],
+            "to_requeue": req_t - killed["death_seen"],
+            "requeue": req_s,
+            "to_export": exp_t - req_t - req_s,
+            "export_copy": exp_s,
+            "fetch_to_host": to_host["s"],
+            "fork_and_dial": build_t - to_host["t"] - to_host["s"],
+            "spawn_and_context": (build["dur"] - restore["dur"]) * us,
+            "restore": restore["dur"] * us,
+            "restored_iteration": restore["args"].get("iteration"),
+            "to_step": (step["ts"] - build["ts"] - build["dur"]) * us,
+            "first_step": step["dur"] * us}
 
 
 def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_config,
@@ -2573,10 +3170,17 @@ def time_router_bwd(torch, dev, ops, ref, router, card, label, shape, seed) -> d
 
 
 def main() -> int:
+    import os
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
+    # an orphan of a worker or a forkserver comes back here, so that
+    # stop_started_processes finds it
+    if not adopt_orphans():
+        log("[processes] prctl(PR_SET_CHILD_SUBREAPER) refused: an orphaned process would "
+            "escape the final sweep")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
@@ -2652,6 +3256,12 @@ def main() -> int:
     # -- 3b. an ASHA sweep of it through launch.tune, and one trial in a worker process ------
     sweep = run_sweep(card, torch, ops)
     per_path[f"{TRAIN_ARCH} sweep"] = sweep["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3e. the same sweep on the cluster tier, then a worker killed and restored -------------
+    cluster = run_cluster(card, torch, sweep)
+    per_path[f"{TRAIN_ARCH} cluster sweep"] = cluster["launches"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2775,13 +3385,22 @@ def main() -> int:
         shapes={label: {key: val for key, val in r.items() if key != "bound"}
                 for label, r in attn_bwd.items()},
         train_step={key: val for key, val in train.items() if key != "launches"},
-        sweep={key: val for key, val in sweep.items() if key != "launches"})
+        sweep={key: val for key, val in sweep.items() if key not in ("launches", "losses")},
+        cluster_sweep={key: val for key, val in cluster.items() if key != "launches"})
     log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "
         f"{PROFILER['unmeasured']} measurements with no whole session (not measured)")
+    left = stop_started_processes()
+    log(f"[processes] trial workers, forkservers and resource tracker stopped; other processes "
+        f"that still ran below this one, stopped now: {left or 'none'}")
+    assert not descendants(os.getpid()), "a process outlived stop_started_processes"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:    # a phase that failed may have left workers and forkservers
+        stop_started_processes()
+    sys.exit(code)

@@ -405,10 +405,13 @@ def run_experiments(
                 heartbeat_timeout=heartbeat_timeout,
                 straggler_deadline=straggler_deadline, **common)
         elif kind == "cluster":
-            # The port has no cluster tier yet: repro.cluster is not copied.
-            raise ValueError(
-                "executor='cluster' is not yet ported to repro_torch (see "
-                "ROADMAP.md, Queue 1: \"--executor cluster\")")
+            from ..cluster import ClusterMeshExecutor
+            common.pop("slice_pool", None)  # cluster builds per-host pools
+            executor = ClusterMeshExecutor(
+                hosts=hosts if hosts is not None else 2,
+                placement=placement,
+                heartbeat_timeout=heartbeat_timeout,
+                straggler_deadline=straggler_deadline, **common)
         else:
             raise ValueError(
                 f"unknown executor {kind!r}; pass 'serial', 'concurrent', "

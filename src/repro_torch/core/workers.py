@@ -46,6 +46,7 @@ import threading
 import time as _time
 import traceback
 from dataclasses import dataclass, field
+from multiprocessing import forkserver
 from typing import Any, Dict, Optional, Tuple
 
 from .object_store import ObjectStore
@@ -411,6 +412,31 @@ def _child_main(conn, spec: Dict[str, Any]) -> None:
 _DEFAULT_CTX: Optional[Any] = None
 
 
+class _ForkServer(forkserver.ForkServer):
+    """``multiprocessing``'s forkserver, first launched with this process's
+    ``sys.path`` as its ``PYTHONPATH``.  The server is a fresh interpreter;
+    newer Pythons hand it the parent's ``sys.path``, but 3.12.3's ignores
+    it, so this module is not importable there, the preload fails silently
+    and every worker imports torch and this package itself: seconds a
+    worker on a GPU host."""
+
+    _env_lock = threading.Lock()
+
+    def ensure_running(self):
+        if self._forkserver_pid is not None:
+            return super().ensure_running()
+        with self._env_lock:
+            saved = os.environ.get("PYTHONPATH")
+            os.environ["PYTHONPATH"] = os.pathsep.join(p for p in sys.path if p)
+            try:
+                super().ensure_running()
+            finally:
+                if saved is None:
+                    del os.environ["PYTHONPATH"]
+                else:
+                    os.environ["PYTHONPATH"] = saved
+
+
 class _ForkServerContext(mp.context.BaseContext):
     """A ``forkserver`` context with a server of its own.
 
@@ -425,9 +451,7 @@ class _ForkServerContext(mp.context.BaseContext):
     _name = "forkserver"
 
     def __init__(self, preload: list):
-        from multiprocessing import forkserver
-
-        self.server = forkserver.ForkServer()
+        self.server = _ForkServer()
         self.server.set_forkserver_preload(preload)
         self.Process = _ForkServerProcess
 

@@ -21,8 +21,27 @@ worker thread per trial; on one card the threads share its default stream,
 so trials interleave on the device rather than overlap) or ``process`` (one
 worker process per trial, forked from the port's own forkserver, checkpoint
 bytes over the ObjectStore spill surface, kill-on-straggle after
-``--straggler-deadline`` seconds).  ``cluster`` and ``vmap`` are not ported
-yet and exit with an error.
+``--straggler-deadline`` seconds) or ``cluster`` (worker processes, forked
+from the same server, scheduled across a roster of simulated hosts: each
+dials the controller back over loopback TCP, saves content-addressed
+checkpoints to its host's spill directory, and a host that stops
+heartbeating is evicted, its trials restarting elsewhere from their last
+fetched checkpoint under ``--max-failures``).  ``vmap`` is not ported yet
+and exits with an error.
+
+Cluster quickstart (2 simulated hosts of 2 devices, on the CPU; one thread
+a worker, or four workers' thread pools contend for the cores)::
+
+    OMP_NUM_THREADS=1 PYTHONPATH=src python -m repro_torch.launch.tune \\
+        --arch smollm-135m --reduced --device cpu --scheduler asha \\
+        --num-samples 4 --max-iters 3 --batch 2 --seq-len 16 --steps-per-iter 1 \\
+        --devices-per-trial 1 --executor cluster --hosts 2x2 --placement fixed
+
+``--hosts`` shapes the roster (``2x8`` = two hosts of eight devices;
+``a:8,b:16`` names heterogeneous ones).  ``--placement roofline``
+right-sizes each trial's slice from its roofline profile; the port's
+profiles have no roofline fields yet, so it places ``--devices-per-trial``,
+as ``fixed`` does.
 
 ``--trace``, ``--metrics-interval``, ``--live-table``, ``--report``,
 ``--decisions``, ``--flightrec``, ``--resume``, ``--log-dir``, ``--elastic``
@@ -48,7 +67,7 @@ from .train import device_model
 
 # Executors of the original that the port does not run yet, and the ROADMAP
 # item (Queue 1) that ports each.
-NOT_PORTED = {"cluster": "--executor cluster", "vmap": "core/vmap_executor.py"}
+NOT_PORTED = {"vmap": "core/vmap_executor.py"}
 
 SPACE = {"lr": loguniform(1e-4, 1e-1), "warmup": 5,
          "weight_decay": uniform(0.0, 0.2)}
@@ -112,7 +131,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="device every trial trains on (cuda, or cpu)")
     ap.add_argument("--executor", default="serial",
-                    choices=["serial", "concurrent", "process", *NOT_PORTED])
+                    choices=["serial", "concurrent", "process", "cluster",
+                             *NOT_PORTED])
+    ap.add_argument("--hosts", default="2x8",
+                    help="cluster executor roster: N (hosts x 8 devices), "
+                         "'3x8', or 'name:devs,...' per host (see "
+                         "repro_torch.cluster.parse_hosts)")
+    ap.add_argument("--placement", default="roofline",
+                    choices=["roofline", "fixed"],
+                    help="cluster executor: right-size slices from roofline "
+                         "cost profiles, or place the requested width as-is")
     ap.add_argument("--max-failures", type=int, default=0,
                     help="restart a crashed trial from its last checkpoint up "
                          "to N times before marking it ERROR")
@@ -189,7 +217,7 @@ def main(argv: Optional[Sequence[str]] = None):
         ap.error("--resume requires --log-dir (the run's artifacts live there)")
 
     cfg = sweep_model(args)
-    if args.executor == "process":
+    if args.executor in ("process", "cluster"):
         # Spawn-safe recipe: worker processes rebuild the bound trainable by
         # re-importing make_model_trainable in the child.
         trainable = model_trainable_factory(cfg, **workload(args))
@@ -216,8 +244,12 @@ def main(argv: Optional[Sequence[str]] = None):
         stop={"training_iteration": args.max_iters},
         resources_per_trial=Resources(cpu=1, devices=args.devices_per_trial),
         total_devices=args.total_devices,
-        slice_pool=SlicePool(n_virtual=args.total_devices),
+        # per-host pools on the cluster tier: the roster is the capacity
+        slice_pool=(None if args.executor == "cluster"
+                    else SlicePool(n_virtual=args.total_devices)),
         executor=args.executor,
+        hosts=args.hosts if args.executor == "cluster" else None,
+        placement=args.placement,
         max_failures=args.max_failures,
         max_experiment_failures=args.max_experiment_failures,
         heartbeat_timeout=args.heartbeat_timeout,

@@ -1,20 +1,22 @@
 """Spawn-safe toy trainables for the port's control-plane tests.
 
-The arithmetic of ``Counter`` and ``LrCounter`` is that of
-``tests/_worker_trainables.py``, on the port's ``Trainable``, so the same
-sweep in both packages gives the same result stream.  Imports only
+The arithmetic of ``Counter``, ``LrCounter``, ``CrashOnce`` and ``Sleeper``
+is that of ``tests/_worker_trainables.py``, on the port's ``Trainable``, so
+the same sweep in both packages gives the same result stream.  Imports only
 ``repro_torch`` and numpy: a worker process that builds one of these loads
 nothing of the JAX package.
 """
 from __future__ import annotations
 
+import os
 import sys
+import time
 
 import numpy as np
 
 from repro_torch.core.api import Trainable
 
-__all__ = ["Counter", "LrCounter", "make_probed_model_trainable"]
+__all__ = ["Counter", "LrCounter", "CrashOnce", "Sleeper", "make_probed_model_trainable"]
 
 
 class Counter(Trainable):
@@ -61,6 +63,49 @@ class LrCounter(Trainable):
         self.lr = float(new_config.get("lr", self.lr))
         self.config = dict(new_config)
         return True
+
+
+class CrashOnce(Trainable):
+    """Raises at iteration ``fail_at`` on the first incarnation only (a marker
+    file under ``marker_dir`` records that the crash already happened)."""
+
+    def setup(self, config):
+        self.n = 0
+        self.fail_at = int(config.get("fail_at", 3))
+        self.marker = os.path.join(config["marker_dir"], "crashed.marker")
+
+    def step(self):
+        self.n += 1
+        if self.n == self.fail_at and not os.path.exists(self.marker):
+            with open(self.marker, "w") as f:
+                f.write("crashed")
+            raise RuntimeError("injected failure (process tier)")
+        return {"loss": 1.0 / self.n}
+
+    def save(self):
+        return {"n": self.n}
+
+    def restore(self, state):
+        self.n = state["n"]
+
+
+class Sleeper(Trainable):
+    """Fixed-length steps (slice-holding sleep), for pause/kill timing tests."""
+
+    def setup(self, config):
+        self.n = 0
+        self.sleep_s = float(config.get("sleep_s", 0.05))
+
+    def save(self):
+        return {"n": self.n}
+
+    def restore(self, state):
+        self.n = state["n"]
+
+    def step(self):
+        time.sleep(self.sleep_s)
+        self.n += 1
+        return {"loss": 1.0 / self.n}
 
 
 def foreign_modules() -> str:

@@ -40,7 +40,11 @@ core/schedulers/__init__.py core/schedulers/base.py core/schedulers/fifo.py
 core/schedulers/median_stopping.py core/schedulers/asha.py core/schedulers/hyperband.py
 core/schedulers/pbt.py core/loggers.py core/executor.py core/runner.py
 core/concurrent_executor.py core/workers.py core/process_executor.py dist/submesh.py
-core/elastic.py core/resume.py core/experiment.py core/__init__.py""".split()
+core/elastic.py core/resume.py core/experiment.py core/__init__.py
+testing/sim.py testing/simworker.py testing/scenarios.py testing/invariants.py
+testing/kill9.py testing/__init__.py cluster/transport.py cluster/hosts.py
+cluster/placement.py cluster/worker.py cluster/sim.py cluster/executor.py
+cluster/__init__.py""".split()
 
 # Modules of the original the port leaves out, each for its ROADMAP item.
 NOT_COPIED = {"core/vmap_executor.py"}
@@ -64,10 +68,16 @@ DEVIATIONS = {
                                "raises, as np.asarray does"),
     },
     "core/workers.py": {
-        "<module>": (0, 5, "imports io for the server's launch; blank lines"),
+        "<module>": (0, 8, "imports io and forkserver for the server's launch; "
+                           "blank lines"),
+        "_ForkServer": (0, 10, "the server is first launched with this process's "
+                               "sys.path as its PYTHONPATH: 3.12.3's forkserver "
+                               "ignores the sys_path it is handed, and its preload "
+                               "then fails silently"),
+        "_ForkServer.ensure_running": (0, 13, "the same"),
         "_ForkServerContext": (0, 13, "a forkserver of the port's own: multiprocessing "
                                       "keeps one a process, preloaded once"),
-        "_ForkServerContext.__init__": (0, 6, "the port's own server"),
+        "_ForkServerContext.__init__": (0, 4, "the port's own server"),
         "_ForkServerProcess": (0, 6, "a worker of that server"),
         "_ForkServerProcess._Popen": (0, 9, "launches through that server"),
         "_ForkServerProcess._Popen.Popen": (0, 1, "launches through that server"),
@@ -79,9 +89,16 @@ DEVIATIONS = {
         "<module>": (1, 0, "math was used by make_mesh only"),
         "MeshSlice.make_mesh": (23, 6, "raises: device mode is a ROADMAP item"),
     },
-    "core/experiment.py": {
-        "run_experiments": (7, 4, "executor='cluster' raises: cluster/ is a "
-                                  "ROADMAP item, and not imported"),
+    "cluster/hosts.py": {
+        "HostSpec": (6, 6, "defaults and their docstring are an H100 SXM node's "
+                           "(989e12 bf16 FLOP/s, 3.35e12 B/s HBM3, 450e9 B/s "
+                           "NVLink), not a TPU-class device's: the port states "
+                           "no rate taken on or for a TPU"),
+    },
+    "cluster/placement.py": {
+        "<module>": (7, 7, "REF_* and their comments are the H100 SXM's, the "
+                           "units the port's profiles are written in, not "
+                           "launch.mesh.HW's TPU v5e figures"),
     },
 }
 
@@ -135,7 +152,8 @@ def test_copy_equals_its_original_outside_the_listed_deviations(rel):
 
 def test_every_module_of_the_control_plane_is_copied():
     orig = {p.relative_to(SRC / "repro").as_posix()
-            for d in ("core", "obs") for p in (SRC / "repro" / d).rglob("*.py")}
+            for d in ("core", "obs", "testing", "cluster")
+            for p in (SRC / "repro" / d).rglob("*.py")}
     assert orig - NOT_COPIED == set(COPIES) - {"dist/submesh.py"}
     assert set(DEVIATIONS) <= set(COPIES)
     assert not (SRC / "repro_torch" / "core" / "vmap_executor.py").exists()
@@ -268,10 +286,10 @@ def test_checkpoint_codec_refuses_a_device_tensor_it_cannot_read():
 
 
 def test_cluster_executor_and_device_meshes_name_their_roadmap_items():
+    """Device meshes name their ROADMAP item; the cluster executor is ported
+    (``tests/test_torch_cluster.py``), so only the mesh half is left here."""
     from repro_torch.dist.submesh import MeshSlice, SlicePool
 
-    with pytest.raises(ValueError, match="--executor cluster"):
-        pcore.run_experiments(PW.Counter, {}, executor="cluster", total_devices=4)
     with pytest.raises(NotImplementedError, match="device mode"):
         MeshSlice(0, 2).make_mesh(("data",))
     pool = SlicePool(n_virtual=8)

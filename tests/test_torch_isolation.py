@@ -56,7 +56,8 @@ def test_the_scan_sees_every_file():
     assert {"kernels/ops.py", "kernels/rwkv6_scan.py", "kernels/rglru_scan.py",
             "kernels/moe_router.py", "models/layers.py", "models/rwkv6.py",
             "models/rglru.py", "models/moe.py", "launch/serve.py",
-            "core/workers.py", "core/experiment.py", "launch/tune.py"} <= names
+            "core/workers.py", "core/experiment.py", "launch/tune.py",
+            "cluster/executor.py", "cluster/worker.py", "testing/scenarios.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -86,7 +87,7 @@ def test_the_string_scan_finds_module_names(tmp_path, text, names):
 
 def test_serve_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert, "
-            "repro_torch.launch.tune; "
+            "repro_torch.launch.tune, repro_torch.cluster, repro_torch.testing.kill9; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
