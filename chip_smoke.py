@@ -13,7 +13,8 @@ non-zero exit:
    tiles, shared memory and blocks an SM for each (dtype, head_dim), and the
    HMMA (tensor-core) instructions in each of its kernels' SASS; the same
    for K1's two backward kernels, with their registers and spills; K4's
-   SASS and its backward's registers and spills.
+   SASS and its backward's SASS (no REDUX, at most 8 SHFL), registers and
+   spills.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and edge cases (ragged lengths, initial states, a
    sequence run in two halves, a sequence whose chunks are all K2's
@@ -23,14 +24,19 @@ non-zero exit:
    autograd of the plain forward; the same for K2's and K3's backwards at
    the training shapes and edge cases (a ragged last chunk, an initial
    state, a final-state gradient), with ``RWKV6ScanFn`` and ``RGLRUScanFn``;
-   and K4's backward at K4's cases, on the kernel forward's outputs, with
-   ``MoERouterFn`` against autograd of the plain router.
+   and K4's backward at K4's cases, on the kernel forward's outputs and row
+   statistics (the forward's weights and indices the same bits with and
+   without them, the statistics against a plain fp32 recomputation, the
+   backward's Z the forward's bit for bit), with ``MoERouterFn`` against
+   autograd of the plain router.
    Then K4's times: at granite-moe's prefill and decode shapes and
    deepseek-moe's, its device time a launch, the wrapper's time a call
    paced by the host, the bound, and beside them the card's launch floor
    (a one-element fill kernel's device time, a one-element in-place op's
-   time a call); the same for K4's backward at granite-moe's and
-   deepseek-moe's training shapes, beside its plain version's; K2's and its
+   time a call), and the forward's device time with its row statistics;
+   the same for K4's backward at granite-moe's and deepseek-moe's training
+   shapes, beside its plain version's, its SASS counts and registers; K2's
+   and its
    backward's kernels: registers, shared memory, blocks an SM and device
    ms.
 3. train: ``repro_torch.launch.train`` at full width on smollm-135m (fp32,
@@ -95,9 +101,10 @@ non-zero exit:
    with remat, its depth cut to 26 of 32 layers (26 K1 and 26 K4
    backwards a step, twice as many forwards), every launch count set to 0
    just before and read just after, its routing recorded; the steady step
-   time, tokens/s, peak memory and a trace of one warm step; the plain
-   path on the same weights and batches,
-   its routing teacher-forced to the kernel path's (each flip a near-tie):
+   time, tokens/s, peak memory and a trace of one warm step, with K4's
+   backward's device ms in it; the plain path on the same weights and
+   batches, its routing teacher-forced to the kernel path's (each flip a
+   near-tie):
    the first step's gradients and the losses within stated limits.
 4. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
    32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
@@ -352,12 +359,13 @@ def _kernel_events(events) -> list:
     return [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def trace(name: str, fn, card: str, ops) -> None:
+def trace(name: str, fn, card: str, ops):
     """Run ``fn`` once under ``torch.profiler`` (``profiled``); print wall
     time, the device's busy time and idle share, and the kernels with the
     most device time.  The launches of this repo's kernels that the trace
     kept are held against the ``ops.<name>.launches`` made during it
-    (``trace_head``)."""
+    (``trace_head``).  Returns {kernel of this repo: (device ms, launches
+    kept)} and the device's busy ms under "busy", or None if not measured."""
     import torch
     events = {}
 
@@ -369,7 +377,7 @@ def trace(name: str, fn, card: str, ops) -> None:
 
     got = profiled(f"trace {name}", attempt)
     if got is None:
-        return
+        return None
     records, wall_us, calls = got
     kernels = events["kernels"]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -380,6 +388,9 @@ def trace(name: str, fn, card: str, ops) -> None:
     for e in top + repo:   # the top kernels, then this repo's kernels and TRACE_ALSO below them
         log(f"[trace]   {e.self_device_time_total / 1e3:10.4f} ms  {e.count:5d}x  "
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
+    out = {n: (sum(us for key, _, us in records if ours(n, key)) / 1e3,
+               sum(c for key, c, _ in records if ours(n, key))) for n in KERNELS}
+    return {**{n: v for n, v in out.items() if v[1]}, "busy": busy_us / 1e3}
 
 
 def device_ms(torch, name: str, fn, match: str = "", iters: int = 50):
@@ -733,18 +744,20 @@ def report_k1_bwd_build(torch, fa, nvcc: str, lib: Path, build_log: str, card: s
                 f"K1's backward runs no HMMA ({dtype}, hd {hd})"
 
 
-def router_sass(nvcc: str, lib: Path) -> dict:
-    """For each instantiation of the router kernel in ``lib`` (by its
-    template arguments: dtype and values a lane), its SASS instructions and
-    the warp-wide ones among them: REDUX (redux.sync), VOTE (ballots), SHFL
-    (shuffles)."""
+def router_sass(nvcc: str, lib: Path, kernel: str = "moe_router_kernel") -> dict:
+    """For each instantiation of the router's ``kernel`` in ``lib`` (by its
+    template arguments: dtype, then values a lane for the forward and lanes
+    a row for the backward; the forward's that writes the row statistics
+    marked "statistics"), its SASS instructions and the warp-wide ones
+    among them: REDUX (redux.sync), VOTE (ballots), SHFL (shuffles)."""
     import re
     out = {}
     for fn, ins in sass_instructions(nvcc, lib).items():
-        m = re.search(r"moe_router_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
+        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E(Lb1E)?", fn)
         if m:
             ops = [op.split(".")[0] for _, op, _ in ins]
-            out["float32" if m.group(1) == "f" else "bfloat16", int(m.group(2))] = {
+            out[("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)))
+                + (("statistics",) if m.group(3) else ())] = {
                 "instructions": len(ops), **{o: ops.count(o) for o in ("REDUX", "VOTE", "SHFL")}}
     return dict(sorted(out.items()))
 
@@ -1232,12 +1245,33 @@ ROUTER_CASES = (
 )
 
 
-def check_moe_router(torch, dev, ops, ref) -> float:
+def row_exp_sum(torch, e):
+    """Each row's sum of the exponentials ``e`` (T, E), in fp32 in the order
+    of ``row_exp`` (``csrc/moe_router.cuh``): lane l adds its experts j*32 +
+    l from slot 0 on (ceil(E/32) slots, rounded up to 1, 2, 4 or 8), then
+    the 32 lanes' sums meet in a butterfly (offsets 16, 8, 4, 2, 1)."""
+    T, E = e.shape
+    vpl = next(v for v in (1, 2, 4, 8) if 32 * v >= E)
+    lanes = torch.zeros((T, vpl * 32), dtype=torch.float32, device=e.device)
+    lanes[:, :E] = e
+    s = torch.zeros((T, 32), dtype=torch.float32, device=e.device)
+    for j in range(vpl):
+        s = s + lanes[:, 32 * j:32 * (j + 1)]
+    while s.shape[1] > 1:
+        s = s[:, :s.shape[1] // 2] + s[:, s.shape[1] // 2:]
+    return s[:, 0]
+
+
+def check_moe_router(torch, dev, ops, ref, router) -> float:
     """K4 against ``ref.moe_router_ref``: equal indices, weights within
     ``ROUTER_ATOL``.  On random logits an index may differ only where the
     two candidates' plain probabilities are within one fp32 ulp (the two
     softmaxes sum in other orders); each such case is printed and counted.
-    Rows that tie (all zero) must match exactly."""
+    Rows that tie (all zero) must match exactly.  Asked for its row
+    statistics, the kernel gives the same weights and indices bit for bit;
+    each row's max equals the plain fp32 max, and its sum of exponentials is
+    within one ulp of the plain fp32 sum taken in the kernel's order
+    (``row_exp_sum``)."""
     f32 = torch.float32
     main_err, near_ties = None, 0
     for i, (name, (T, E, k), dtype, zero) in enumerate(ROUTER_CASES):
@@ -1246,7 +1280,22 @@ def check_moe_router(torch, dev, ops, ref) -> float:
         if zero is not None:
             logits[zero] = 0
         w, idx = ops.moe_router(logits, k)
+        ws, idxs, stats = router.moe_router_cuda(logits, k, return_stats=True)
         torch.cuda.synchronize()
+        assert torch.equal(ws, w) and torch.equal(idxs, idx), \
+            f"{name}: the statistics changed the weights or indices"
+        x = logits.float()
+        m = x.max(-1).values
+        assert stats.shape == (T, 2) and torch.equal(stats[:, 0], m), f"{name}: row max differs"
+        e = torch.exp(x - m[:, None])
+        plain_s = row_exp_sum(torch, e)
+        ulp = torch.nextafter(plain_s, torch.full_like(plain_s, math.inf)) - plain_s
+        s_ulps = float(((stats[:, 1] - plain_s).abs() / ulp).max())
+        any_order = float(((stats[:, 1] - e.sum(-1)).abs() / ulp).max())
+        log(f"[kernel] moe_router {name} statistics: weights and indices bit for bit those "
+            f"without them; max equal to the plain fp32 max; sum within {s_ulps!r} ulp of the "
+            f"plain fp32 sum in the kernel's order (limit 1), {any_order!r} ulp of torch's sum")
+        assert s_ulps <= 1, f"{name}: row sum {s_ulps} ulp from the plain sum"
         w_ref, idx_ref = ref.moe_router_ref(logits, k)
         assert w.shape == (T, k) and w.dtype == f32 and idx.dtype == torch.int32, name
         diff = idx != idx_ref
@@ -1292,9 +1341,12 @@ def router_cotangent(torch, dev, seed, T, k):
 
 def check_moe_router_bwd(torch, dev, ops, ref, router) -> float:
     """K4's backward (``ops.moe_router_bwd``) on the kernel's own forward
-    outputs against ``ref.moe_router_bwd_ref`` at the cases of
-    ``check_moe_router`` (the same logits), with seeded weight gradients,
-    and against a second run of itself, bit for bit.  Rows where the
+    outputs and row statistics against ``ref.moe_router_bwd_ref`` at the
+    cases of ``check_moe_router`` (the same logits), with seeded weight
+    gradients, and against a second run of itself, bit for bit; each row's
+    Z in the backward equal to the forward's bit for bit (both kernels write
+    it on request).  Without the statistics the wrapper raises and launches
+    nothing.  Rows where the
     kernel's experts differ from the plain version's (near-ties) are held
     against the plain backward fed the kernel's own indices and weights.
     Then ``MoERouterFn`` (``ops.moe_router`` on logits that need a
@@ -1307,11 +1359,22 @@ def check_moe_router_bwd(torch, dev, ops, ref, router) -> float:
         if zero is not None:
             logits[zero] = 0
         dw = router_cotangent(torch, dev, 450 + i, T, k)
-        w, idx = router.moe_router_cuda(logits, k)
-        got = ops.moe_router_bwd(logits, w, idx, dw)
-        again = ops.moe_router_bwd(logits, w, idx, dw)
+        z_fwd, z_bwd = (torch.empty(T, device=dev) for _ in range(2))
+        w, idx, stats = router.moe_router_cuda(logits, k, return_stats=True, z=z_fwd)
+        got = ops.moe_router_bwd(logits, w, idx, dw, stats)
+        again = router.moe_router_bwd_cuda(logits, w, idx, dw, stats, z=z_bwd)
         torch.cuda.synchronize()
         assert torch.equal(got, again), f"{name}: two runs differ"
+        assert torch.equal(z_fwd, z_bwd), f"{name}: the backward's Z is not the forward's"
+        if i == 0:
+            before = ops.moe_router_bwd.launches
+            try:
+                ops.moe_router_bwd(logits, w, idx, dw)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("the backward ran without the forward's statistics")
+            assert ops.moe_router_bwd.launches == before
         assert got.dtype == logits.dtype and got.shape == logits.shape, name
         assert bool(torch.isfinite(got.float()).all()), f"{name}: non-finite"
         w_ref, idx_ref = ref.moe_router_ref(logits, k)
@@ -1336,7 +1399,8 @@ def check_moe_router_bwd(torch, dev, ops, ref, router) -> float:
         log(f"[kernel] moe_router_bwd {name} (T,E,k)={(T, E, k)} {logits.dtype}: max_abs_err "
             f"{err!r}, over max(1, max |g|) {rel!r}; MoERouterFn vs autograd of the plain router "
             f"{fn_rel!r} on {int(keep.sum())} of {T} rows (tol {tol}); {int(flips.sum())} rows "
-            "with another index, fed the kernel's")
+            "with another index, fed the kernel's; two runs and Z (forward and backward) bit "
+            "for bit")
         assert rel <= tol, f"{name}: {rel} > {tol}"
         assert fn_rel <= tol, f"{name}: MoERouterFn {fn_rel} > {tol}"
         if i == 0:
@@ -1705,13 +1769,13 @@ def train_traced(card, torch, ops, dev, cfg, tag: str) -> dict:
         held["state"], _ = kstep(held["state"], batches[0])
 
     one_step()                                                # warm-up
-    trace(f"{tag} train step (warm)", one_step, card, ops)
+    traced = trace(f"{tag} train step (warm)", one_step, card, ops)
     del held, kstep
     gc.collect()
     torch.cuda.empty_cache()
     return {"cfg": cfg, "losses": losses, "launches": launches, "batches": batches, "opt": opt,
-            "figures": {"steady_step_s": steady, "tokens_per_s": B * S / steady,
-                        "peak_bytes": peak, "params": n_params}}
+            "trace": traced, "figures": {"steady_step_s": steady, "tokens_per_s": B * S / steady,
+                                         "peak_bytes": peak, "params": n_params}}
 
 
 def run_train_recurrent(card, torch, ops, dev, arch, n_layers) -> dict:
@@ -1838,6 +1902,14 @@ def run_train_moe(card, torch, ops, dev) -> dict:
     cfg, batches, opt, kernel_losses = run["cfg"], run["batches"], run["opt"], run["losses"]
     assert cfg.remat
     n_moe = cfg.n_layers
+    k4_bwd = (run["trace"] or {}).get("moe_router_bwd")
+    if k4_bwd is None:
+        log(f"[train] {tag}: K4's backward in the warm step's trace: not measured")
+    else:
+        ms, n = k4_bwd
+        log(f"[train] {tag}: K4's backward in the warm step's trace: {ms!r} device ms over {n} "
+            f"launches ({1e3 * ms / n!r} us each), {ms / run['trace']['busy']!r} of the step's "
+            f"{run['trace']['busy']!r} device busy ms {card}")
 
     # the first step's gradients, kernel path and plain path, on the weights
     # launch.train drew (seed 0 on the same device); the plain path's
@@ -1896,7 +1968,8 @@ def run_train_moe(card, torch, ops, dev) -> dict:
     torch.cuda.empty_cache()
     return {"launches": run["launches"], **run["figures"], "grad_rel_err": grad_err,
             "loss_rel_err": max(loss_err), "layers": cfg.n_layers, "routing_flips": flips,
-            "first_step_routing_flips": first_flips}
+            "first_step_routing_flips": first_flips,
+            "k4_bwd_trace_ms": None if k4_bwd is None else k4_bwd[0]}
 
 
 def first_step_grads_f64(torch, forward_train, params, batch, cfg, noise_seed=None):
@@ -3093,22 +3166,27 @@ def launch_floor(torch, dev, card) -> dict:
     return {"fill_device_ms": fill, "inplace_op_ms": op}
 
 
-def time_router(torch, dev, ops, ref, card, label, shape, seed) -> dict:
+def time_router(torch, dev, ops, ref, router, card, label, shape, seed) -> dict:
     """K4 at one shape: its device time a launch in turns with the plain
-    version's a call (profiler; a few microseconds of work, which CUDA
-    events around back-to-back calls would read as the host's time), the
-    unfused PyTorch chain's, each one's time a call paced by the host
-    (``paced_ms``), and the bound."""
+    version's a call and with its own asked for the row statistics
+    (profiler; a few microseconds of work, which CUDA events around
+    back-to-back calls would read as the host's time), the unfused PyTorch
+    chain's, each one's time a call paced by the host (``paced_ms``), and
+    the bound."""
     T, E, k = shape
     logits = router_logits(torch, dev, T, E, seed)
     kernel, plain = (lambda: ops.moe_router(logits, k)), (lambda: ref.moe_router_ref(logits, k))
+    stats = lambda: router.moe_router_cuda(logits, k, return_stats=True)
     chain = lambda: topk_chain(torch, logits, k)
     runs = {}
-    for turn in ("plain", "kernel", "kernel", "plain"):
+    for turn in ("plain", "kernel", "stats", "stats", "kernel", "plain"):
         runs.setdefault(turn, []).append(
             device_ms(torch, f"moe_router {label}", kernel, "moe_router_kernel")
-            if turn == "kernel" else device_ms(torch, f"moe_router plain {label}", plain))
-    kms = min((x for x in runs["kernel"] if x is not None), default=None)
+            if turn == "kernel" else
+            device_ms(torch, f"moe_router with statistics {label}", stats, "moe_router_kernel")
+            if turn == "stats" else device_ms(torch, f"moe_router plain {label}", plain))
+    kms, sms = (min((x for x in runs[t] if x is not None), default=None)
+                for t in ("kernel", "stats"))
     pms = min(runs["plain"])
     chain_ms = device_ms(torch, f"softmax-topk chain {label}", chain)
     host = {"kernel": paced_ms(torch, kernel), "plain": paced_ms(torch, plain),
@@ -3117,13 +3195,16 @@ def time_router(torch, dev, ops, ref, card, label, shape, seed) -> dict:
     where = f"{label} T={T} E={E} k={k}"
     log(f"[time] moe_router kernel fp32 {where}: {kms!r} ms device time a launch, bound "
         f"{bound[0]!r} ms by {bound[1]} {card} (runs {runs})")
+    log(f"[time] moe_router kernel with its row statistics fp32 {where}: {sms!r} ms device time "
+        f"a launch {card}")
     log(f"[time] moe_router plain version fp32 {where}: {pms!r} ms device time a call {card}")
     log(f"[time] softmax -> topk -> renormalise, PyTorch calls unfused (not used by the "
         f"port), fp32 {where}: {chain_ms!r} ms device time a call {card}")
     log(f"[time] moe_router per call, paced by the host (perf_counter over {HOST_CALLS} "
         f"back-to-back calls), fp32 {where}: kernel wrapper {host['kernel']!r} ms, plain "
         f"version {host['plain']!r} ms, unfused PyTorch calls {host['chain']!r} ms {card}")
-    return {"ms": kms, "plain_ms": pms, "chain_ms": chain_ms, "host_ms": host["kernel"],
+    return {"ms": kms, "stats_ms": sms, "plain_ms": pms, "chain_ms": chain_ms,
+            "host_ms": host["kernel"],
             "plain_host_ms": host["plain"], "chain_host_ms": host["chain"],
             "bound": bound, "bound_ms": bound[0]}
 
@@ -3136,17 +3217,27 @@ ROUTER_BWD_SHAPES = (
 )
 
 
-def time_router_bwd(torch, dev, ops, ref, router, card, label, shape, seed) -> dict:
+# Lanes a row in K4's backward for E experts (``lanes_per_row`` in
+# ``csrc/moe_router_bwd.cu``): the fewest of 4, 8, 16 and 32 that hold the
+# row at most 8 experts a lane.
+def router_bwd_lanes(E: int) -> int:
+    return next(g for g in (4, 8, 16, 32) if 8 * g >= E)
+
+
+def time_router_bwd(torch, dev, ops, ref, router, card, label, shape, seed, floor, sass,
+                    ptxas) -> dict:
     """K4's backward at one training shape, on the kernel forward's outputs
-    and a seeded weight gradient: its device time a launch in turns with
-    the plain version's a call (profiler), each one's time a call paced by
-    the host (``paced_ms``), and the bound.  No single PyTorch call computes
-    this gradient."""
+    and row statistics and a seeded weight gradient: its device time a
+    launch in turns with the plain version's a call (profiler), each one's
+    time a call paced by the host (``paced_ms``), and the bound; printed
+    beside the launch floor (``launch_floor``) and the fp32 instantiation's
+    SASS counts (``sass``) and ptxas registers and spills (``ptxas``).  No
+    single PyTorch call computes this gradient."""
     T, E, k = shape
     logits = router_logits(torch, dev, T, E, seed)
     dw = router_cotangent(torch, dev, seed + 50, T, k)
-    w, idx = router.moe_router_cuda(logits, k)
-    kernel = lambda: ops.moe_router_bwd(logits, w, idx, dw)
+    w, idx, stats = router.moe_router_cuda(logits, k, return_stats=True)
+    kernel = lambda: ops.moe_router_bwd(logits, w, idx, dw, stats)
     plain = lambda: ref.moe_router_bwd_ref(logits, w, idx, dw)
     runs = {}
     for turn in ("plain", "kernel", "kernel", "plain"):
@@ -3158,15 +3249,22 @@ def time_router_bwd(torch, dev, ops, ref, router, card, label, shape, seed) -> d
     host = {"kernel": paced_ms(torch, kernel), "plain": paced_ms(torch, plain)}
     bound = moe_router_bwd_bound(logits, k)
     where = f"{label} T={T} E={E} k={k}"
+    lanes = router_bwd_lanes(E)
+    code = sass.get(("float32", lanes))
+    regs = [c for fn, c in ptxas.items() if f"moe_router_bwd_kernelIfLi{lanes}E" in fn]
+    fill = floor["fill_device_ms"]
     log(f"[time] moe_router_bwd kernel fp32 {where}: {kms!r} ms device time a launch, bound "
-        f"{bound[0]!r} ms by {bound[1]} ({bound[2]:.4g} flop, {bound[3]:.4g} bytes) {card} "
-        f"(runs {runs})")
+        f"{bound[0]!r} ms by {bound[1]} ({bound[2]:.4g} flop, {bound[3]:.4g} bytes), launch "
+        f"floor (one-element fill) {fill!r} ms"
+        + (f", {kms / fill!r}x the floor" if kms and fill else "")
+        + f"; {lanes} lanes a row, SASS {code}, ptxas {regs} {card} (runs {runs})")
     log(f"[time] moe_router_bwd plain version fp32 {where}: {pms!r} ms device time a call {card}")
     log(f"[time] moe_router_bwd per call, paced by the host (perf_counter over {HOST_CALLS} "
         f"back-to-back calls), fp32 {where}: kernel wrapper {host['kernel']!r} ms, plain "
         f"version {host['plain']!r} ms {card}")
     return {"ms": kms, "plain_ms": pms, "host_ms": host["kernel"],
-            "plain_host_ms": host["plain"], "bound": bound, "bound_ms": bound[0]}
+            "plain_host_ms": host["plain"], "bound": bound, "bound_ms": bound[0],
+            "lanes_per_row": lanes, "sass": code, "ptxas": regs[0] if regs else None}
 
 
 def main() -> int:
@@ -3216,11 +3314,19 @@ def main() -> int:
     k1b_info = infos[KERNELS.index("flash_attention_bwd")]
     report_k1_bwd_build(torch, fa, _build._nvcc(), k1b_info.path, k1b_info.log, card)
     k4_sass = router_sass(_build._nvcc(), infos[KERNELS.index("moe_router")].path)
-    for (dtype, vpl), c in k4_sass.items():
-        log(f"[build] moe_router {dtype}, {vpl} values a lane, SASS: {c}")
+    for (dtype, vpl, *extra), c in k4_sass.items():
+        log(f"[build] moe_router {dtype}, {vpl} values a lane"
+            f"{', writing its statistics' if extra else ''}, SASS: {c}")
     assert k4_sass and all(c["REDUX"] > 0 for c in k4_sass.values()), "K4 runs no redux.sync"
-    for fn, c in ptxas_kernels(infos[KERNELS.index("moe_router_bwd")].log).items():
+    k4b_info = infos[KERNELS.index("moe_router_bwd")]
+    k4b_ptxas = ptxas_kernels(k4b_info.log)
+    for fn, c in k4b_ptxas.items():
         log(f"[build] moe_router_bwd ptxas {fn}: {c}")
+    k4b_sass = router_sass(_build._nvcc(), k4b_info.path, "moe_router_bwd_kernel")
+    for (dtype, lanes), c in k4b_sass.items():
+        log(f"[build] moe_router_bwd {dtype}, {lanes} lanes a row, SASS: {c}")
+    assert k4b_sass and all(c["REDUX"] == 0 and c["SHFL"] <= k4.MAX_TOP_K
+                            for c in k4b_sass.values()), "K4's backward reduces across lanes"
 
     # -- 2. kernels against their plain versions, on the card --------------------------------
     errs = {"flash_attention": check_flash_attention(torch, dev, ops, ref),
@@ -3229,16 +3335,17 @@ def main() -> int:
             "rwkv6_scan_bwd": check_rwkv6_bwd(torch, dev, ops, ref, rw),
             "rglru_scan": check_rglru(torch, dev, ops, ref),
             "rglru_scan_bwd": check_rglru_bwd(torch, dev, ops, ref),
-            "moe_router": check_moe_router(torch, dev, ops, ref),
+            "moe_router": check_moe_router(torch, dev, ops, ref, k4),
             "moe_router_bwd": check_moe_router_bwd(torch, dev, ops, ref, k4)}
     # K4's few microseconds a launch and K2's two kernels' device times are
     # read from the profiler here, early: late in a long run, sessions have
     # kept some records and dropped others.
     floor = launch_floor(torch, dev, card)
-    router = {label: time_router(torch, dev, ops, ref, card, label, shape, 400 + i)
+    router = {label: time_router(torch, dev, ops, ref, k4, card, label, shape, 400 + i)
               for i, (label, shape) in enumerate(ROUTER_SHAPES)}
     r0 = router[ROUTER_SHAPES[0][0]]
-    router_bwd = {label: time_router_bwd(torch, dev, ops, ref, k4, card, label, shape, seed)
+    router_bwd = {label: time_router_bwd(torch, dev, ops, ref, k4, card, label, shape, seed,
+                                         floor, k4b_sass, k4b_ptxas)
                   for label, shape, seed in ROUTER_BWD_SHAPES}
     rb0 = router_bwd[ROUTER_BWD_SHAPES[0][0]]
     k2_info = infos[KERNELS.index("rwkv6_scan")]

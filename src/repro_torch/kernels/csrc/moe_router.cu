@@ -6,7 +6,10 @@
 // weights (T,k) fp32 and expert indices (T,k) int32.  Top-k is k rounds of
 // argmax and mask: among equal probabilities the lowest index wins (as in
 // lax.top_k and jnp.argmax), and the winner is set to -1 for the rounds
-// after it.  The k weights are renormalised by max(their sum, 1e-9).
+// after it.  The k weights are renormalised by max(their sum, 1e-9).  On
+// request it also writes each row's fp32 max m and sum s of exponentials
+// (8 B a row), from which the backward (moe_router_bwd.cu) makes its
+// probabilities; the weights and indices are the same bits either way.
 //
 // What bounds it on this card.  Per row, about E exponentials and (k + 3) E
 // compares and adds against 4E (fp32) bytes read and 8k bytes written.  At
@@ -39,26 +42,34 @@
 // integers only.  expf and the division are the accurate ones (no fast
 // math): an index may differ from the plain version's only where two
 // probabilities are within an ulp.  The softmax is row_exp of
-// moe_router.cuh, which the backward (moe_router_bwd.cu) shares, so that
-// its probabilities are these bit for bit.
+// moe_router.cuh; the backward makes each probability from the m and s
+// written here with prob() of the same header, so that they are these bit
+// for bit.  The statistics cost one store by two lanes a row in an
+// instantiation of their own; serving, which does not ask for them, runs
+// one without that code.
 #include "moe_router.cuh"
 
 namespace {
 
 using namespace moe_router;
 
-template <typename T, int VPL>
+// EXTRA: the instantiation that writes the row statistics and Z where
+// their pointers are not null.
+template <typename T, int VPL, bool EXTRA>
 __global__ void __launch_bounds__(WARPS * 32) moe_router_kernel(
     const T* __restrict__ logits, float* __restrict__ w, int* __restrict__ idx,
-    int n_rows, int E, int k) {
+    float* __restrict__ stats, float* __restrict__ zs, int n_rows, int E, int k) {
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
   if (row >= n_rows) return;   // the whole warp leaves together
   const T* x = logits + row * E;
 
-  // softmax in fp32 (moe_router.cuh, shared with the backward)
-  float p[VPL];
-  const float s = row_exp<T, VPL>(x, E, lane, p);
+  // softmax in fp32 (moe_router.cuh); the row's max and sum on request
+  float p[VPL], m;
+  const float s = row_exp<T, VPL>(x, E, lane, p, m);
+  if constexpr (EXTRA) {
+    if (stats != nullptr && lane < 2) stats[2 * row + lane] = lane ? s : m;
+  }
   // keys: a live probability's bits + 1; 0 for a slot past E or a winner
   unsigned key[VPL];
 #pragma unroll
@@ -91,26 +102,40 @@ __global__ void __launch_bounds__(WARPS * 32) moe_router_kernel(
       if (lane == r) { my_w = pw; my_i = win; }
     }
   }
+  const float z = fmaxf(total, 1e-9f);
   if (lane < k) {
-    w[row * k + lane] = my_w / fmaxf(total, 1e-9f);
+    w[row * k + lane] = my_w / z;
     idx[row * k + lane] = my_i;
+  }
+  if constexpr (EXTRA) {
+    if (zs != nullptr && lane == 0) zs[row] = z;
+  }
+}
+
+template <typename T, bool EXTRA>
+void launch_extra(const T* x, float* w, int* idx, float* stats, float* zs, int n_rows, int E,
+                  int k, cudaStream_t stream) {
+  const dim3 grid((n_rows + WARPS - 1) / WARPS), block(WARPS * 32);
+  const int vpl = (E + 31) / 32;
+  if (vpl <= 1) {
+    moe_router_kernel<T, 1, EXTRA><<<grid, block, 0, stream>>>(x, w, idx, stats, zs, n_rows, E, k);
+  } else if (vpl <= 2) {
+    moe_router_kernel<T, 2, EXTRA><<<grid, block, 0, stream>>>(x, w, idx, stats, zs, n_rows, E, k);
+  } else if (vpl <= 4) {
+    moe_router_kernel<T, 4, EXTRA><<<grid, block, 0, stream>>>(x, w, idx, stats, zs, n_rows, E, k);
+  } else {
+    moe_router_kernel<T, 8, EXTRA><<<grid, block, 0, stream>>>(x, w, idx, stats, zs, n_rows, E, k);
   }
 }
 
 template <typename T>
-int launch(const void* logits, float* w, int* idx, int n_rows, int E, int k,
-           cudaStream_t stream) {
-  const dim3 grid((n_rows + WARPS - 1) / WARPS), block(WARPS * 32);
+int launch(const void* logits, float* w, int* idx, float* stats, float* zs, int n_rows, int E,
+           int k, cudaStream_t stream) {
   const T* x = static_cast<const T*>(logits);
-  const int vpl = (E + 31) / 32;
-  if (vpl <= 1) {
-    moe_router_kernel<T, 1><<<grid, block, 0, stream>>>(x, w, idx, n_rows, E, k);
-  } else if (vpl <= 2) {
-    moe_router_kernel<T, 2><<<grid, block, 0, stream>>>(x, w, idx, n_rows, E, k);
-  } else if (vpl <= 4) {
-    moe_router_kernel<T, 4><<<grid, block, 0, stream>>>(x, w, idx, n_rows, E, k);
+  if (stats != nullptr || zs != nullptr) {
+    launch_extra<T, true>(x, w, idx, stats, zs, n_rows, E, k, stream);
   } else {
-    moe_router_kernel<T, 8><<<grid, block, 0, stream>>>(x, w, idx, n_rows, E, k);
+    launch_extra<T, false>(x, w, idx, stats, zs, n_rows, E, k, stream);
   }
   return cudaGetLastError();
 }
@@ -118,20 +143,24 @@ int launch(const void* logits, float* w, int* idx, int n_rows, int E, int k,
 }  // namespace
 
 // logits contiguous (T,E), dtype 0 = fp32, 1 = bf16; out holds 2*T*k 32-bit
-// words: the (T,k) fp32 weights, then the (T,k) int32 indices.  Takes
-// 1 <= E <= 256 and 1 <= k <= min(8, E).  Returns the launch's cudaError_t
-// (0 on success); the launch does not synchronise.
-extern "C" int moe_router_fwd(const void* logits, void* out, int dtype, int T, int E, int k,
-                              void* stream) {
+// words: the (T,k) fp32 weights, then the (T,k) int32 indices.  stats, if
+// not null, receives each row's fp32 (max, sum of exponentials), (T,2); z,
+// if not null, each row's Z = max(sum of the k selected, 1e-9), (T,), for
+// checks.  Takes 1 <= E <= 256 and 1 <= k <= min(8, E).  Returns the
+// launch's cudaError_t (0 on success); the launch does not synchronise.
+extern "C" int moe_router_fwd(const void* logits, void* out, void* stats, void* z, int dtype,
+                              int T, int E, int k, void* stream) {
   if (T <= 0 || E <= 0 || E > MAX_E || k <= 0 || k > MAX_K || k > E) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(out);
   int* idx = static_cast<int*>(out) + static_cast<long long>(T) * k;
+  float* st = static_cast<float*>(stats);
+  float* zs = static_cast<float*>(z);
   switch (dtype) {
-    case 0: return launch<float>(logits, w, idx, T, E, k, s);
-    case 1: return launch<__nv_bfloat16>(logits, w, idx, T, E, k, s);
+    case 0: return launch<float>(logits, w, idx, st, zs, T, E, k, s);
+    case 1: return launch<__nv_bfloat16>(logits, w, idx, st, zs, T, E, k, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,9 @@
 // Device helpers shared by the MoE router's forward (moe_router.cu) and its
-// backward (moe_router_bwd.cu).  Both take a row's softmax from the same
-// function, so the backward's probabilities, and the sum of the k selected
-// ones, are the forward's bit for bit.
+// backward (moe_router_bwd.cu).  The forward takes a row's softmax from
+// row_exp and, on request, writes the row's max m and sum s; the backward
+// makes each probability from them with prob(), the same two operations as
+// the forward's exp and quotient, so its probabilities, and the sum of the
+// k selected ones, are the forward's bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,15 +41,16 @@ __device__ __forceinline__ float from_order_bits(unsigned u) {
 }
 
 // One row's softmax in fp32, by the warp that owns it: lane ``lane`` keeps
-// expert j*32 + lane in slot j.  On return p[j] = exp(x - max) (0 past E)
-// and the row's sum of them is returned to every lane; the probability is
-// the rounded quotient p[j] / sum.  The max is one redux.sync on the
-// logits' bits in unsigned order, the sum a shuffle tree (redux.sync adds
-// integers only); expf is the accurate one (no fast math).
+// expert j*32 + lane in slot j.  On return p[j] = exp(x - m) (0 past E), m
+// holds the row's max, and the row's sum of the exponentials is returned to
+// every lane; the probability is the rounded quotient p[j] / sum.  The max
+// is one redux.sync on the logits' bits in unsigned order, the sum a
+// shuffle tree (redux.sync adds integers only); expf is the accurate one
+// (no fast math).
 template <typename T, int VPL>
 __device__ __forceinline__ float row_exp(const T* __restrict__ x, int E, int lane,
-                                         float (&p)[VPL]) {
-  float m = -INFINITY;
+                                         float (&p)[VPL], float& m) {
+  m = -INFINITY;
 #pragma unroll
   for (int j = 0; j < VPL; ++j) {
     const int e = j * 32 + lane;
@@ -66,11 +69,9 @@ __device__ __forceinline__ float row_exp(const T* __restrict__ x, int E, int lan
   return s;
 }
 
-// Values a lane for E experts: ceil(E/32) rounded up to 1, 2, 4 or 8, the
-// instantiations of each kernel.
-inline int values_per_lane(int E) {
-  const int vpl = (E + 31) / 32;
-  return vpl <= 1 ? 1 : vpl <= 2 ? 2 : vpl <= 4 ? 4 : 8;
-}
+// A logit's probability from its row's max m and sum s of exponentials:
+// row_exp's exponential, then its quotient, so that it is the forward's bit
+// for bit.
+__device__ __forceinline__ float prob(float x, float m, float s) { return expf(x - m) / s; }
 
 }  // namespace moe_router

@@ -13,14 +13,17 @@ takes a few microseconds and runs once per MoE layer of every decode step:
 - the stream is read as a raw pointer, without building a ``Stream``;
 - the launch is one ctypes call on PyTorch's current stream, without
   synchronising.
-Logits that are already contiguous (the model's are) are not copied.
+Logits that are already contiguous (the model's are) are not copied.  A
+forward for training (``MoERouterFn``) also asks for each row's max and sum
+of exponentials, in the same allocation; the backward makes its
+probabilities from them.  Serving does not ask, and pays nothing for them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,7 +41,7 @@ _INT_MAX = 2**31 - 1
 def _fn():
     fn = _build.load_library("moe_router").moe_router_fwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, I, I, I, I, P]      # logits out dtype T E k stream
+    fn.argtypes = [P, P, P, P, I, I, I, I, P]      # logits out stats z dtype T E k stream
     fn.restype = I
     return fn
 
@@ -69,10 +72,16 @@ def check(shape: Tuple[int, ...], dtype: torch.dtype, top_k: int
 plan = functools.lru_cache(maxsize=None)(check)
 
 
-def moe_router_cuda(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_router_cuda(logits: torch.Tensor, top_k: int, return_stats: bool = False,
+                    z: Optional[torch.Tensor] = None):
     """Launch the kernel; same contract as ``ref.moe_router_ref``: logits
     (..., E) -> (weights (..., k) fp32, idx (..., k) int32), each row of E
     routed on its own, so that a caller need not reshape to (T, E) and back.
+    With ``return_stats`` also each row's fp32 (max, sum of exponentials),
+    (..., 2), which ``moe_router_bwd_cuda`` takes; the weights and indices
+    are the same bits either way.  ``z``, a contiguous fp32 CUDA tensor of
+    the T rows, receives each row's Z = max(sum of the k selected
+    probabilities, 1e-9), for checks.
 
     Raises on a tensor off the card, on what ``check`` refuses, or on a
     launch that CUDA refuses."""
@@ -81,54 +90,84 @@ def moe_router_cuda(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, tor
     T, E, code, out_shape = plan(logits.shape, logits.dtype, top_k)
     if not logits.is_contiguous():
         logits = logits.contiguous()
-    out = logits.new_empty(out_shape, dtype=torch.int32)
+    if return_stats:   # one allocation: weights, indices, then the (T, 2) statistics
+        flat = logits.new_empty(2 * T * top_k + 2 * T, dtype=torch.int32)
+        out = flat[:2 * T * top_k].view(out_shape)
+        stats = flat[2 * T * top_k:].view(torch.float32).view(*logits.shape[:-1], 2)
+    else:
+        out, stats = logits.new_empty(out_shape, dtype=torch.int32), None
     w, idx = out.unbind(0)
     # the current stream's cudaStream_t, as an int
     stream = torch._C._cuda_getCurrentRawStream(logits.get_device())
-    err = _fn()(logits.data_ptr(), out.data_ptr(), code, T, E, top_k, stream)
+    err = _fn()(logits.data_ptr(), out.data_ptr(), None if stats is None else stats.data_ptr(),
+                _check_z(z, T, logits.device), code, T, E, top_k, stream)
     if err != 0:
         raise RuntimeError(f"moe_router_fwd launch failed: cudaError_t {err}")
-    return w.view(torch.float32), idx
+    return (w.view(torch.float32), idx, stats) if return_stats else (w.view(torch.float32), idx)
+
+
+def _check_z(z: Optional[torch.Tensor], T: int, device: torch.device) -> Optional[int]:
+    """``z``'s pointer, None for no tensor; raises unless it is a
+    contiguous fp32 tensor of ``T`` elements on ``device``."""
+    if z is None:
+        return None
+    if z.dtype != torch.float32 or z.numel() != T or not z.is_contiguous() or z.device != device:
+        raise ValueError(f"z must be a contiguous float32 tensor of {T} elements on {device}")
+    return z.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_fn():
     fn = _build.load_library("moe_router_bwd").moe_router_bwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, P]      # logits w idx dw dlogits dtype T E k stream
+    # logits stats w idx dw dlogits z dtype T E k stream
+    fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
     fn.restype = I
     return fn
 
 
 def moe_router_bwd_cuda(logits: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-                        dw: torch.Tensor) -> torch.Tensor:
+                        dw: torch.Tensor, stats: Optional[torch.Tensor],
+                        z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the backward; same contract as ``ref.moe_router_bwd_ref``:
     logits (..., E) fp32 or bf16, the forward's weights ``w`` (..., k) fp32
     and indices ``idx`` (..., k) int32, the gradient ``dw`` of w (..., k)
-    -> dlogits (..., E) in the logits' dtype.
+    -> dlogits (..., E) in the logits' dtype.  ``stats`` (..., 2) fp32 are
+    the forward's row statistics (``moe_router_cuda(..., return_stats=True)``),
+    from which the kernel makes the forward's probabilities bit for bit;
+    they are required and never recomputed.  ``z`` as in ``moe_router_cuda``.
 
-    Raises on a tensor off the card, tensors on two devices, what ``check``
-    refuses, shapes or dtypes that do not match, or a launch that CUDA
-    refuses."""
-    ts = (logits, w, idx, dw)
+    Raises on missing statistics, a tensor off the card, tensors on two
+    devices, what ``check`` refuses, shapes or dtypes that do not match, or
+    a launch that CUDA refuses."""
+    if stats is None:
+        raise ValueError("moe_router_bwd_cuda needs the forward's row statistics "
+                         "(moe_router_cuda(..., return_stats=True))")
+    ts = (logits, w, idx, dw, stats)
     if not all(t.is_cuda for t in ts):
         raise ValueError("moe_router_bwd_cuda takes CUDA tensors only")
     if len({t.device for t in ts}) != 1:
-        raise ValueError("logits, w, idx and dw must be on one device")
+        raise ValueError("logits, w, idx, dw and stats must be on one device")
     top_k = idx.shape[-1] if idx.dim() else 0
     T, E, code, _ = plan(logits.shape, logits.dtype, top_k)
     want = (*logits.shape[:-1], top_k)
     if any(tuple(t.shape) != want for t in (w, idx, dw)):
         raise ValueError(f"w {tuple(w.shape)}, idx {tuple(idx.shape)} and dw {tuple(dw.shape)} "
                          f"must be {want} for logits {tuple(logits.shape)}")
-    if (w.dtype, idx.dtype) != (torch.float32, torch.int32):
-        raise ValueError(f"w {w.dtype} and idx {idx.dtype}: need float32 and int32")
+    if tuple(stats.shape) != (*logits.shape[:-1], 2):
+        raise ValueError(f"stats {tuple(stats.shape)} must be {(*logits.shape[:-1], 2)} for "
+                         f"logits {tuple(logits.shape)}")
+    if (w.dtype, idx.dtype, stats.dtype) != (torch.float32, torch.int32, torch.float32):
+        raise ValueError(f"w {w.dtype}, idx {idx.dtype} and stats {stats.dtype}: need float32, "
+                         "int32 and float32")
     logits, w, idx = logits.contiguous(), w.contiguous(), idx.contiguous()
+    stats = stats.contiguous()
     dw = dw.to(torch.float32).contiguous()
     dlogits = torch.empty_like(logits)
     stream = torch._C._cuda_getCurrentRawStream(logits.get_device())
-    err = _bwd_fn()(logits.data_ptr(), w.data_ptr(), idx.data_ptr(), dw.data_ptr(),
-                    dlogits.data_ptr(), code, T, E, top_k, stream)
+    err = _bwd_fn()(logits.data_ptr(), stats.data_ptr(), w.data_ptr(), idx.data_ptr(),
+                    dw.data_ptr(), dlogits.data_ptr(), _check_z(z, T, logits.device), code, T, E,
+                    top_k, stream)
     if err != 0:
         raise RuntimeError(f"moe_router_bwd launch failed: cudaError_t {err}")
     return dlogits
@@ -137,16 +176,17 @@ def moe_router_bwd_cuda(logits: torch.Tensor, w: torch.Tensor, idx: torch.Tensor
 class MoERouterFn(torch.autograd.Function):
     """The CUDA router with its CUDA backward, for CUDA logits that need a
     gradient (``ops.moe_router`` routes them here).  The forward launches
-    the router kernel and keeps the logits and its two outputs; the
-    indices take no gradient.  The backward runs ``ops.moe_router_bwd``,
-    which counts its launches."""
+    the router kernel with its row statistics (8 B a row) and keeps the
+    logits, its two outputs and the statistics (a recompute under remat
+    keeps its own); the indices take no gradient.  The backward runs
+    ``ops.moe_router_bwd``, which counts its launches."""
 
     @staticmethod
     def forward(ctx, logits, top_k):
-        w, idx = moe_router_cuda(logits, top_k)
+        w, idx, stats = moe_router_cuda(logits, top_k, return_stats=True)
         ctx.mark_non_differentiable(idx)
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(logits, w, idx)
+        ctx.save_for_backward(logits, w, idx, stats)
         return w, idx
 
     @staticmethod
@@ -154,5 +194,5 @@ class MoERouterFn(torch.autograd.Function):
         from . import ops   # ops imports this module
         if dw is None:
             return None, None
-        logits, w, idx = ctx.saved_tensors
-        return ops.moe_router_bwd(logits, w, idx, dw), None
+        logits, w, idx, stats = ctx.saved_tensors
+        return ops.moe_router_bwd(logits, w, idx, dw, stats), None

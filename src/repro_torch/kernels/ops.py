@@ -171,13 +171,15 @@ def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Te
 
 
 def moe_router_bwd(logits: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-                   dw: torch.Tensor) -> torch.Tensor:
+                   dw: torch.Tensor, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gradient dlogits (..., E), in the logits' dtype, of ``moe_router``'s
     weights from its outputs ``w`` and ``idx`` (..., k) and the gradient
-    ``dw`` of w.  ``MoERouterFn.backward`` calls it."""
+    ``dw`` of w.  On the card the kernel also takes the forward's row
+    statistics ``stats`` (..., 2) and raises without them; the plain
+    version needs none.  ``MoERouterFn.backward`` calls it."""
     if logits.is_cpu:
         return ref.moe_router_bwd_ref(logits, w, idx, dw)
-    out = _router.moe_router_bwd_cuda(logits, w, idx, dw)
+    out = _router.moe_router_bwd_cuda(logits, w, idx, dw, stats)
     moe_router_bwd.launches += 1
     return out
 

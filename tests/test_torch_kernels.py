@@ -266,9 +266,10 @@ def test_grad_path_off_the_cpu_never_runs_the_plain_version():
 def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu(name):
     """The router's gradient path off the CPU never runs the plain version:
     a tensor that needs a gradient goes through MoERouterFn, whose kernel
-    refuses what is not on the card; so does the backward's wrapper, and
-    without a gradient (or under no_grad) the forward's.  No counter
-    moves."""
+    refuses what is not on the card; so does the backward's wrapper, given
+    the forward's row statistics or not (without them it names them: they
+    are never recomputed), and without a gradient (or under no_grad) the
+    forward's, asked for its statistics or not.  No counter moves."""
     def call(grad):
         return pops.moe_router(*_meta((4, 8), grad=grad), 2)
     before = pops.moe_router.launches, pops.moe_router_bwd.launches
@@ -284,8 +285,13 @@ def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu(name):
         assert fn.call_count == 1
     logits, w, dw = _meta((4, 8), (4, 2), (4, 2))
     idx = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    stats = torch.empty((4, 2), device="meta")
     with pytest.raises(ValueError, match="CUDA tensors only"):
+        pops.moe_router_bwd(logits, w, idx, dw, stats)
+    with pytest.raises(ValueError, match="row statistics"):
         pops.moe_router_bwd(logits, w, idx, dw)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        prouter.moe_router_cuda(logits, 2, return_stats=True)
     assert (pops.moe_router.launches, pops.moe_router_bwd.launches) == before
 
 

@@ -13,7 +13,9 @@ winner, the lowest index among equals) is emulated in plain PyTorch and
 held against JAX's router; its wrapper's check runs without a card.  The
 router's plain backward (``ref.moe_router_bwd_ref``) is held against
 ``jax.vjp`` of JAX's ``_route`` and against torch autograd of the plain
-router, and so is the CUDA backward's order of sums, emulated.  The CUDA
+router, and so is the CUDA backward's order of work, emulated: its
+probabilities from the forward's saved row max and sum, its Z the
+forward's bit for bit.  The CUDA
 kernels themselves are held against the plain versions by the ``gpu``
 tests, which skip without a card.
 """
@@ -135,13 +137,18 @@ def test_router_weights_normalized_sorted_unique():
 
 def _kernel_selection(logits, k, masked_key=0):
     """``csrc/moe_router.cu``'s selection, step for step in plain PyTorch:
-    probabilities p = exp(x - max) / sum, each keyed as its fp32 bits + 1;
-    each round takes the largest key, then the lowest index holding it, and
-    sets the winner's key to ``masked_key`` (0 in the kernel).  The weights
-    are the winners' probabilities over max(their sum, 1e-9)."""
+    probabilities p = exp(x - m) / s, m the row's max and s its sum of
+    exponentials, each keyed as its fp32 bits + 1; each round takes the
+    largest key, then the lowest index holding it, and sets the winner's key
+    to ``masked_key`` (0 in the kernel).  Z is the winners' probabilities
+    summed in round order, round 0 first, then max(that, 1e-9); the weights
+    are the winners' probabilities over Z.  Returns (weights, indices, the
+    rows' statistics (m, s) as (T, 2), Z)."""
     x = logits.float()
-    e = torch.exp(x - x.max(-1, keepdim=True).values)
-    p = e / e.sum(-1, keepdim=True)
+    m = x.max(-1, keepdim=True).values
+    e = torch.exp(x - m)
+    s = e.sum(-1, keepdim=True)
+    p = e / s
     keys = p.view(torch.int32).long() + 1
     rows = torch.arange(len(keys))
     ws, idxs = [], []
@@ -151,8 +158,11 @@ def _kernel_selection(logits, k, masked_key=0):
         keys[rows, win] = masked_key
         ws.append((top - 1).int().view(torch.float32))
         idxs.append(win)
-    w = torch.stack(ws, -1)
-    return w / w.sum(-1, keepdim=True).clamp_min(1e-9), torch.stack(idxs, -1).int()
+    total = torch.zeros(len(x))
+    for pw in ws:
+        total = total + pw
+    z = total.clamp_min(1e-9)
+    return torch.stack(ws, -1) / z[:, None], torch.stack(idxs, -1).int(), torch.cat([m, s], -1), z
 
 
 def _router_cases():
@@ -183,7 +193,7 @@ def test_kernel_selection_order_matches_jax(case):
     equals) select as the JAX Pallas router (interpret mode) and JAX's
     reference do, and as the port's plain version."""
     logits, k, dtype = _router_cases()[case]
-    w, idx = _kernel_selection(_t(logits, dtype), k)
+    w, idx, _, _ = _kernel_selection(_t(logits, dtype), k)
     (pw, pi), *others = _router_all(logits, k, dtype)
     for ow, oi in [(pw, pi)] + others:
         np.testing.assert_array_equal(idx.numpy(), oi)
@@ -196,11 +206,30 @@ def test_masked_winner_must_sort_below_an_underflowed_probability():
     would pick the winner again where JAX picks the lowest 0.0."""
     logits = np.full((1, 40), -200.0, np.float32)
     logits[0, 5] = 0.0
-    _, idx = _kernel_selection(_t(logits), 8)
+    idx = _kernel_selection(_t(logits), 8)[1]
     np.testing.assert_array_equal(idx.numpy()[0], [5, 0, 1, 2, 3, 4, 6, 7])
     minus_one = int(np.array(-1.0, np.float32).view(np.uint32)) + 1
-    _, wrong = _kernel_selection(_t(logits), 8, masked_key=minus_one)
+    wrong = _kernel_selection(_t(logits), 8, masked_key=minus_one)[1]
     assert wrong.numpy()[0].tolist() == [5] * 8
+
+
+@pytest.mark.parametrize("case", list(_router_cases()))
+def test_saved_statistics_give_the_forwards_weights_bit_for_bit(case):
+    """What the backward kernel makes of the forward's row max m and sum s:
+    each selected probability exp(x - m) / s, their sum in round order (Z)
+    and each weight over it are the forward's bits, on the edges of the
+    selection (ties, probabilities 0.0, E=250, k=E, bf16 logits)."""
+    logits, k, dtype = _router_cases()[case]
+    x = _t(logits, dtype)
+    w, idx, stats, z = _kernel_selection(x, k)
+    assert stats.shape == (len(x), 2) and stats.dtype == torch.float32
+    assert torch.equal(stats[:, 0], x.float().max(-1).values) and bool((stats[:, 1] >= 1).all())
+    pk = (torch.exp(x.float() - stats[:, :1]) / stats[:, 1:]).gather(-1, idx.long())
+    total = torch.zeros(len(x))
+    for r in range(k):
+        total = total + pk[:, r]
+    assert torch.equal(total.clamp_min(1e-9), z)
+    assert torch.equal(pk / z[:, None], w)
 
 
 # -- the wrapper's check, without a card ------------------------------------------------
@@ -318,37 +347,46 @@ def test_router_bwd_ref_matches_torch_autograd(T, E, k, dtype, zero):
     assert _normwise(dx.float().numpy(), x.grad.float().numpy()) <= BWD_TOL[dtype]
 
 
-def _kernel_bwd_emulation(logits, w, idx, dw):
-    """``csrc/moe_router_bwd.cu``'s order of work in plain PyTorch: the
-    forward's probabilities (exp(x - max) over their sum, then the
-    quotient); Z summed over the rounds in order, round 0 first, as the
-    forward sums it; sum_m dw_m w_m and sum_j p[idx_j] dp_j over the k
-    selected only; each logit's q (dp - that sum)."""
+def _kernel_bwd_emulation(logits, stats, w, idx, dw):
+    """``csrc/moe_router_bwd.cu``'s order of work in plain PyTorch: each
+    selected expert's probability from the forward's saved row max m and
+    sum s, exp(x - m) / s, with no reduction over the row (the kernel
+    re-reads the k selected logits); Z, sum_m dw_m w_m, each dp_j = (dw_j -
+    that sum) times 1/Z and sum_j p[idx_j] dp_j over the k selected only,
+    each in round order, round 0 first; an unselected logit's exp(x - m)
+    times 1/s times (0 - the last sum), a selected one's p (dp_j - it).
+    Returns (dlogits, Z)."""
     x = logits.float()
-    e = torch.exp(x - x.max(-1, keepdim=True).values)
-    q = e / e.sum(-1, keepdim=True)
-    pk = q.gather(-1, idx.long())
-    z = torch.zeros(len(x))
+    e = torch.exp(x - stats[:, :1])
+    idx = idx.long()
+    pk = (e / stats[:, 1:]).gather(-1, idx)
+    total, c, pdp = torch.zeros(len(x)), torch.zeros(len(x)), torch.zeros(len(x))
     for r in range(idx.shape[-1]):
-        z = z + pk[:, r]
-    dp = (dw - (dw * w).sum(-1, keepdim=True)) / z.clamp_min(1e-9)[:, None]
-    d = torch.zeros_like(q).scatter_(-1, idx.long(), dp)
-    return (q * (d - (pk * dp).sum(-1, keepdim=True))).to(logits.dtype)
+        total = total + pk[:, r]
+        c = c + dw[:, r] * w[:, r]
+    z = total.clamp_min(1e-9)
+    dp = (dw - c[:, None]) * (1 / z)[:, None]
+    for r in range(idx.shape[-1]):
+        pdp = pdp + pk[:, r] * dp[:, r]
+    out = e * (1 / stats[:, 1:]) * (0 - pdp[:, None])
+    out.scatter_(-1, idx, pk * (dp - pdp[:, None]))
+    return out.to(logits.dtype), z
 
 
 @pytest.mark.parametrize("case", range(len(BWD_CASES)))
 def test_kernel_bwd_order_of_sums_matches_jax(case):
-    """The kernel's Z is the forward's sum bit for bit (the emulated
-    forward's weights are renormalised by it), and its sums over the k
-    selected experts give JAX's gradient within the plain version's
-    tolerance."""
+    """The kernel's Z, made from the forward's saved statistics, is the
+    forward's Z bit for bit, and its sums over the k selected experts give
+    JAX's gradient within the plain version's tolerance."""
     T, E, k, dtype, zero = BWD_CASES[case]
     logits, dw = _bwd_case(T, E, k, dtype, zero)
     x = _t(logits, dtype)
-    w, idx = _kernel_selection(x, k)
+    w, idx, stats, z_fwd = _kernel_selection(x, k)
     ji, jdx = _jax_route_vjp(case)
     np.testing.assert_array_equal(idx.numpy(), ji)
-    dx = _kernel_bwd_emulation(x, w, idx, torch.from_numpy(dw))
+    dx, z = _kernel_bwd_emulation(x, stats, w, idx, torch.from_numpy(dw))
+    assert torch.equal(z, z_fwd)
+    assert dx.dtype == x.dtype and dx.shape == (T, E)
     assert _normwise(dx.float().numpy(), jdx) <= BWD_TOL[dtype]
 
 
@@ -356,10 +394,13 @@ def test_cpu_bwd_dispatches_to_the_plain_version_without_counting():
     logits, dw = _bwd_case(256, 40, 8, "float32", None)
     x = _t(logits)
     w, idx = pops.moe_router(x, 8)
+    stats = _kernel_selection(x, 8)[2]
     before = pops.moe_router_bwd.launches
     got = pops.moe_router_bwd(x, w, idx, torch.from_numpy(dw))
+    with_stats = pops.moe_router_bwd(x, w, idx, torch.from_numpy(dw), stats)
     assert pops.moe_router_bwd.launches == before
-    assert torch.equal(got, pref.moe_router_bwd_ref(x, w, idx, torch.from_numpy(dw)))
+    expect = pref.moe_router_bwd_ref(x, w, idx, torch.from_numpy(dw))
+    assert torch.equal(got, expect) and torch.equal(with_stats, expect)
 
 
 # -- dispatch ------------------------------------------------------------------------
@@ -573,6 +614,38 @@ def test_chip_smoke_moe_router_bwd_bound(T, E, k, dtype):
     assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / smoke.PEAK_HBM_BYTES)
 
 
+@pytest.mark.parametrize("E", [8, 40, 64, 250])
+def test_chip_smoke_row_exp_sum_is_the_forwards_order(E):
+    """``row_exp_sum`` (the plain recomputation chip_smoke holds K4's row
+    sums to) adds in ``row_exp``'s order: each of 32 lanes its experts j*32
+    + lane from slot 0, then a butterfly in which lane l adds lane l ^ o's
+    sum for o = 16, 8, 4, 2, 1.  Written here lane by lane, bit for bit."""
+    e = torch.exp(_t(_rand(60, 16, E, scale=2.0)) - 4.0)
+    vpl = next(v for v in (1, 2, 4, 8) if 32 * v >= E)
+    lanes = [torch.zeros(16) for _ in range(32)]
+    for lane in range(32):
+        for j in range(vpl):
+            if j * 32 + lane < E:
+                lanes[lane] = lanes[lane] + e[:, j * 32 + lane]
+    for o in (16, 8, 4, 2, 1):
+        lanes = [lanes[lane] + lanes[lane ^ o] for lane in range(32)]
+    got = _smoke().row_exp_sum(torch, e)
+    assert all(torch.equal(lane, lanes[0]) for lane in lanes)
+    assert torch.equal(got, lanes[0])
+    torch.testing.assert_close(got, e.sum(-1), rtol=1e-6, atol=0)
+
+
+def test_chip_smoke_router_bwd_lanes_match_the_kernel():
+    """chip_smoke's lanes a row of K4's backward (to pick the instantiation
+    it reports) are the kernel's: the fewest of 4, 8, 16, 32 holding at
+    most 8 experts a lane, written out in ``lanes_per_row``."""
+    src = (Path(prouter.__file__).parent / "csrc" / "moe_router_bwd.cu").read_text()
+    assert "return E <= 32 ? 4 : E <= 64 ? 8 : E <= 128 ? 16 : 32;" in src
+    smoke = _smoke()
+    got = [smoke.router_bwd_lanes(E) for E in (1, 8, 32, 33, 40, 64, 65, 128, 129, 250, 256)]
+    assert got == [4, 4, 4, 8, 8, 8, 16, 16, 32, 32, 32]
+
+
 @pytest.mark.parametrize("arch,n_layers,remat,expect", [
     ("granite-moe-3b-a800m", None, True, {"flash_attention": 64, "flash_attention_bwd": 32,
                                           "moe_router": 64, "moe_router_bwd": 32}),
@@ -711,18 +784,24 @@ def test_moe_router_takes_strided_logits_and_the_current_stream(cuda_device):
     (4096, 40, 8, "bfloat16", False),
 ])
 def test_moe_router_bwd_kernel_matches_plain_version_on_card(cuda_device, T, E, k, dtype, zero):
-    """On the kernel forward's own outputs: dlogits against the plain
-    backward (``BWD_TOL``), a second run bit for bit, one launch counted."""
+    """On the kernel forward's own outputs and row statistics: dlogits
+    against the plain backward (``BWD_TOL``), a second run bit for bit, one
+    launch counted each; the forward's weights and indices the same bits
+    with and without its statistics, and the backward's Z the forward's."""
     logits = _t(_rand(41, T, E, scale=2.0), dtype).to(cuda_device)
     if zero:
         logits[8:] = 0
     dw = _t(_rand(42, T, k)).to(cuda_device)
-    w, idx = prouter.moe_router_cuda(logits, k)
+    z_fwd, z_bwd = (torch.empty(T, device=cuda_device) for _ in range(2))
+    w, idx, stats = prouter.moe_router_cuda(logits, k, return_stats=True, z=z_fwd)
+    w0, idx0 = prouter.moe_router_cuda(logits, k)
     before = pops.moe_router_bwd.launches
-    got = pops.moe_router_bwd(logits, w, idx, dw)
-    again = pops.moe_router_bwd(logits, w, idx, dw)
+    got = pops.moe_router_bwd(logits, w, idx, dw, stats)
+    again = prouter.moe_router_bwd_cuda(logits, w, idx, dw, stats, z=z_bwd)
     torch.cuda.synchronize()
-    assert pops.moe_router_bwd.launches == before + 2
+    assert pops.moe_router_bwd.launches == before + 1
+    assert torch.equal(w, w0) and torch.equal(idx, idx0) and stats.shape == (T, 2)
+    assert torch.equal(z_fwd, z_bwd)
     assert got.dtype == logits.dtype and got.shape == (T, E) and torch.equal(got, again)
     exp = pref.moe_router_bwd_ref(logits, w, idx, dw)
     assert _normwise(got.float().cpu().numpy(), exp.float().cpu().numpy()) <= BWD_TOL[dtype]
@@ -754,10 +833,16 @@ def test_moe_router_fn_matches_autograd_of_the_plain_router_on_card(cuda_device,
 @pytest.mark.gpu
 def test_moe_router_bwd_kernel_refuses_what_it_does_not_take(cuda_device):
     logits = torch.zeros((8, 40), device=cuda_device)
-    w, idx = prouter.moe_router_cuda(logits, 8)
+    w, idx, st = prouter.moe_router_cuda(logits, 8, return_stats=True)
     dw = torch.zeros_like(w)
-    for args in ((logits.cpu(), w, idx, dw), (logits, w, idx.long(), dw),
-                 (logits, w[:4], idx[:4], dw[:4]), (logits.half(), w, idx, dw),
-                 (torch.zeros((8, 300), device=cuda_device), w, idx, dw)):
+    before = pops.moe_router_bwd.launches
+    for args in ((logits.cpu(), w, idx, dw, st), (logits, w, idx.long(), dw, st),
+                 (logits, w[:4], idx[:4], dw[:4], st), (logits.half(), w, idx, dw, st),
+                 (torch.zeros((8, 300), device=cuda_device), w, idx, dw, st),
+                 (logits, w, idx, dw, None), (logits, w, idx, dw, st[:4]),
+                 (logits, w, idx, dw, st.double())):
         with pytest.raises(ValueError):
             prouter.moe_router_bwd_cuda(*args)
+    with pytest.raises(ValueError, match="row statistics"):
+        pops.moe_router_bwd(logits, w, idx, dw)
+    assert pops.moe_router_bwd.launches == before
