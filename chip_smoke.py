@@ -10,9 +10,10 @@ non-zero exit:
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
    build the eight CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` each, all started together) and print ptxas' reports; K1's
-   tiles, shared memory and blocks an SM for each (dtype, head_dim), and the
-   HMMA (tensor-core) instructions in each of its kernels' SASS; the same
-   for K1's two backward kernels, with their registers and spills; K4's
+   tiles, shared memory, blocks an SM, registers and spills for each
+   (dtype, head_dim: 64, 80, 128, 256), and the HMMA (tensor-core)
+   instructions in each of its kernels' SASS; the same for K1's two
+   backward kernels; K4's
    SASS and its backward's SASS (no REDUX, at most 8 SHFL), registers and
    spills.
 2. kernels: each kernel against its plain PyTorch version on the card, at
@@ -21,7 +22,10 @@ non-zero exit:
    parallelism, tied router rows, bf16), with stated tolerances; K1's
    backward against its plain version at the forward's cases, fp32 and
    bf16, two runs of it bit for bit, and ``FlashAttentionFn`` against
-   autograd of the plain forward; the same for K2's and K3's backwards at
+   autograd of the plain forward; K1 at head size 80 (hubert-xlarge's
+   train shape, bidirectional, and ragged lengths both ways, forward and
+   backward, fp32 and bf16) and at paligemma-3b's prefill (768 positions,
+   MQA, hd 256); the same for K2's and K3's backwards at
    the training shapes and edge cases (a ragged last chunk, an initial
    state, a final-state gradient), with ``RWKV6ScanFn`` and ``RGLRUScanFn``;
    and K4's backward at K4's cases, on the kernel forward's outputs and row
@@ -106,9 +110,20 @@ non-zero exit:
    batches, its routing teacher-forced to the kernel path's (each flip a
    near-tie):
    the first step's gradients and the losses within stated limits.
+3f. train the audio family: hubert-xlarge at full width and full depth
+   (48 layers, 945,758,720 parameters, fp32, batch 8 x 512 frames of
+   conv-feature stubs, 3 steps) through ``launch.train``, every launch
+   count set to 0 just before and read just after (48 K1 forwards and 48
+   backwards a step, bidirectional at hd 80); the steady step time,
+   frames/s, peak memory and a trace of one warm step; the plain path
+   (``attn_impl="naive"``) on the same weights and batches: one
+   ``forward_encode``'s logits, the first step's gradients and the losses
+   within stated limits.
 4. serve: ``repro_torch.launch.serve`` at full width (batch 8, prompt 512,
-   32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b and
-   granite-moe-3b-a800m, one model resident at a time.  Every launch count
+   32 new tokens, greedy) on smollm-135m, rwkv6-1.6b, recurrentgemma-9b,
+   granite-moe-3b-a800m and paligemma-3b (its prompt 256 image patches
+   before the 512 tokens: 18 K1 launches over 768 positions in prefill),
+   one model resident at a time.  Every launch count
    is set to 0 just before each path and read just after; then the same
    tokens are teacher-forced through the plain path (``attn_impl="naive"``,
    ``kernel_impl="jnp"``) and the prefill logits, every layer's cache or
@@ -127,9 +142,11 @@ non-zero exit:
    bounds where records were dropped); then each kernel, its plain
    version and, where one exists, the PyTorch library call (CUDA events),
    each printed with the card.  K1 is
-   timed at the smollm, granite-moe and recurrentgemma shapes, in fp32 and
-   bf16, beside ``scaled_dot_product_attention`` (and the CUDA kernel it
-   launched, by its profiler name) and both of its bounds.  K2 is timed
+   timed at the smollm, granite-moe and recurrentgemma shapes and at
+   hubert-xlarge's (hd 80, bidirectional), in fp32 and bf16, beside
+   ``scaled_dot_product_attention`` (``is_causal`` as the shape's mask;
+   and the CUDA kernel it launched, by its profiler name) and both of its
+   bounds.  K2 is timed
    in fp32 and bf16 beside its bound and its two-kernel design's floor,
    and each of its two kernels is reported: registers and spills, shared
    memory, blocks an SM and device time.  K1's backward is timed at K1's
@@ -228,8 +245,10 @@ B, S, NEW = 8, 512, 32
 # kernel path's experts: its random 32 layers (experts drawn with std
 # 1/sqrt(40), as JAX draws them) carry activations far above 1; at most
 # 2.56e-5 (the v cache): 2.5e-4.
+# paligemma-3b, its prompt 256 image patches and 512 text tokens, MQA at hd
+# 256 over 768 positions, 18 layers: at most 6.54e-6 (the v cache): 7e-5.
 SERVE_TOL = {"smollm-135m": 2e-5, "rwkv6-1.6b": 1.5e-2, "recurrentgemma-9b": 1e-4,
-             "granite-moe-3b-a800m": 2.5e-4}
+             "granite-moe-3b-a800m": 2.5e-4, "paligemma-3b": 7e-5}
 ARCHS = tuple(SERVE_TOL)
 # A routing decision in which the kernel path picks another expert than the
 # plain path must be a near-tie: the two experts' plain probabilities at
@@ -448,7 +467,7 @@ def attention_inputs(torch, dev, seed, B, Sq, Sk, H, K, hd, dtype, q0=None):
 def allowed_pairs(qp, kp, causal=True, window=None) -> int:
     """The (query, key) pairs the mask allows, counted from the positions."""
     d = qp[:, :, None] - kp[:, None, :]
-    ok = kp[:, None, :] >= 0
+    ok = (kp[:, None, :] >= 0).expand_as(d)   # every query of a key in use, without a mask
     if causal:
         ok = ok & (d >= 0)
     if window is not None:
@@ -695,16 +714,20 @@ def sass_loops(ins) -> tuple:
                         for at, op, tgt in ins if op == "BRA" and tgt is not None and tgt < at]
 
 
-def report_k1_build(torch, fa, nvcc: str, lib: Path, card: str) -> None:
+def report_k1_build(torch, fa, nvcc: str, lib: Path, build_log: str, card: str) -> None:
     """K1's keys per tile, shared memory and blocks an SM for each (dtype,
-    head_dim), as the card reports them; then the instructions in each of
-    its kernels' SASS (``cuobjdump -sass``), HMMA (tensor core) and LDSM
-    (ldmatrix) counted apart."""
+    head_dim), as the card reports them, with its registers and spills
+    (ptxas); then the instructions in each of its kernels' SASS
+    (``cuobjdump -sass``), HMMA (tensor core) and LDSM (ldmatrix) counted
+    apart."""
     import re
-    for dtype in (torch.float32, torch.bfloat16):
+    ptx = ptxas_kernels(build_log)
+    for dtype, tag in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
         for hd in fa.HEAD_DIMS:
+            regs = [c for fn, c in ptx.items() if f"fwd_kernelI{tag}Li{hd}E" in fn]
+            assert len(regs) == 1, f"no single forward kernel {dtype} {hd}"
             log(f"[build] flash_attention {str(dtype)[6:]} hd {hd}: "
-                f"{fa.tile_config(dtype, hd)} {card}")
+                f"{fa.tile_config(dtype, hd)}; ptxas {regs[0]} {card}")
     counts = {}
     for fn, ins in sass_instructions(nvcc, lib).items():
         m = re.search(r"fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
@@ -898,9 +921,23 @@ def check_flash_attention(torch, dev, ops, ref) -> float:
         ("hd256 bf16 ragged", (2, 130, 170, 8, 1, 256), bf16, {}, None),
         ("unaligned q view", (2, 100, 100, 4, 2, 64), f32, {}, "unaligned"),
         ("unaligned q view bf16", (2, 100, 100, 4, 2, 64), bf16, {}, "unaligned"),
+        # hd 80: hubert-xlarge's encoder (bidirectional) at its train shape, and
+        # ragged lengths off the 64-row block and the 32-key tile both ways
+        ("hubert-xlarge hd80 bidirectional", (8, 512, 512, 16, 16, 80), f32, {"causal": False},
+         None),
+        ("hubert-xlarge hd80 bidirectional bf16", (8, 512, 512, 16, 16, 80), bf16,
+         {"causal": False}, None),
+        ("hd80 ragged", (2, 77, 130, 4, 2, 80), f32, {}, None),
+        ("hd80 ragged bf16", (2, 77, 130, 4, 2, 80), bf16, {}, None),
+        ("hd80 ragged bidirectional", (2, 77, 130, 4, 2, 80), f32, {"causal": False}, None),
+        ("hd80 ragged bidirectional bf16", (2, 77, 130, 4, 2, 80), bf16, {"causal": False},
+         None),
+        # paligemma-3b's prefill: 256 image patches and 512 text tokens, MQA hd 256
+        ("paligemma-3b prefill hd256 MQA", (8, 768, 768, 8, 1, 256), f32, {}, None),
     ]
     main_err = None
     for i, (name, shape, dtype, kw, edit) in enumerate(cases):
+        kw = {"causal": True, **kw}
         q, k, v, qp, kp = attention_inputs(torch, dev, 100 + i, *shape, dtype)
         if edit == "holes":
             qp += 300
@@ -912,14 +949,15 @@ def check_flash_attention(torch, dev, ops, ref) -> float:
         if edit == "unaligned":   # the same values, one element into a wider row
             q = torch.nn.functional.pad(q, (1, 0))[..., 1:]
             assert q.data_ptr() % 16 and q.stride(2) * q.element_size() % 16
-        out = ops.flash_attention(q, k, v, qp, kp, causal=True, **kw)
+        out = ops.flash_attention(q, k, v, qp, kp, **kw)
         torch.cuda.synchronize()
-        exp = ref.flash_attention_ref(q, k, v, qp, kp, causal=True, **kw)
+        exp = ref.flash_attention_ref(q, k, v, qp, kp, **kw)
         assert out.shape == exp.shape and out.dtype == exp.dtype, name
         assert bool(torch.isfinite(out).all()), f"{name}: non-finite output"
         err = max_err(out, exp)
         atol = ATOL[str(dtype).split(".")[1]]
-        log(f"[kernel] flash_attention {name} {shape} {dtype}: max_abs_err {err!r} (atol {atol})")
+        log(f"[kernel] flash_attention {name} {shape} {dtype} causal {kw['causal']}: max_abs_err "
+            f"{err!r} (atol {atol})")
         assert err <= atol, f"{name}: max_abs_err {err} > {atol}"
         if edit == "masked_row":
             assert int(torch.count_nonzero(out[1, 7])) == 0, "fully masked row is not 0"
@@ -951,8 +989,8 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
     and against a second run of itself, bit for bit;
     then ``FlashAttentionFn`` (``ops.flash_attention`` on tensors that need a
     gradient) against autograd of the plain forward at smollm's train
-    shape.  Returns the max abs error of dq, dk, dv at smollm's train
-    shape, fp32."""
+    shape and hubert-xlarge's (bidirectional, hd 80).  Returns the max abs
+    error of dq, dk, dv at smollm's train shape, fp32."""
     from repro_torch.kernels import flash_attention as fa
     cases = [  # name, (B, Sq, Sk, H, K, hd), kwargs, edit
         ("smollm train", (8, 512, 512, 9, 3, 64), {}, None),
@@ -967,6 +1005,10 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
         ("tile edges S=77", (2, 77, 77, 4, 2, 64), {}, None),
         ("hd256 ragged", (2, 130, 170, 8, 1, 256), {}, None),
         ("unaligned q view", (2, 100, 100, 4, 2, 64), {}, "unaligned"),
+        ("hubert-xlarge train hd80 bidirectional", (8, 512, 512, 16, 16, 80), {"causal": False},
+         None),
+        ("hd80 ragged", (2, 77, 130, 4, 2, 80), {}, None),
+        ("hd80 ragged bidirectional", (2, 77, 130, 4, 2, 80), {"causal": False}, None),
     ]
     main_err = None
     for i, (name, shape, kw, edit) in enumerate(cases):
@@ -999,21 +1041,23 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
                 assert int(torch.count_nonzero(got[0][1, 7])) == 0, "masked row's dq is not 0"
             if i == 0 and dtype == torch.float32:
                 main_err = max(errs)
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, qp, kp = attention_inputs(torch, dev, 500, 8, 512, 512, 9, 3, 64, dtype)
-        dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(650),
-                           device=dev).to(dtype)
-        q, k, v = (x.requires_grad_() for x in (q, k, v))
-        ops.flash_attention(q, k, v, qp, kp).backward(dout)
-        # the plain forward in fp32 on the same values
-        qr, kr, vr = (x.detach().float().requires_grad_() for x in (q, k, v))
-        ref.flash_attention_ref(qr, kr, vr, qp, kp).backward(dout.float())
-        torch.cuda.synchronize()
-        rels = [normwise(a.grad, b.grad) for a, b in ((q, qr), (k, kr), (v, vr))]
-        tol = FN_TOL[str(dtype)[6:]]
-        log(f"[kernel] FlashAttentionFn smollm train {dtype} vs autograd of the plain forward "
-            f"(fp32): dq/dk/dv over max(1, max |g|) {rels} (tol {tol})")
-        assert max(rels) <= tol, f"FlashAttentionFn {dtype}: {rels} > {tol}"
+    for label, shape, causal in (("smollm train", (8, 512, 512, 9, 3, 64), True),
+                                 ("hubert-xlarge train", (8, 512, 512, 16, 16, 80), False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, qp, kp = attention_inputs(torch, dev, 500, *shape, dtype)
+            dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(650),
+                               device=dev).to(dtype)
+            q, k, v = (x.requires_grad_() for x in (q, k, v))
+            ops.flash_attention(q, k, v, qp, kp, causal=causal).backward(dout)
+            # the plain forward in fp32 on the same values
+            qr, kr, vr = (x.detach().float().requires_grad_() for x in (q, k, v))
+            ref.flash_attention_ref(qr, kr, vr, qp, kp, causal=causal).backward(dout.float())
+            torch.cuda.synchronize()
+            rels = [normwise(a.grad, b.grad) for a, b in ((q, qr), (k, kr), (v, vr))]
+            tol = FN_TOL[str(dtype)[6:]]
+            log(f"[kernel] FlashAttentionFn {label} {shape} causal {causal} {dtype} vs autograd "
+                f"of the plain forward (fp32): dq/dk/dv over max(1, max |g|) {rels} (tol {tol})")
+            assert max(rels) <= tol, f"FlashAttentionFn {label} {dtype}: {rels} > {tol}"
     return main_err
 
 
@@ -1726,8 +1770,8 @@ def train_traced(card, torch, ops, dev, cfg, tag: str) -> dict:
     held to ``expected_train_launches``; print the steady step time,
     tokens/s and peak memory; trace one warm step.  Returns the config
     trained (``device_model``'s), its losses, the launch counts, the
-    figures, the batches and the optimizer, with the trained state freed."""
-    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    figures, the batches and the optimizer, with the trained state freed.
+    An audio config's B x S are frames."""
     from repro_torch.launch import train as launch_train
     from repro_torch.models import param_count
     from repro_torch.train import adamw, linear_warmup_cosine, make_train_step
@@ -1746,17 +1790,18 @@ def train_traced(card, torch, ops, dev, cfg, tag: str) -> dict:
     log(f"[train] {tag}: kernel launches on the main path: {launches} ({TRAIN_R_STEPS} steps; "
         f"remat {cfg.remat}; expected {expect})")
     assert launches == expect, f"{cfg.arch_id} train: expected {expect} launches"
-    assert (cfg.attn_impl, cfg.kernel_impl) == ("pallas", "pallas")
+    assert cfg == launch_train.device_model(cfg, dev) and cfg.attn_impl == "pallas"
     assert len(res.losses) == TRAIN_R_STEPS and all(math.isfinite(x) for x in res.losses)
     steady = min(res.step_s[1:])
     n_params = param_count(res.state.params)
+    unit = "frames" if cfg.frontend == "audio_stub" else "tokens"
     log(f"[time] {tag} train step B={B} S={S} fp32, {n_params:,} parameters: first "
         f"{res.step_s[0]!r} s, steady (min of the other {TRAIN_R_STEPS - 1}) {steady!r} s "
-        f"(steps {res.step_s}), {B * S / steady!r} tokens/s, peak device memory "
+        f"(steps {res.step_s}), {B * S / steady!r} {unit}/s, peak device memory "
         f"{peak / 2**20:.1f} MiB {card}")
 
-    data = SyntheticLMDataset(DataConfig(global_batch=B, seq_len=S, vocab_size=cfg.vocab_size))
-    batches = [{k: torch.from_numpy(x).to(dev) for k, x in data.batch_at(i).items()}
+    batch_at = launch_train.batch_source(cfg, B, S)   # the batches launch.train drew
+    batches = [{k: torch.from_numpy(x).to(dev) for k, x in batch_at(i).items()}
                for i in range(TRAIN_R_STEPS)]
     opt = adamw(linear_warmup_cosine(3e-4, 10, TRAIN_R_STEPS))   # launch.train's defaults
     kstep, held = make_train_step(cfg, opt), {"state": res.state}
@@ -1774,7 +1819,7 @@ def train_traced(card, torch, ops, dev, cfg, tag: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"cfg": cfg, "losses": losses, "launches": launches, "batches": batches, "opt": opt,
-            "trace": traced, "figures": {"steady_step_s": steady, "tokens_per_s": B * S / steady,
+            "trace": traced, "figures": {"steady_step_s": steady, f"{unit}_per_s": B * S / steady,
                                          "peak_bytes": peak, "params": n_params}}
 
 
@@ -1970,6 +2015,88 @@ def run_train_moe(card, torch, ops, dev) -> dict:
             "loss_rel_err": max(loss_err), "layers": cfg.n_layers, "routing_flips": flips,
             "first_step_routing_flips": first_flips,
             "k4_bwd_trace_ms": None if k4_bwd is None else k4_bwd[0]}
+
+
+# Phase 3f: the audio family trained through ``launch.train`` at full width
+# and full depth, fp32, TRAIN_R_STEPS steps: hubert-xlarge (48 layers, d
+# 1280, 16 heads of 80, d_ff 5120, 504 units; 945,758,720 parameters, 26.5
+# GB with their gradients and AdamW's state at 28 B a parameter), B x S
+# frames a step of conv-feature stubs (``synthetic_batch``, seeded with the
+# step), its encoder bidirectional: 48 K1 forwards and 48 K1 backwards a
+# step, hd 80.  Kernel path against the plain path (``attn_impl="naive"``)
+# on the same weights and batches, as phase 3c holds recurrentgemma-9b: the
+# first step's gradient of every parameter, max |plain - kernel| over
+# max(1, max |kernel|), each step's loss on the plain path's own trajectory,
+# |plain - kernel| over max(1, |kernel|), and one ``forward_encode`` of the
+# first batch, its logits' max |plain - kernel| over max(1, max |kernel|).
+# Each limit is about 10x the largest reading on an H100: the first-step
+# gradients 2.40e-7 (the embedding table; the frontend's 9.0e-9), the losses
+# 7.36e-8, the logits 6.82e-6: 2.5e-6, 1e-6 and 7e-5.
+TRAIN_AUDIO = "hubert-xlarge"
+TRAIN_AUDIO_GRAD_TOL, TRAIN_AUDIO_LOSS_TOL, ENCODE_TOL = 2.5e-6, 1e-6, 7e-5
+
+
+def run_train_audio(card, torch, ops, dev) -> dict:
+    """Phase 3f: train ``TRAIN_AUDIO`` at full width and depth through
+    ``launch.train`` with every launch count set to 0 just before and read
+    just after; time it and trace one warm step; hold its first step's
+    gradients, its losses and one ``forward_encode`` against the plain
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_encode, forward_train, init_params
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = get_config(TRAIN_AUDIO)
+    run = train_traced(card, torch, ops, dev, cfg, TRAIN_AUDIO)
+    cfg, batches, opt, kernel_losses = run["cfg"], run["batches"], run["opt"], run["losses"]
+    assert cfg.encoder_only and cfg.hd == 80 and cfg.n_layers == 48
+    assert run["launches"]["flash_attention"] == run["launches"]["flash_attention_bwd"] == \
+        cfg.n_layers * TRAIN_R_STEPS
+
+    plain = dataclasses.replace(cfg, attn_impl="naive")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    with torch.no_grad():
+        enc = {tag: forward_encode(params, {"features": batches[0]["features"]}, c)
+               for tag, c in (("kernel", cfg), ("plain", plain))}
+    assert enc["kernel"].shape == (B, S, cfg.vocab_size)
+    assert bool(torch.isfinite(enc["kernel"]).all())
+    enc_err = normwise(enc["plain"], enc["kernel"])
+    log(f"[train] {TRAIN_AUDIO} forward_encode of the first batch, kernel path vs plain path: "
+        f"logits' max abs err over max(1, max |kernel|) {enc_err!r} (limit {ENCODE_TOL})")
+    assert enc_err <= ENCODE_TOL, f"{TRAIN_AUDIO} forward_encode: {enc_err} > {ENCODE_TOL}"
+    del enc
+
+    first = {tag: first_step_grads(torch, forward_train, params, batches[0], c)
+             for tag, c in (("kernel", cfg), ("plain", plain))}
+    rel = {n: normwise(first["plain"][1][n], g) for n, g in first["kernel"][1].items()}
+    worst = max(rel, key=rel.get)
+    grad_err, median = rel[worst], statistics.median(rel.values())
+    assert float(first["kernel"][1]["frontend.proj.weight"].abs().max()) > 0
+    log(f"[train] {TRAIN_AUDIO} first-step gradients, kernel path vs plain path, max abs err "
+        f"over max(1, max |g|): {grad_err!r} ({worst}; median over the {len(rel)} parameters "
+        f"{median!r}; the frontend's {rel['frontend.proj.weight']!r}); loss "
+        f"{first['kernel'][0]!r} vs {first['plain'][0]!r} (limit {TRAIN_AUDIO_GRAD_TOL})")
+    assert grad_err <= TRAIN_AUDIO_GRAD_TOL, \
+        f"{TRAIN_AUDIO} first-step gradient {worst}: {grad_err} > {TRAIN_AUDIO_GRAD_TOL}"
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step = make_train_step(plain, opt)
+    state = TrainState(params, opt.init(dict(params.named_parameters())), 0)
+    plain_losses = []
+    for b in batches:
+        state, metrics = step(state, b)
+        plain_losses.append(float(metrics["loss"]))
+    loss_err = [abs(p - k) / max(1.0, abs(k)) for p, k in zip(plain_losses, kernel_losses)]
+    log(f"[train] {TRAIN_AUDIO} losses, kernel path {kernel_losses}, plain path {plain_losses}; "
+        f"differences over max(1, |loss|) {loss_err} (limit {TRAIN_AUDIO_LOSS_TOL})")
+    assert max(loss_err) <= TRAIN_AUDIO_LOSS_TOL, f"{TRAIN_AUDIO} losses differ: {loss_err}"
+    del state, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"], **run["figures"], "grad_rel_err": grad_err,
+            "loss_rel_err": max(loss_err), "encode_rel_err": enc_err}
 
 
 def first_step_grads_f64(torch, forward_train, params, batch, cfg, noise_seed=None):
@@ -2861,7 +2988,8 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
              leaves):
     """Serve ``arch`` at full width with every launch count set to 0 just
     before and read just after; hold it against the plain path; time it and
-    trace it.  Returns the launch counts."""
+    trace it.  A VLM's prompt is its image prefix and S text tokens, and
+    its positions count the prefix.  Returns the launch counts."""
     cfg = get_config(arch)
     pattern = cfg.pattern_for_layers()
     n_attn = sum(t in ("attention", "local_attn") for t in pattern)
@@ -2902,11 +3030,13 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
         assert rel <= tol, f"{arch} {key}: max abs err {err} is {rel} of its scale > {tol}"
 
     plain = dataclasses.replace(res.cfg, attn_impl="naive", kernel_impl="jnp")
+    P = res.prefix
+    assert P == (cfg.n_prefix_embeds if cfg.frontend == "vision_stub" else 0)
     with patched(moe_mod, "_route", routing.forced) if routing else contextlib.nullcontext():
-        logits, caches = prefill(res.params, {"tokens": res.prompts}, plain, S + NEW)
+        logits, caches = prefill(res.params, res.inputs, plain, P + S + NEW)
         close("prefill_logits", logits, res.prefill_logits)
         for i in range(NEW - 1):
-            logits, caches = decode_step(res.params, caches, res.tokens[:, i], S + i, plain)
+            logits, caches = decode_step(res.params, caches, res.tokens[:, i], P + S + i, plain)
             close("decode_logits", logits, res.step_logits[i])
     if routing:
         routing.report(f"[serve] {arch}", serve_call(n_moe))
@@ -2926,16 +3056,17 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
     if "rwkv6" in pattern:
         wkv_precision(torch, res, prefill)
 
-    params, prompts, kcfg = res.params, res.prompts, res.cfg
+    params, prompts, inputs, kcfg = res.params, res.prompts, res.inputs, res.cfg
     pre = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill(params, {"tokens": prompts}, kcfg, S + NEW)
+        prefill(params, inputs, kcfg, P + S + NEW)
         torch.cuda.synchronize()
         pre.append(time.perf_counter() - t0)
-    log(f"[time] {arch} prefill {B}x{S} in serve (first call): {res.prefill_s!r} s {card}")
-    log(f"[time] {arch} prefill {B}x{S} warm, median of 3: {statistics.median(pre)!r} s "
+    prompt = f"{B}x{S}" if not P else f"{B}x({P} patches + {S} tokens)"
+    log(f"[time] {arch} prefill {prompt} in serve (first call): {res.prefill_s!r} s {card}")
+    log(f"[time] {arch} prefill {prompt} warm, median of 3: {statistics.median(pre)!r} s "
         f"(runs {pre}) {card}")
     log(f"[time] {arch} decode {NEW - 1} steps x batch {B}: {res.decode_s!r} s, "
         f"{B * (NEW - 1) / res.decode_s!r} tokens/s {card}")
@@ -2946,12 +3077,12 @@ def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_
             logits, caches = decode_step(params, caches, tok, first + i, kcfg)
             tok = logits.argmax(-1)
 
-    _, caches = prefill(params, {"tokens": prompts}, kcfg, S + NEW)
+    _, caches = prefill(params, inputs, kcfg, P + S + NEW)
     trace(f"{arch} prefill (warm)",
-          lambda: prefill(params, {"tokens": prompts}, kcfg, S + NEW), card, ops)
-    run_decode(caches, S)                                   # warm-up
+          lambda: prefill(params, inputs, kcfg, P + S + NEW), card, ops)
+    run_decode(caches, P + S)                               # warm-up
     trace(f"{arch} decode x{TRACE_DECODE_STEPS} (warm)",
-          lambda: run_decode(caches, S + TRACE_DECODE_STEPS), card, ops)
+          lambda: run_decode(caches, P + S + TRACE_DECODE_STEPS), card, ops)
     return launches
 
 
@@ -2974,16 +3105,19 @@ def time_pair(kernel_fn, plain_fn, iters_plain: int):
 
 
 # K1's timed shapes: label, (B, Sq, Sk, H, K, hd), window, seed (the phase-2
-# case of the same shape).  With S=512 recurrentgemma's window of 2048 masks
-# nothing beyond causal, so SDPA with is_causal computes the same function.
+# case of the same shape), causal.  With S=512 recurrentgemma's window of
+# 2048 masks nothing beyond causal, so SDPA with is_causal computes the same
+# function; hubert-xlarge's encoder attends both ways (SDPA with
+# is_causal=False, both bounds over all S^2 pairs).
 ATTN_SHAPES = (
-    ("smollm", (8, 512, 512, 9, 3, 64), None, 100),
-    ("granite-moe", (8, 512, 512, 24, 8, 64), None, 109),
-    ("recurrentgemma local_attn", (8, 512, 512, 16, 1, 256), 2048, 107),
+    ("smollm", (8, 512, 512, 9, 3, 64), None, 100, True),
+    ("granite-moe", (8, 512, 512, 24, 8, 64), None, 109, True),
+    ("recurrentgemma local_attn", (8, 512, 512, 16, 1, 256), 2048, 107, True),
+    ("hubert-xlarge", (8, 512, 512, 16, 16, 80), None, 119, False),
 )
 
 
-def time_attention(torch, dev, ops, ref, card, label, shape, window, seed) -> dict:
+def time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causal) -> dict:
     """K1 at one serving shape: fp32 kernel and plain version interleaved,
     the bf16 kernel, PyTorch's ``scaled_dot_product_attention`` on the same
     fp32 inputs (kv heads expanded beforehand, not timed) and the kernels it
@@ -2993,26 +3127,29 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed) -> di
     G = shape[3] // shape[4]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in
                   (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    plain = lambda: ref.flash_attention_ref(q, k, v, qp, kp, window=window)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    plain = lambda: ref.flash_attention_ref(q, k, v, qp, kp, causal=causal, window=window)
     lib_err = max_err(sdpa().transpose(1, 2), plain())
-    kms, pms, runs = time_pair(lambda: ops.flash_attention(q, k, v, qp, kp, window=window),
-                               plain, 20)
+    kms, pms, runs = time_pair(
+        lambda: ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window), plain, 20)
     library_ms = time_ms(sdpa)
     lib_kernels = [(name, n, ms / n) for name, n, ms in
                    device_kernels(torch, f"scaled_dot_product_attention {label}", sdpa)]
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-    bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp, window=window))
-    bound = attention_bound(q, k, v, qp, kp, window=window)
-    bound_bf16 = attention_bound(qb, kb, vb, qp, kp, window=window)
+    bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp, causal=causal,
+                                                  window=window))
+    bound = attention_bound(q, k, v, qp, kp, causal=causal, window=window)
+    bound_bf16 = attention_bound(qb, kb, vb, qp, kp, causal=causal, window=window)
     B, S, _, H, K, hd = shape
-    where = f"{label} B={B} S={S} H={H} K={K} hd={hd}" + (f" window {window}" if window else "")
+    where = f"{label} B={B} S={S} H={H} K={K} hd={hd}" + (f" window {window}" if window else "") \
+        + ("" if causal else " bidirectional")
     log(f"[time] flash_attention kernel fp32 {where}: {kms!r} ms {card} (runs {runs})")
     log(f"[time] flash_attention kernel bf16 {where}: {bf16_ms!r} ms {card}")
     log(f"[time] flash_attention plain version fp32 {where}: {pms!r} ms {card}")
     log(f"[time] torch scaled_dot_product_attention fp32 {where} (kv heads expanded "
-        f"beforehand; max_abs_err vs plain {lib_err!r}): {library_ms!r} ms {card}; its "
-        f"kernels (name, launches the profiler kept of 10, device ms a launch): {lib_kernels}")
+        f"beforehand, is_causal={causal}; max_abs_err vs plain {lib_err!r}): {library_ms!r} ms "
+        f"{card}; its kernels (name, launches the profiler kept of 10, device ms a launch): "
+        f"{lib_kernels}")
     log(f"[time] flash_attention bounds {where}: fp32 {bound[0]!r} ms by {bound[1]} on the "
         f"CUDA cores, {bound[4]!r} ms by {bound[5]} as 3xTF32 on the tensor cores; bf16 "
         f"{bound_bf16[4]!r} ms by {bound_bf16[5]} on the tensor cores ({bound[2]:.4g} flop, "
@@ -3023,7 +3160,8 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed) -> di
             "bf16_tensor_core_bound_ms": bound_bf16[4]}
 
 
-def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed) -> dict:
+def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed,
+                       causal) -> dict:
     """K1's backward at one of K1's shapes: the fp32 kernel and its plain
     version interleaved, the bf16 kernel, the backward of PyTorch's
     ``scaled_dot_product_attention`` on the same fp32 inputs (kv heads
@@ -3033,21 +3171,22 @@ def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed) -
     from repro_torch.kernels import flash_attention as fa
     B_, S_, _, H, K, hd = shape
     q, k, v, qp, kp = attention_inputs(torch, dev, seed, *shape, torch.float32)
-    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True, window=window)
+    mask = {"causal": causal, "window": window}
+    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True, **mask)
     dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(seed + 150),
                        device=dev)
-    kernel = lambda: ops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout, window=window)
-    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout, window=window)
+    kernel = lambda: ops.flash_attention_bwd(q, k, v, qp, kp, out, lse, dout, **mask)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, qp, kp, out, lse, dout, **mask)
     kms, pms, runs = time_pair(kernel, plain, 10)
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-    outb, lseb = fa.flash_attention_cuda(qb, kb, vb, qp, kp, return_lse=True, window=window)
+    outb, lseb = fa.flash_attention_cuda(qb, kb, vb, qp, kp, return_lse=True, **mask)
     doutb = dout.to(torch.bfloat16)
     bf16_ms = time_ms(lambda: ops.flash_attention_bwd(qb, kb, vb, qp, kp, outb, lseb, doutb,
-                                                      window=window))
+                                                      **mask))
     G = H // K
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in
                   (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = dout.transpose(1, 2).contiguous()
     sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
     gq, gk, gv = sdpa_bwd()
@@ -3058,14 +3197,16 @@ def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed) -
     lib_kernels = [(name, n, ms / n) for name, n, ms in
                    device_kernels(torch, f"scaled_dot_product_attention backward {label}", sdpa_bwd)
                    or []]
-    bound = attention_bwd_bound(q, k, v, qp, kp, window=window)
-    bound_bf16 = attention_bwd_bound(qb, kb, vb, qp, kp, window=window)
-    where = f"{label} B={B_} S={S_} H={H} K={K} hd={hd}" + (f" window {window}" if window else "")
+    bound = attention_bwd_bound(q, k, v, qp, kp, **mask)
+    bound_bf16 = attention_bwd_bound(qb, kb, vb, qp, kp, **mask)
+    where = f"{label} B={B_} S={S_} H={H} K={K} hd={hd}" + (f" window {window}" if window else "") \
+        + ("" if causal else " bidirectional")
     log(f"[time] flash_attention_bwd kernel fp32 {where}: {kms!r} ms {card} (runs {runs})")
     log(f"[time] flash_attention_bwd kernel bf16 {where}: {bf16_ms!r} ms {card}")
     log(f"[time] flash_attention_bwd plain version fp32 {where}: {pms!r} ms {card}")
     log(f"[time] torch scaled_dot_product_attention backward fp32 {where} (kv heads expanded "
-        f"beforehand; max normwise err vs plain {lib_err!r}): {library_ms!r} ms {card}; its "
+        f"beforehand, is_causal={causal}; max normwise err vs plain {lib_err!r}): "
+        f"{library_ms!r} ms {card}; its "
         f"kernels (name, launches the profiler kept of 10, device ms a launch): {lib_kernels}")
     log(f"[time] flash_attention_bwd bounds {where}: fp32 {bound[0]!r} ms by {bound[1]} on the "
         f"CUDA cores, {bound[4]!r} ms by {bound[5]} as 3xTF32 on the tensor cores; bf16 "
@@ -3309,8 +3450,8 @@ def main() -> int:
             f"-> {info.path.name}")
         for line in info.log.splitlines():
             log(f"[build]   {line}")
-    report_k1_build(torch, fa, _build._nvcc(), infos[KERNELS.index("flash_attention")].path,
-                    card)
+    k1_info = infos[KERNELS.index("flash_attention")]
+    report_k1_build(torch, fa, _build._nvcc(), k1_info.path, k1_info.log, card)
     k1b_info = infos[KERNELS.index("flash_attention_bwd")]
     report_k1_bwd_build(torch, fa, _build._nvcc(), k1b_info.path, k1b_info.log, card)
     k4_sass = router_sass(_build._nvcc(), infos[KERNELS.index("moe_router")].path)
@@ -3386,6 +3527,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 3f. train hubert-xlarge at full width and depth through K1 at hd 80 ---------------------
+    train_audio = run_train_audio(card, torch, ops, dev)
+    per_path[f"{TRAIN_AUDIO} train"] = train_audio["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 4 and 5. serve each model at full width, then its times -----------------------------------
     for arch in ARCHS:
         per_path[arch] = run_path(arch, card, torch, ops, serve, prefill, decode_step,
@@ -3396,13 +3543,13 @@ def main() -> int:
     # -- 5. kernel times at the serving and training shapes -----------------------------------
     f32, bf16 = torch.float32, torch.bfloat16
     times = {}
-    attn = {label: time_attention(torch, dev, ops, ref, card, label, shape, window, seed)
-            for label, shape, window, seed in ATTN_SHAPES}
+    attn = {label: time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causal)
+            for label, shape, window, seed, causal in ATTN_SHAPES}
     k1 = attn[ATTN_SHAPES[0][0]]
     times["flash_attention"] = (k1["ms"], k1["plain_ms"], k1["bound"], k1["library_ms"])
     attn_bwd = {label: time_attention_bwd(torch, dev, ops, ref, card, label, shape, window,
-                                          seed + 400)
-                for label, shape, window, seed in ATTN_SHAPES}
+                                          seed + 400, causal)
+                for label, shape, window, seed, causal in ATTN_SHAPES}
     k1b = attn_bwd[ATTN_SHAPES[0][0]]
     times["flash_attention_bwd"] = (k1b["ms"], k1b["plain_ms"], k1b["bound"], k1b["library_ms"])
 
@@ -3492,6 +3639,7 @@ def main() -> int:
         shapes={label: {key: val for key, val in r.items() if key != "bound"}
                 for label, r in attn_bwd.items()},
         train_step={key: val for key, val in train.items() if key != "launches"},
+        audio_train_step={key: val for key, val in train_audio.items() if key != "launches"},
         sweep={key: val for key, val in sweep.items() if key not in ("launches", "losses")},
         cluster_sweep={key: val for key, val in cluster.items() if key != "launches"})
     log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "

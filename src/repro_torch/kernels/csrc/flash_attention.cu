@@ -6,7 +6,7 @@
 // h / (H/K); the mask comes from position vectors (causal q_pos-k_pos >= 0,
 // window q_pos-k_pos < window, k_pos < 0 is an empty ring slot); optional
 // tanh softcap; scale 1/sqrt(hd); running max, sum and accumulator in fp32;
-// output in q's dtype; hd 64, 128 or 256; fp32 or bf16.  On request it also
+// output in q's dtype; hd 64, 80, 128 or 256; fp32 or bf16.  On request it also
 // writes each row's log-sum-exp of its scaled (and capped) scores, fp32
 // (B,H,Sq), +inf for a row with every key masked: the backward
 // (flash_attention_bwd.cu) recomputes the probabilities from it.  The output
@@ -56,9 +56,16 @@
 //   keys for 128-byte rows (bf16 hd 64), 16 for fp32 hd 256, else 32: fp32
 //   hd 64 then needs 52 KB and 128 registers, 4 blocks an SM; fp32 hd 256
 //   needs 195 KB (128x260 Q + 2 x 2 x 16x260 K/V), one 8-warp block an SM.
+//   hd 80 (hubert-xlarge: d_model 1280 over 16 heads) has rows of 320
+//   bytes (fp32) and 160 (bf16): 32-key tiles, 63 KB (fp32) and 33 KB
+//   (bf16) a block, and registers capped for 3 blocks an SM, as for
+//   256-byte rows; its 10 k-steps of 8 (fp32) or 5 of 16 (bf16) and 10
+//   output n-tiles (5 pairs for bf16's P V) need no padding to 128.
 //   Rows are padded by 16 bytes, so every fragment load of a warp hits 32
-//   distinct banks.  Strides or pointers that are not 16-byte multiples
-//   take a plain copy into the same tiles.
+//   distinct banks (at hd 80 row r of a tile starts at bank 20r mod 32 in
+//   fp32, 12r mod 32 in bf16: 8 rows, 8 distinct groups of 4 banks).
+//   Strides or pointers that are not 16-byte multiples take a plain copy
+//   into the same tiles.
 // - Key tiles that no query of the block may see (causal future, outside
 //   the window, empty slots, past Sk) are skipped before their copy is
 //   issued: one read of the key positions covers the next threads/keys
@@ -93,8 +100,9 @@ struct Cfg {
   // 16 for the wide blocks, which fit 195 KB.
   static constexpr int BK = WIDE ? 16 : sizeof(T) * HD <= 128 ? 64 : 32;
   // Blocks an SM that ptxas must leave registers for (256-byte rows: 3, so up
-  // to 168 registers a thread, which it uses for more loads in flight).
-  static constexpr int MINB = sizeof(T) * HD == 256 ? 3 : 1;
+  // to 168 registers a thread, which it uses for more loads in flight; hd 80
+  // likewise, where shared memory alone allows 3 fp32 blocks).
+  static constexpr int MINB = sizeof(T) * HD == 256 || HD == 80 ? 3 : 1;
   static constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // elements per 16 B
   static constexpr int LD = HD + EPC;                          // padded row stride
   static constexpr size_t SMEM =
@@ -299,6 +307,7 @@ template <typename T>
 cudaError_t dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
     case 64: return launch<T, 64>(p, B, stream);
+    case 80: return launch<T, 80>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
     case 256: return launch<T, 256>(p, B, stream);
     default: return cudaErrorInvalidValue;
@@ -369,6 +378,8 @@ extern "C" int flash_attention_tiles(int dtype, int hd, int* block_keys, int* sm
   switch (hd) {
     case 64: return f32 ? tiles<float, 64>(block_keys, smem_bytes, blocks_per_sm)
                         : tiles<__nv_bfloat16, 64>(block_keys, smem_bytes, blocks_per_sm);
+    case 80: return f32 ? tiles<float, 80>(block_keys, smem_bytes, blocks_per_sm)
+                        : tiles<__nv_bfloat16, 80>(block_keys, smem_bytes, blocks_per_sm);
     case 128: return f32 ? tiles<float, 128>(block_keys, smem_bytes, blocks_per_sm)
                          : tiles<__nv_bfloat16, 128>(block_keys, smem_bytes, blocks_per_sm);
     case 256: return f32 ? tiles<float, 256>(block_keys, smem_bytes, blocks_per_sm)

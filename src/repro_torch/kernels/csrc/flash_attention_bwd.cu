@@ -7,7 +7,7 @@
 // (B,Sq,H,hd), k/v (B,Sk,K,hd) and dO (B,Sq,H,hd) read through their
 // (batch, sequence, head) strides with a contiguous last axis; GQA head h
 // reads kv head h / (H/K); the mask from positions (causal, window,
-// k_pos < 0), optional tanh softcap, scale 1/sqrt(hd); hd 64, 128 or 256;
+// k_pos < 0), optional tanh softcap, scale 1/sqrt(hd); hd 64, 80, 128 or 256;
 // fp32 or bf16 in, fp32 sums, gradients in the input dtype.  With
 // x = softcap(scale * q.k) and the forward's log-sum-exp L (fp32 (B,H,Sq),
 // +inf for a row with every key masked):
@@ -63,14 +63,18 @@
 // - hd 128 and 256: a warp's 16 rows of dQ (dK, dV) at 64 columns per
 //   warp keep the accumulators at 64 (128) registers, so hd/64 warps share
 //   16 rows and a block owns 32 (16) rows, each warp summing its own 64
-//   columns of the gradients.  At hd 256 each of the 4 computes S and dP
+//   columns of the gradients.  hd 80 is not a multiple of 64: one warp owns
+//   its 16 rows and all 80 columns (10 accumulator n-tiles), as at hd 64,
+//   and a block owns 64 rows.  At hd 256 each of the 4 computes S and dP
 //   over its own 64 dims and they add the partial products through shared
 //   memory in a fixed order (add_partials): fp32 5.83 -> 3.45 ms on an
 //   H100 against each computing all of S and dP.  At hd 128 both compute
 //   all of S and dP.
 // - Occupancy.  The dkdv kernel's streamed tiles shrink with a row's bytes
-//   (64 rows of up to 256 bytes, 32 of 512, 16 of 1 KB), which keeps its
-//   shared memory near 100 KB.  The dq kernel streams one product's keys a
+//   (64 rows of up to 256 bytes, 32 of up to 512, 16 of 1 KB), which keeps
+//   its shared memory near 100 KB (fp32 hd 80: 32 rows of 320 bytes, one
+//   product a tile, 4 warps and 85 KB a block, 2 blocks an SM).  The dq
+//   kernel streams one product's keys a
 //   tile (32; 16 of 1 KB rows), which leaves room for three blocks an SM
 //   where rows are 256 bytes or less (fp32 hd 64, bf16 hd 64 and 128):
 //   its grid is large, so warps an SM, not the longest block, set its time.
@@ -96,10 +100,14 @@ constexpr int NT = 32 * NW;      // threads a dq block
 
 template <typename T, int HD>
 struct Cfg {
-  static constexpr int DS = HD / 64;          // warps that share 16 rows, 64 gradient columns each
+  // warps that share 16 rows, CW gradient columns each: 64 where hd is a
+  // multiple of 64, else (hd 80) one warp with all hd
+  static constexpr int DS = HD % 64 == 0 ? HD / 64 : 1;
+  static constexpr int CW = HD / DS;
+  static constexpr int ND = CW / 8;           // the warp's accumulator n-tiles of a gradient
   static constexpr int ROWS = 16 * NW / DS;   // rows a block owns: queries (dq), keys (dkdv)
   static constexpr int RB = static_cast<int>(sizeof(T)) * HD;   // bytes a row
-  static constexpr int BS = RB <= 256 ? 64 : RB == 512 ? 32 : 16;   // rows a streamed tile
+  static constexpr int BS = RB <= 256 ? 64 : RB <= 512 ? 32 : 16;   // rows a streamed tile
   static constexpr int CH = BS < 32 ? BS : 32;                      // streamed rows a product
   // dkdv: each of the QS chunks of a streamed tile has its own NW warps
   static constexpr int QS = BS / CH;
@@ -258,7 +266,7 @@ __global__ void __launch_bounds__(NT, Cfg<T, HD>::MINB_DQ)
   const int nq = min(ROWS, p.Sq - q0);
   const int kh = h / (p.H / p.K);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int rw = warp / C::DS, cp = warp % C::DS;   // the warp's 16 rows, its 64 columns of dQ
+  const int rw = warp / C::DS, cp = warp % C::DS;   // the warp's 16 rows, its CW columns of dQ
   const int kd0 = C::SHARE ? cp * C::KD : 0;          // and its first dim of S and dP
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
@@ -318,9 +326,10 @@ __global__ void __launch_bounds__(NT, Cfg<T, HD>::MINB_DQ)
   const T* ka = Ks + ((mi >> 1) * 8 + (lane & 7)) * LD + (mi & 1) * C::EPC;
   const T* va = ka + STAGES * BK * LD;
 
-  float dq[8][4];
+  constexpr int ND = C::ND;
+  float dq[ND][4];
 #pragma unroll
-  for (int d = 0; d < 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+  for (int d = 0; d < ND; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
 
   int st = 0;
   bool full = false;   // next_tile's; the mask is applied to every tile
@@ -356,9 +365,9 @@ __global__ void __launch_bounds__(NT, Cfg<T, HD>::MINB_DQ)
     if constexpr (C::SHARE) add_partials<C::DS, BK / 8>(s, dp, xbuf, warp, cp, lane, warp_rows);
     if (warp_rows) {
       // This tile's share of dQ, summed apart and then added.
-      float tq[8][4];
+      float tq[ND][4];
 #pragma unroll
-      for (int d = 0; d < 8; ++d) tq[d][0] = tq[d][1] = tq[d][2] = tq[d][3] = 0.f;
+      for (int d = 0; d < ND; ++d) tq[d][0] = tq[d][1] = tq[d][2] = tq[d][3] = 0.f;
       {
 #pragma unroll
         for (int n = 0; n < BK / 8; ++n) {
@@ -370,10 +379,10 @@ __global__ void __launch_bounds__(NT, Cfg<T, HD>::MINB_DQ)
                       lse[i], Dr[i]);
           }
         }
-        accumulate<64, BK, LD>(tq, dp, Ks + off + cp * 64, lane);   // dQ += dS K
+        accumulate<C::CW, BK, LD>(tq, dp, Ks + off + cp * C::CW, lane);   // dQ += dS K
       }
 #pragma unroll
-      for (int d = 0; d < 8; ++d)
+      for (int d = 0; d < ND; ++d)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dq[d][e] += tq[d][e];
     }
@@ -387,9 +396,9 @@ __global__ void __launch_bounds__(NT, Cfg<T, HD>::MINB_DQ)
     const int r = r0 + 8 * i;
     if (r >= nq) continue;
     T* dst = static_cast<T*>(p.dq) + ((long long)(b * p.Sq + q0 + r) * p.H + h) * HD +
-             cp * 64 + 2 * t;
+             cp * C::CW + 2 * t;
 #pragma unroll
-    for (int d = 0; d < 8; ++d) store2(dst + d * 8, dq[d][2 * i], dq[d][2 * i + 1]);
+    for (int d = 0; d < ND; ++d) store2(dst + d * 8, dq[d][2 * i], dq[d][2 * i + 1]);
   }
 }
 
@@ -415,7 +424,7 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NTK, 256 / Cfg<T, HD>::NTK)
   const int G = p.H / p.K;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int qc = warp / NW;                                   // its chunk of each tile
-  const int rw = warp % NW / C::DS, cp = warp % NW % C::DS;   // its 16 keys, its 64 columns
+  const int rw = warp % NW / C::DS, cp = warp % NW % C::DS;   // its 16 keys, its CW columns
   const int kd0 = C::SHARE ? cp * C::KD : 0;                  // its first dim of S and dP
   const int* qpos = p.q_pos + (long long)b * p.Sq;
   const int* kpos = p.k_pos + (long long)b * p.Sk + k0;
@@ -469,9 +478,10 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NTK, 256 / Cfg<T, HD>::NTK)
     }
   };
 
-  float dk[8][4], dv[8][4];
+  constexpr int ND = C::ND;
+  float dk[ND][4], dv[ND][4];
 #pragma unroll
-  for (int d = 0; d < 8; ++d)
+  for (int d = 0; d < ND; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
 
@@ -513,9 +523,9 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NTK, 256 / Cfg<T, HD>::NTK)
       const float* ls = lse_s + st * BQ;
       const float* Ds = D_s + st * BQ;
       // This chunk's share of dK and dV, summed apart and then added.
-      float tk[8][4], tv[8][4];
+      float tk[ND][4], tv[ND][4];
 #pragma unroll
-      for (int d = 0; d < 8; ++d)
+      for (int d = 0; d < ND; ++d)
 #pragma unroll
         for (int e = 0; e < 4; ++e) tk[d][e] = tv[d][e] = 0.f;
       {
@@ -532,11 +542,11 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NTK, 256 / Cfg<T, HD>::NTK)
             prob_grad(p, s[n][e], dp[n][e], ok, odd ? l2.y : l2.x, odd ? d2.y : d2.x);
           }
         }
-        accumulate<64, CH, LD>(tv, s, dOs + off + cp * 64, lane);   // dV += P^T dO
-        accumulate<64, CH, LD>(tk, dp, Qs + off + cp * 64, lane);   // dK += dS^T Q
+        accumulate<C::CW, CH, LD>(tv, s, dOs + off + cp * C::CW, lane);   // dV += P^T dO
+        accumulate<C::CW, CH, LD>(tk, dp, Qs + off + cp * C::CW, lane);   // dK += dS^T Q
       }
 #pragma unroll
-      for (int d = 0; d < 8; ++d)
+      for (int d = 0; d < ND; ++d)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           dk[d][e] += tk[d][e];
@@ -552,27 +562,28 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NTK, 256 / Cfg<T, HD>::NTK)
   if constexpr (C::QS > 1) {
     // The chunks' sums, added in chunk order through the ring's memory.
     static_assert(C::QS == 2, "two chunks a tile");
-    static_assert(2 * STAGES * BQ * LD * sizeof(T) >= NW * 64 * 32 * sizeof(float),
+    constexpr int SUMS = 2 * ND * 4;   // dK's and dV's floats a lane
+    static_assert(2 * STAGES * BQ * LD * sizeof(T) >= NW * SUMS * 32 * sizeof(float),
                   "the ring holds a chunk's sums");
-    float* red = reinterpret_cast<float*>(Qs) + (warp % NW) * 64 * 32 + lane;
+    float* red = reinterpret_cast<float*>(Qs) + (warp % NW) * SUMS * 32 + lane;
     __syncthreads();   // the ring is read no more
     if (qc == 1) {
 #pragma unroll
-      for (int d = 0; d < 8; ++d)
+      for (int d = 0; d < ND; ++d)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           red[(d * 4 + e) * 32] = dk[d][e];
-          red[(32 + d * 4 + e) * 32] = dv[d][e];
+          red[(ND * 4 + d * 4 + e) * 32] = dv[d][e];
         }
     }
     __syncthreads();
     if (qc == 1) return;
 #pragma unroll
-    for (int d = 0; d < 8; ++d)
+    for (int d = 0; d < ND; ++d)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         dk[d][e] += red[(d * 4 + e) * 32];
-        dv[d][e] += red[(32 + d * 4 + e) * 32];
+        dv[d][e] += red[(ND * 4 + d * 4 + e) * 32];
       }
   }
 
@@ -581,11 +592,11 @@ __global__ void __launch_bounds__(Cfg<T, HD>::NTK, 256 / Cfg<T, HD>::NTK)
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     if (r >= nk) continue;
-    const long long off = ((long long)(b * p.Sk + k0 + r) * p.K + kh) * HD + cp * 64 + 2 * t;
+    const long long off = ((long long)(b * p.Sk + k0 + r) * p.K + kh) * HD + cp * C::CW + 2 * t;
     T* dkp = static_cast<T*>(p.dk) + off;
     T* dvp = static_cast<T*>(p.dv) + off;
 #pragma unroll
-    for (int d = 0; d < 8; ++d) {
+    for (int d = 0; d < ND; ++d) {
       store2(dkp + d * 8, dk[d][2 * i], dk[d][2 * i + 1]);
       store2(dvp + d * 8, dv[d][2 * i], dv[d][2 * i + 1]);
     }
@@ -623,6 +634,7 @@ template <typename T>
 cudaError_t dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
     case 64: return launch<T, 64>(p, B, stream);
+    case 80: return launch<T, 80>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
     case 256: return launch<T, 256>(p, B, stream);
     default: return cudaErrorInvalidValue;
@@ -702,6 +714,7 @@ extern "C" int flash_attention_bwd_tiles(int dtype, int hd, int* out) {
   const bool f32 = dtype == 0;
   switch (hd) {
     case 64: return f32 ? tiles<float, 64>(out) : tiles<__nv_bfloat16, 64>(out);
+    case 80: return f32 ? tiles<float, 80>(out) : tiles<__nv_bfloat16, 80>(out);
     case 128: return f32 ? tiles<float, 128>(out) : tiles<__nv_bfloat16, 128>(out);
     case 256: return f32 ? tiles<float, 256>(out) : tiles<__nv_bfloat16, 256>(out);
     default: return cudaErrorInvalidValue;

@@ -22,7 +22,7 @@ __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "FlashAttentionFn
            "tile_config", "bwd_tile_config", "HEAD_DIMS", "DTYPES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 _INT_MAX = 2**31 - 1
 
 

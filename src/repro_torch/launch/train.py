@@ -7,7 +7,9 @@
 
 Counterpart of ``repro.launch.train``, with the same flags plus ``--device``
 (default ``cuda``; with no card it raises).  AdamW under a linear-warmup
-cosine schedule, on the synthetic LM stream of ``data/pipeline.py``.  On the
+cosine schedule, on the synthetic LM stream of ``data/pipeline.py`` (for a
+config with a frontend, ``synthetic_batch``'s frames or image prefix and
+text, seeded with the step, as JAX draws them).  On the
 card (``device_model``) attention runs the CUDA flash-attention kernel,
 forward and backward (``attn_impl="pallas"``, as ``launch/serve.py`` sets
 it), and so do the RWKV-6 and RG-LRU scans of the ssm and hybrid families
@@ -24,13 +26,14 @@ import contextlib
 import dataclasses
 import json
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..configs import get_config, list_archs
-from ..data.pipeline import DataConfig, SyntheticLMDataset
+from ..data.pipeline import DataConfig, SyntheticLMDataset, synthetic_batch
 from ..models import ModelConfig, param_count
 from ..train import TrainState, adamw, linear_warmup_cosine, make_train_state, make_train_step
 
@@ -60,25 +63,34 @@ def device_model(cfg: ModelConfig, dev: torch.device) -> ModelConfig:
     return dataclasses.replace(cfg, attn_impl="pallas", kernel_impl=kernel_impl)
 
 
+def batch_source(cfg: ModelConfig, batch: int,
+                 seq_len: int) -> Callable[[int], Dict[str, np.ndarray]]:
+    """Step i's batch as JAX's ``launch.train`` draws it: the synthetic LM
+    stream, or for a config with a frontend ``synthetic_batch`` seeded with
+    i (``seq_len`` frames; for a VLM the image prefix and the text after it
+    together)."""
+    if cfg.frontend is None:
+        data = SyntheticLMDataset(DataConfig(global_batch=batch, seq_len=seq_len,
+                                             vocab_size=cfg.vocab_size))
+        return data.batch_at
+    return lambda i: synthetic_batch(cfg, batch, seq_len, seed=i)
+
+
 def train(cfg: ModelConfig, steps: int, batch: int, seq_len: int, lr: float = 3e-4,
           warmup: int = 10, device="cuda", log_every: int = 10,
           out: Optional[str] = None) -> TrainResult:
     dev = resolve_device(device)
     cfg = device_model(cfg, dev)
-    if cfg.frontend is not None:
-        raise SystemExit(f"{cfg.arch_id}: the {cfg.frontend} frontend is not yet ported "
-                         "to repro_torch (see ROADMAP.md, Queue 1)")
     opt = adamw(linear_warmup_cosine(lr, warmup, steps))
     state = make_train_state(torch.Generator(device=dev).manual_seed(0), cfg, opt, dev)
     step = make_train_step(cfg, opt)
     print(f"[train] {cfg.arch_id}: {param_count(state.params):,} params on {dev}")
-    data = SyntheticLMDataset(DataConfig(global_batch=batch, seq_len=seq_len,
-                                         vocab_size=cfg.vocab_size))
+    batch_at = batch_source(cfg, batch, seq_len)
     losses, step_s = [], []
     t0 = time.time()
     with open(out, "w") if out else contextlib.nullcontext() as out_f:
         for i in range(steps):
-            b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(i).items()}
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(i).items()}
             _sync(dev)
             s0 = time.perf_counter()
             state, metrics = step(state, b)

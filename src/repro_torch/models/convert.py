@@ -14,7 +14,8 @@ differ:
   the module, not the leaf's name (rglru's ``w_gate`` and rwkv6's ``w_r``
   are ``nn.Linear``s, rwkv6's ``maa_w2`` and rglru's ``conv_w`` are plain
   parameters in JAX's layout), so that a square matrix is never loaded
-  untransposed where a shape check could not tell.
+  untransposed where a shape check could not tell.  The stub frontend's
+  ``frontend.proj`` is such an ``nn.Linear``.
 - JAX's separate biases (``bq``, ``b_in``, ...) become the bias of the
   ``nn.Linear`` they add to.
 

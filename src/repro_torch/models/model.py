@@ -1,19 +1,26 @@
-"""Model entry points: init / train forward / prefill / decode for the
-dense, MoE, SSM (rwkv6) and hybrid (RG-LRU + local attention) families.
+"""Model entry points: init / train forward / encode / prefill / decode for
+every family.
 
 Counterpart of ``repro.models.model``.  ``init_params`` returns an ``LM``
 module whose children carry the JAX tree's top-level names (``embed``,
-``stack``, ``final_norm``, ``lm_head``); ``forward_train``, ``prefill`` and
-``decode_step`` are functions over it, as in JAX.  ``prefill`` and
-``decode_step`` run without autograd and drop the stack's MoE aux loss as
-JAX's do; ``forward_train`` keeps the graph for the backward.  The modality frontends raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``stack``, ``final_norm``, ``lm_head``, ``frontend``); ``forward_train``,
+``forward_encode``, ``prefill`` and ``decode_step`` are functions over it,
+as in JAX.  ``prefill`` and ``decode_step`` run without autograd and drop
+the stack's MoE aux loss as JAX's do; ``forward_train`` and
+``forward_encode`` keep the graph for a backward.
+
+Modality frontends are stubs, as in JAX: ``audio_stub`` consumes
+precomputed conv-feature frames (B, S, frontend_dim) through a linear
+projection; ``vision_stub`` consumes precomputed patch embeddings
+(B, P, frontend_dim) through a projector, prepended to the text token
+embeddings (PaliGemma's prefix-LM layout).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
@@ -21,11 +28,14 @@ from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
 
-def _check_ported(cfg: ModelConfig) -> None:
-    # The audio and vision frontends would otherwise be dropped silently.
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.arch_id}: the {cfg.frontend} frontend is not "
-                                  "ported yet (ROADMAP Queue 1, 'Frontends and arch smoke')")
+class Frontend(nn.Module):
+    """JAX's ``params["frontend"]``: the stub frontend's projection
+    ``proj``, frontend_dim -> d_model, drawn as ``_dense_init`` draws it
+    (std 1/sqrt(frontend_dim))."""
+
+    def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator], device):
+        super().__init__()
+        self.proj = L._linear(cfg.frontend_dim, cfg.d_model, cfg, generator, device)
 
 
 class LM(nn.Module):
@@ -37,6 +47,8 @@ class LM(nn.Module):
         self.stack = T.init_stack(generator, cfg, device)
         self.final_norm = L.Norm(cfg.d_model, cfg, device)
         self.lm_head = L.init_lm_head(cfg, generator, device)
+        # drawn last, so that the other weights of a config draw as without it
+        self.frontend = Frontend(cfg, generator, device) if cfg.frontend else None
 
 
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -44,12 +56,32 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
     """Random weights from ``generator``, drawn on its device and placed on
     ``device``.  ``generator=None`` leaves them uninitialised (``convert.py``
     loads them)."""
-    _check_ported(cfg)
     return LM(cfg, generator, resolve_device(device))
 
 
 def param_count(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+# -- input embedding ---------------------------------------------------------------
+
+def _embed_inputs(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, d_model) in the activation dtype: the projected frames
+    (``audio_stub``), the projected patches followed by the token embeddings
+    (``vision_stub``), or the token embeddings."""
+    adt = L._dtype(cfg.activation_dtype)
+    if cfg.frontend == "audio_stub":
+        return F.linear(batch["features"].to(adt), params.frontend.proj.weight.to(adt))
+    x = params.embed.embed_tokens(batch["tokens"], cfg)
+    if cfg.frontend == "vision_stub":
+        img = F.linear(batch["patch_embeds"].to(adt), params.frontend.proj.weight.to(adt))
+        x = torch.cat([img, x], dim=1)
+    return x
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    return torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
 
 def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -75,13 +107,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def forward_train(params: LM, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (total_loss, metrics).  batch needs "tokens" and "labels"
-    (and optional "loss_mask"); the graph is kept for the backward."""
-    _check_ported(cfg)
-    x = params.embed.embed_tokens(batch["tokens"], cfg)
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    x, _, aux = T.apply_stack(params.stack, cfg, x, positions, None, mode="train")
+    """Returns (total_loss, metrics).  batch needs family-appropriate inputs
+    plus "labels" (and optional "loss_mask"); the graph is kept for the
+    backward.  For ``vision_stub`` the loss covers the text after the image
+    prefix: its P positions are dropped before the final norm and the head,
+    which act on each position alone, so the logits are JAX's
+    ``logits[:, P:]`` without computing the rest."""
+    x = _embed_inputs(params, batch, cfg)
+    x, _, aux = T.apply_stack(params.stack, cfg, x, _positions(x), None, mode="train")
+    if cfg.frontend == "vision_stub":
+        x = x[:, batch["patch_embeds"].shape[1]:]
     logits = _logits(params, x, cfg)
     ce, acc = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
@@ -89,25 +124,33 @@ def forward_train(params: LM, batch: Dict[str, torch.Tensor],
     return loss, {"loss": ce, "aux_loss": aux, "accuracy": acc}
 
 
+def forward_encode(params: LM, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-only / no-cache forward over the whole sequence (``mode=
+    "train"``), returning the full logits (B, S, V); the graph is kept
+    unless the caller turns autograd off."""
+    x = _embed_inputs(params, batch, cfg)
+    x, _, _ = T.apply_stack(params.stack, cfg, x, _positions(x), None, mode="train")
+    return _logits(params, x, cfg)
+
+
 @torch.no_grad()
 def prefill(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             max_len: int) -> Tuple[torch.Tensor, List[Any]]:
     """Process a prompt, fill caches sized ``max_len``; return (last-token
-    logits (B, V), caches)."""
-    tokens = batch["tokens"]
-    x = params.embed.embed_tokens(tokens, cfg)
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    caches = T.init_caches(cfg, B, max_len, x.device)
-    x, caches, _ = T.apply_stack(params.stack, cfg, x, positions, caches, mode="prefill")
+    logits (B, V), caches).  A VLM prompt is its image prefix
+    ("patch_embeds") followed by its "tokens"; ``max_len`` counts both."""
+    x = _embed_inputs(params, batch, cfg)
+    caches = T.init_caches(cfg, x.shape[0], max_len, x.device)
+    x, caches, _ = T.apply_stack(params.stack, cfg, x, _positions(x), caches, mode="prefill")
     return _logits(params, x[:, -1:], cfg)[:, 0], caches
 
 
 @torch.no_grad()
 def decode_step(params: LM, caches: List[Any], tokens: torch.Tensor, pos: int,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, List[Any]]:
-    """One synchronized decode step.  tokens (B,) int, pos the step's position.
-    Returns (logits (B, V), caches updated in place)."""
+    """One synchronized decode step.  tokens (B,) int, pos the step's position
+    (after a VLM prompt it counts the image prefix).  Returns (logits (B, V), caches updated in place)."""
     x = params.embed.embed_tokens(tokens[:, None], cfg)
     B = x.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.int32, device=x.device)

@@ -457,6 +457,24 @@ def test_chip_smoke_bound_counts_only_allowed_pairs(window, holes):
                                            nbytes_b / smoke.PEAK_HBM_BYTES))
 
 
+@pytest.mark.parametrize("holes", [False, True])
+def test_chip_smoke_bounds_count_every_pair_without_a_causal_mask(holes):
+    """Bidirectional attention (hubert-xlarge's encoder): both bounds count
+    every (query, key) pair of a key in use, S^2 a head when none is empty."""
+    smoke = _load_chip_smoke()
+    B, S, H, K, hd = 2, 16, 3, 1, 80
+    q, k, v = (torch.from_numpy(a) for a in _inputs(7, B, S, S, H, K, hd))
+    qp, kp = (torch.from_numpy(a) for a in _positions(B, S, S))
+    if holes:
+        kp[:, 3:7] = -1
+    pairs = S * (S - 4 if holes else S)
+    assert smoke.allowed_pairs(qp, kp, causal=False) == B * pairs
+    fwd = smoke.attention_bound(q, k, v, qp, kp, causal=False)
+    bwd = smoke.attention_bwd_bound(q, k, v, qp, kp, causal=False)
+    assert (fwd[2], bwd[2]) == (4 * hd * H * B * pairs, 10 * hd * H * B * pairs)
+    assert smoke.attention_bound(q, k, v, qp, kp)[2] < fwd[2]
+
+
 def test_chip_smoke_device_time_survives_dropped_profiler_records():
     """Late in a long run torch.profiler keeps only some kernel records;
     chip_smoke's per-call device time averages over the launches it kept."""
@@ -716,6 +734,9 @@ _EMULATION_CASES = {  # name: (B, Sq, Sk, H, K, hd), kwargs, edit
     "chunked offset queries": ((2, 40, 100, 4, 2, 64), {}, "offset"),
     "causal hd256 MQA": ((1, 70, 70, 4, 1, 256), {}, None),
     "non-causal hd128": ((1, 50, 60, 2, 1, 128), {"causal": False}, None),
+    # hubert-xlarge's head size (d_model 1280 over 16 heads), off the tiles
+    "causal hd80": ((2, 70, 70, 4, 2, 80), {}, None),
+    "bidirectional hd80": ((2, 45, 77, 4, 4, 80), {"causal": False}, None),
 }
 
 
@@ -786,7 +807,8 @@ def test_emulated_fully_masked_row_is_zero():
 # sums are added at the end.  fp32: every product 3xTF32.  bf16: S and dP exact bf16
 # products with fp32 sums; P and dS split into bf16 hi + lo against the
 # bf16 dO, Q and K.  The dkdv kernel's streamed tiles hold 64 rows of up
-# to 256 bytes, 32 of 512 and 16 of 1 KB (Cfg::BS), its products 32 rows.  The limits are the card's: normwise 1e-5
+# to 256 bytes, 32 of up to 512 (fp32 hd 80's 320) and 16 of 1 KB
+# (Cfg::BS), its products 32 rows.  The limits are the card's: normwise 1e-5
 # fp32 and 1.5e-2 bf16 (BWD_TOL).
 
 _BWD_EMULATION_CASES = {**_EMULATION_CASES, "MQA G=16 hd64": ((1, 48, 64, 16, 1, 64), {}, None)}
@@ -794,7 +816,7 @@ _BWD_EMULATION_CASES = {**_EMULATION_CASES, "MQA G=16 hd64": ((1, 48, 64, 16, 1,
 
 def _bwd_tile(hd, dtype):
     row_bytes = hd * (4 if dtype == torch.float32 else 2)
-    return 64 if row_bytes <= 256 else 32 if row_bytes == 512 else 16
+    return 64 if row_bytes <= 256 else 32 if row_bytes <= 512 else 16
 
 
 def _emulate_bwd(q, k, v, qp, kp, out, lse, dout, causal=True, window=None, softcap=None,
@@ -944,6 +966,8 @@ def cuda_device():
     (2, 96, 160, 4, 1, 64, None, None),      # odd lengths, MQA
     (2, 200, 200, 4, 2, 128, 48, 30.0),      # window + softcap
     (2, 130, 130, 8, 1, 256, None, None),    # gemma-2b widths, MQA
+    (8, 512, 512, 16, 16, 80, None, None),   # hubert-xlarge widths (causal here)
+    (2, 77, 130, 4, 2, 80, None, None),      # hd 80, ragged
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version_on_card(cuda_device, B, Sq, Sk, H, K, hd,
@@ -1042,6 +1066,8 @@ def _normwise_t(a, b) -> float:
     (2, 64, 256, 4, 2, 64, None, None, "holes"),     # empty key slots
     (2, 128, 128, 9, 3, 64, None, None, "masked"),   # a fully masked row
     (2, 100, 100, 4, 2, 64, None, None, "unaligned"),  # q a view off 16 bytes
+    (8, 512, 512, 16, 16, 80, None, None, "bidirectional"),  # hubert-xlarge train
+    (2, 77, 130, 4, 2, 80, None, None, None),        # hd 80, ragged
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_matches_plain_version_on_card(cuda_device, B, Sq, Sk, H, K, hd, window,
@@ -1056,7 +1082,7 @@ def test_backward_matches_plain_version_on_card(cuda_device, B, Sq, Sk, H, K, hd
         qp[1, 7] = -1
     if edit == "unaligned":
         q = torch.nn.functional.pad(q, (1, 0))[..., 1:]
-    kw = dict(window=window, softcap=softcap)
+    kw = dict(causal=edit != "bidirectional", window=window, softcap=softcap)
     out, lse = pfa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True, **kw)
     assert torch.equal(out, pfa.flash_attention_cuda(q, k, v, qp, kp, **kw))
     _, lse_ref = pref.flash_attention_ref(q, k, v, qp, kp, return_lse=True, **kw)
@@ -1111,8 +1137,8 @@ def test_flash_attention_fn_matches_autograd_of_plain_on_card(cuda_device, dtype
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_tile_config_fits_the_card(cuda_device, dtype, hd):
     cfg = pfa.bwd_tile_config(getattr(torch, dtype), hd)
-    # 16 rows a warp, hd/64 warps of four sharing them
-    assert cfg["block_rows"] == 64 * 64 // hd
+    # 16 rows a warp, hd/64 warps of four sharing them (one at hd 80)
+    assert cfg["block_rows"] == 64 // (hd // 64 if hd % 64 == 0 else 1)
     for kernel in ("dq", "dkdv"):
         k = cfg[kernel]
         assert k["tile_rows"] in (16, 32, 64) and k["threads"] in (128, 256)

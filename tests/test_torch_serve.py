@@ -29,7 +29,8 @@ from repro.train.serve_step import generate as jax_generate
 
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as port_serve
-from repro_torch.models import convert, decode_step, init_params, prefill
+from repro_torch.data import synthetic_batch
+from repro_torch.models import convert, decode_step, forward_train, init_params, prefill
 from repro_torch.models.transformer import leaves
 from repro_torch.train.serve_step import generate
 
@@ -256,16 +257,22 @@ def test_serve_cli_matches_jax_param_count(capsys):
     assert first == f"[serve] gemma-2b: {n:,} params"
 
 
-@pytest.mark.parametrize("arch,item", [("hubert-xlarge", "Frontends and arch smoke"),
-                                       ("paligemma-3b", "Frontends and arch smoke")])
-def test_unported_families_name_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, '{item}'"):
-        init_params(torch.Generator().manual_seed(0), get_config(arch).reduced(), "cpu")
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b"])
+def test_frontend_families_initialise_and_run(arch):
+    """The audio and vision frontends: the port's own init carries the
+    projection, and a forward over frames, or an image prefix and text,
+    gives a finite loss."""
+    cfg = get_config(arch).reduced()
+    model = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    assert tuple(model.frontend.proj.weight.shape) == (cfg.d_model, cfg.frontend_dim)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(cfg, 2, 16).items()}
+    loss, _ = forward_train(model, batch, cfg)
+    assert bool(torch.isfinite(loss))
 
 
-def test_serve_cli_rejects_unported_family():
-    with pytest.raises(SystemExit, match="not yet ported"):   # a frontend
-        port_serve.main(["--arch", "paligemma-3b", "--reduced", "--device", "cpu"])
+def test_serve_cli_refuses_encoder_only_hubert():
+    with pytest.raises(SystemExit, match="hubert-xlarge is encoder-only: no decode"):
+        port_serve.main(["--arch", "hubert-xlarge", "--reduced", "--device", "cpu"])
 
 
 def _serve_cli_on_cpu(capsys, arch):
