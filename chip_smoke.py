@@ -25,7 +25,11 @@ non-zero exit:
    autograd of the plain forward; K1 at head size 80 (hubert-xlarge's
    train shape, bidirectional, and ragged lengths both ways, forward and
    backward, fp32 and bf16) and at paligemma-3b's prefill (768 positions,
-   MQA, hd 256); the same for K2's and K3's backwards at
+   MQA, hd 256); K1 under ``torch.func.vmap``, forward and ``vmap(grad)``,
+   at 4 lanes of smollm's train shape, fp32 and bf16: one launch of each
+   pass a call, every lane's output and gradients bit for bit the
+   lane-by-lane calls, and within K1's limits of ``vmap`` of the plain
+   version, the vmapped calls timed; the same for K2's and K3's backwards at
    the training shapes and edge cases (a ragged last chunk, an initial
    state, a final-state gradient), with ``RWKV6ScanFn`` and ``RGLRUScanFn``;
    and K4's backward at K4's cases, on the kernel forward's outputs and row
@@ -89,6 +93,22 @@ non-zero exit:
    process's exit, the requeue, the controller's export copy, the fetch to
    the host, the new worker's fork and dial-in, its trainable and fresh CUDA
    context, the restore and the first step.
+3g. vmap: 3b's sweep through ``launch.tune`` with ``--executor vmap``: the
+   4 trials are the 4 lanes of one ``torch.func.vmap`` step of
+   ``build_vmap_executor`` (momentum SGD over lr and weight_decay, a
+   checkpoint of each live lane every iteration, its store spilling under
+   the temp log directory), K1's forward and backward each launched once a
+   layer for all lanes: 30 each way a stacked step, every launch count set
+   to 0 just before and read just after.  Every trial must end TERMINATED
+   and the device memory in use must come back within 64 MiB.  Then 4
+   lanes of different weights and batches under the sweep's
+   hyperparameters: each lane's first-step loss and gradients against the
+   plain path under the same ``vmap`` within the train phase's limits, and
+   each lane's loss against the lane stepped alone through the unvmapped
+   ``step_fn``.  Printed: wall time and trials/hour beside 3b's, each
+   stacked call's time and the checkpoints' share, peak memory, the
+   stacked step's time beside 4 train-phase steps, tokens/s over all lanes
+   and a trace of one warm stacked step.
 3c. train the ssm and hybrid families through ``repro_torch.launch.train``
    at full width, fp32, batch 8, sequence 512, 3 steps each: rwkv6-1.6b at
    full depth (24 K2 forwards and backwards a step), then recurrentgemma-9b
@@ -142,15 +162,16 @@ non-zero exit:
    bounds where records were dropped); then each kernel, its plain
    version and, where one exists, the PyTorch library call (CUDA events),
    each printed with the card.  K1 is
-   timed at the smollm, granite-moe and recurrentgemma shapes and at
-   hubert-xlarge's (hd 80, bidirectional), in fp32 and bf16, beside
+   timed at the smollm, granite-moe and recurrentgemma shapes, at
+   hubert-xlarge's (hd 80, bidirectional) and at phase 3g's 4 smollm lanes
+   folded into one batch of 32, in fp32 and bf16, beside
    ``scaled_dot_product_attention`` (``is_causal`` as the shape's mask;
    and the CUDA kernel it launched, by its profiler name) and both of its
    bounds.  K2 is timed
    in fp32 and bf16 beside its bound and its two-kernel design's floor,
    and each of its two kernels is reported: registers and spills, shared
    memory, blocks an SM and device time.  K1's backward is timed at K1's
-   three shapes in fp32 and bf16, beside its plain version, the backward
+   shapes in fp32 and bf16, beside its plain version, the backward
    of ``scaled_dot_product_attention`` and both of its bounds.  K2's and
    K3's backwards are timed at the training shapes beside their plain
    versions and bounds.
@@ -174,6 +195,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1059,6 +1081,79 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
                 f"of the plain forward (fp32): dq/dk/dv over max(1, max |g|) {rels} (tol {tol})")
             assert max(rels) <= tol, f"FlashAttentionFn {label} {dtype}: {rels} > {tol}"
     return main_err
+
+
+# K1 under torch.func.vmap: smollm's train shape with VMAP_LANES lanes, the
+# lanes folded into the batch axis by the vmap rules of FlashAttentionFn and
+# FlashAttentionBwdFn.  The kernels treat each batch row alone, so every
+# lane's output and gradients must be the lane-by-lane calls' bits; against
+# vmap of the plain version (the plain forward in fp32 on the same values)
+# K1's own limits hold: ATOL for the forward, FN_TOL for the gradients.
+VMAP_LANES = 4
+VMAP_SHAPE = (8, 512, 512, 9, 3, 64)
+
+
+def check_flash_attention_vmap(torch, dev, ops, ref, card) -> dict:
+    """K1's forward and ``vmap(grad)`` of it at VMAP_LANES x smollm's train
+    shape, positions unbatched as the model builds them, fp32 and bf16: one
+    launch each a call, every lane bit for bit the lane-by-lane calls, and
+    within K1's limits of ``vmap`` of the plain version; the vmapped calls'
+    times.  Returns the fp32 forward's max abs error against the plain
+    version and the times."""
+    from repro_torch.kernels import flash_attention as fa
+    N, (B_, S_, _, H, K, hd) = VMAP_LANES, VMAP_SHAPE
+    fwd = torch.func.vmap(lambda q, k, v, qp, kp: ops.flash_attention(q, k, v, qp, kp),
+                          in_dims=(0, 0, 0, None, None))
+
+    def loss(attn):
+        return lambda q, k, v, qp, kp, d: (attn(q, k, v, qp, kp) * d).float().sum()
+
+    grads = {name: torch.func.vmap(torch.func.grad(loss(attn), argnums=(0, 1, 2)),
+                                   in_dims=(0, 0, 0, None, None, 0))
+             for name, attn in (("kernel", ops.flash_attention),
+                                ("plain", ref.flash_attention_ref))}
+    out_fig = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, _ = attention_inputs(torch, dev, 700, N * B_, S_, S_, H, K, hd, dtype)
+        q, k, v = (x.reshape(N, B_, *x.shape[1:]) for x in (q, k, v))
+        qp = kp = torch.arange(S_, dtype=torch.int32, device=dev)[None].expand(B_, S_)
+        dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(701),
+                           device=dev).to(dtype)
+        f0, b0 = ops.flash_attention.launches, ops.flash_attention_bwd.launches
+        out = fwd(q, k, v, qp, kp)
+        assert ops.flash_attention.launches - f0 == 1, "vmap of K1 launched it more than once"
+        got = grads["kernel"](q, k, v, qp, kp, dout)
+        torch.cuda.synchronize()
+        assert (ops.flash_attention.launches - f0, ops.flash_attention_bwd.launches - b0) \
+            == (2, 1), "vmap(grad) of K1 launched a pass more than once"
+        for n in range(N):
+            o, lse = fa.flash_attention_cuda(q[n], k[n], v[n], qp, kp, return_lse=True)
+            lane = fa.flash_attention_bwd_cuda(q[n], k[n], v[n], qp, kp, o, lse, dout[n])
+            assert torch.equal(out[n], o), f"{dtype} lane {n}: the forward's bits differ"
+            assert all(torch.equal(a[n], b) for a, b in zip(got, lane)), \
+                f"{dtype} lane {n}: the gradients' bits differ"
+        plain_out = torch.func.vmap(lambda q, k, v: ref.flash_attention_ref(q, k, v, qp, kp))(
+            q, k, v)
+        err = max_err(out, plain_out)
+        want = grads["plain"](q.float(), k.float(), v.float(), qp, kp, dout.float())
+        rels = [max(normwise(a[n], b[n]) for n in range(N)) for a, b in zip(got, want)]
+        name = str(dtype)[6:]
+        atol, tol = ATOL[name], FN_TOL[name]
+        fwd_ms = time_ms(lambda: fwd(q, k, v, qp, kp), iters=20)
+        grad_ms = time_ms(lambda: grads["kernel"](q, k, v, qp, kp, dout), iters=10)
+        log(f"[kernel] flash_attention under vmap, {N} lanes x {VMAP_SHAPE} {dtype}: one launch "
+            f"of each pass a call, every lane bit for bit the lane-by-lane calls; against vmap of "
+            f"the plain version: forward max_abs_err {err!r} (atol {atol}), dq/dk/dv over max(1, "
+            f"max |g|) {rels} (tol {tol})")
+        log(f"[time] flash_attention under vmap {dtype}, {N} lanes x B={B_} S={S_} H={H} K={K} "
+            f"hd={hd}: forward {fwd_ms!r} ms, vmap(grad) (forward and backward) {grad_ms!r} ms "
+            f"a call {card}")
+        assert err <= atol, f"vmap of K1 {dtype}: max_abs_err {err} > {atol}"
+        assert max(rels) <= tol, f"vmap(grad) of K1 {dtype}: {rels} > {tol}"
+        out_fig[name] = {"max_abs_err": err, "grad_rel_err": max(rels), "fwd_ms": fwd_ms,
+                         "grad_ms": grad_ms}
+        del q, k, v, dout, out, got, want, plain_out
+    return out_fig
 
 
 def check_rwkv6(torch, dev, ops, ref) -> float:
@@ -2984,6 +3079,210 @@ def restart_split(rows, killed: dict, fetches: list) -> dict:
             "first_step": step["dur"] * us}
 
 
+# The vmap phase (3g): phase 3b's sweep through ``repro_torch.launch.tune``
+# with ``--executor vmap``: the 4 trials are the 4 lanes of one
+# ``torch.func.vmap`` step (momentum SGD over lr and weight_decay,
+# ``build_vmap_executor``), K1's forward and backward each launched once a
+# layer for all lanes.  Every trial must end TERMINATED, K1's launches must
+# be 30 each way a stacked step (a step of all lanes), and the device memory
+# in use must come back within SWEEP_MEM_SLACK.  Then, on a stacked state of
+# 4 lanes with different weights (seeds 0-3) at different steps of the
+# bank (i = 0-3), so that a lane mixed up with another shows, and the
+# sweep's own lr and weight_decay: each lane's first-step loss and
+# gradients against the plain path (``attn_impl="naive"``) under the same
+# vmap, within the train phase's limits, and each lane's loss against that
+# lane stepped alone through the unvmapped ``step_fn``, within the train
+# phase's loss limit.
+VMAP_SWEEP_ARGS = with_flags(SWEEP_ARGS, executor="vmap")
+# The plain path's lanes in one vmap: its S x S attention scores for all 4
+# lanes do not fit beside the stacked state on an 80 GB card.
+VMAP_PLAIN_LANES = 2
+
+
+def run_vmap_sweep(card: str, torch, ops, dev, sweep: dict, train: dict) -> dict:
+    """Phase 3g: the lane-stacked sweep with every launch count set to 0
+    just before and read just after, its stacked steps and checkpoints
+    timed; the lane checks; the stacked step's time and a trace of one."""
+    import os
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import tune
+
+    args = tune.parser().parse_args(VMAP_SWEEP_ARGS)
+    cfg = tune.sweep_model(args)
+    n_attn = sum(t in ("attention", "local_attn") for t in cfg.pattern_for_layers())
+    record = {"steps": [], "saves": [], "lanes": None}
+    build = tune.build_vmap_executor
+
+    def timed_build(c, a):
+        """The launcher's executor, its stacked steps (synchronised) and its
+        checkpoints timed."""
+        ex = build(c, a)
+        vstep, save = ex._vstep, ex.save_checkpoint
+        record["lanes"] = ex.n_lanes
+
+        def timed_vstep(*xs):
+            t0 = time.perf_counter()
+            out = vstep(*xs)
+            torch.cuda.synchronize()
+            record["steps"].append(time.perf_counter() - t0)
+            return out
+
+        def timed_save(trial):
+            t0 = time.perf_counter()
+            out = save(trial)
+            record["saves"].append(time.perf_counter() - t0)
+            return out
+
+        ex._vstep, ex.save_checkpoint = timed_vstep, timed_save
+        return ex
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, patched(tune, "build_vmap_executor", timed_build):
+        for name in KERNELS:
+            getattr(ops, name).launches = 0
+        t0 = time.perf_counter()
+        analysis = tune.main([*VMAP_SWEEP_ARGS, "--log-dir", os.path.join(tmp, "vmap")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(ops, name).launches for name in KERNELS}
+        spilled = sum(f.stat().st_size for f in Path(tmp).rglob("*.pkl"))
+    peak = torch.cuda.max_memory_allocated()
+    trials = analysis.trials
+    calls = len(record["steps"])
+    steps = calls * args.steps_per_iter
+    finished = sum(t.status.value == "TERMINATED" for t in trials)
+    ckpt_s, step_s = sum(record["saves"]), sum(record["steps"])
+    log(f"[vmap] {TRAIN_ARCH} lane-stacked ASHA sweep ({' '.join(VMAP_SWEEP_ARGS)}): {finished} "
+        f"of {len(trials)} trials finished in {wall!r} s wall, {finished * 3600 / wall!r} "
+        f"trials/hour (3b's serial executor in this run: {sweep['trials_per_hour']!r}) {card}")
+    for t in trials:
+        log(f"[vmap]   {t.trial_id} {t.status.value}: {t.training_iteration} iterations, losses "
+            f"{[r.metrics['loss'] for r in t.results]}")
+        if t.error:
+            log(f"[vmap]   {t.trial_id} error: {t.error}")
+    log(f"[vmap] {record['lanes']} lanes, {calls} stacked calls of {args.steps_per_iter} steps: "
+        f"first {record['steps'][0]!r} s, the others {record['steps'][1:]} s; {steps} stacked "
+        f"steps in {step_s!r} s ({step_s / wall!r} of the wall time) {card}")
+    log(f"[vmap] checkpoints: {len(record['saves'])} lane saves (host copies, the store and its "
+        f"spill) in {ckpt_s!r} s, {ckpt_s / wall!r} of the wall time; {spilled / 1e9:.3f} GB in "
+        f"the spill directory at the sweep's end {card}")
+    log(f"[vmap] kernel launches on the vmap sweep's path: {launches} ({steps} stacked steps; "
+        f"{n_attn} attention layers a step)")
+    assert finished == len(trials) == 4, "every trial of the vmap sweep must end TERMINATED"
+    assert record["lanes"] == 4, f"the vmap sweep ran {record['lanes']} lanes, not 4"
+    expect = expected_train_launches(cfg, steps)
+    assert launches == expect, f"vmap sweep: expected {expect} launches"
+    configs = [t.config for t in trials]
+    del analysis, trials, t
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    log(f"[vmap] device memory: peak {peak / 2**20:.1f} MiB; allocated before the sweep "
+        f"{before / 2**20:.1f} MiB, after {after / 2**20:.1f} MiB {card}")
+    assert abs(after - before) <= SWEEP_MEM_SLACK, "the vmap executor still holds device memory"
+
+    # the lanes: different weights and batches, the sweep's hyperparameters
+    spec = tune.build_vmap_executor(cfg, args).spec
+    hypers = {k: torch.tensor([float(c[k]) for c in configs], dtype=torch.float32, device=dev)
+              for k in spec.hyper_names}
+    n = len(configs)
+    lanes = [spec.init_fn(seed, {}) for seed in range(n)]
+    state = {part: {k: torch.stack([s[part][k] for s in lanes]) for k in lanes[0][part]}
+             for part in ("p", "m")}
+    state["i"] = torch.arange(n, dtype=torch.int32, device=dev)
+    del lanes
+    data = SyntheticLMDataset(DataConfig(global_batch=B, seq_len=S, vocab_size=cfg.vocab_size))
+    drawn = [data.batch_at(i) for i in range(n)]     # lane i's first batch: i % 8 of the bank
+    batch = {k: torch.stack([torch.from_numpy(b[k]) for b in drawn]).to(dev) for k in drawn[0]}
+    plain = dataclasses.replace(cfg, attn_impl="naive")
+
+    def lane_grads(c, lo, hi):
+        """({name: gradients of lanes lo..hi-1 on the host}, their losses,
+        the launches) of one vmapped ``loss_and_grads`` of ``c``."""
+        for name in KERNELS:
+            getattr(ops, name).launches = 0
+        g, (loss, _) = torch.func.vmap(functools.partial(tune.loss_and_grads,
+                                                         tune.TrainForward(c)))(
+            {k: x[lo:hi] for k, x in state["p"].items()}, {k: x[lo:hi] for k, x in batch.items()})
+        torch.cuda.synchronize()
+        return ({k: x.cpu() for k, x in g.items()}, loss.tolist(),
+                {name: getattr(ops, name).launches for name in KERNELS})
+
+    kernel_g, k_loss, k_launches = lane_grads(cfg, 0, n)
+    assert k_launches == expected_train_launches(cfg, 1), k_launches
+    parts = [lane_grads(plain, lo, min(lo + VMAP_PLAIN_LANES, n))
+             for lo in range(0, n, VMAP_PLAIN_LANES)]
+    assert all(not any(part[2].values()) for part in parts), "the plain path launched a kernel"
+    plain_g = {k: torch.cat([part[0][k] for part in parts]) for k in kernel_g}
+    p_loss = [x for part in parts for x in part[1]]
+    del parts
+    rel = {(name, lane): normwise(plain_g[name][lane], g[lane])
+           for name, g in kernel_g.items() for lane in range(n)}
+    worst = max(rel, key=rel.get)
+    grad_err = rel[worst]
+    loss_err = max(abs(a - b) / max(1.0, abs(a)) for a, b in zip(k_loss, p_loss))
+    log(f"[vmap] first-step gradients of {n} lanes (seeds 0-{n - 1}, batches 0-{n - 1}), kernel "
+        f"path (all lanes in one vmap: one K1 forward and backward a layer) vs plain path (under "
+        f"vmap, {VMAP_PLAIN_LANES} lanes at a time), max abs err over max(1, max |g|): "
+        f"{grad_err!r} ({worst[0]}, lane {worst[1]}; median {statistics.median(rel.values())!r}); "
+        f"losses {k_loss} vs {p_loss}, differences over max(1, |loss|) up to {loss_err!r} (tol "
+        f"{TRAIN_GRAD_TOL}, {TRAIN_LOSS_TOL})")
+    assert grad_err <= TRAIN_GRAD_TOL, f"vmap first-step gradient {worst}: {grad_err}"
+    assert loss_err <= TRAIN_LOSS_TOL, f"vmap losses differ: {k_loss} vs {p_loss}"
+    del kernel_g, plain_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vstep = torch.func.vmap(spec.step_fn)
+    _, metrics = vstep(state, hypers)
+    stacked_loss = metrics["loss"].tolist()
+    alone = []
+    for lane in range(n):
+        one = {part: {k: x[lane] for k, x in state[part].items()} for part in ("p", "m")}
+        one["i"] = state["i"][lane]
+        alone.append(float(spec.step_fn(one, {k: h[lane] for k, h in hypers.items()})[1]["loss"]))
+        del one
+    gaps = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(stacked_loss, alone)]
+    log(f"[vmap] each lane's loss, stacked {stacked_loss} vs stepped alone {alone}: differences "
+        f"over max(1, |loss|) {gaps} (tol {TRAIN_LOSS_TOL})")
+    assert max(gaps) <= TRAIN_LOSS_TOL, f"a lane of the stacked step differs: {gaps}"
+
+    held = {"state": state}
+    del state
+
+    def one_step():
+        held["state"], _ = vstep(held["state"], hypers)
+
+    one_step()                                                # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step = min(times)
+    tokens = n * B * S / step
+    log(f"[time] {TRAIN_ARCH} vmap stacked step, {n} lanes x B={B} S={S} fp32: {step!r} s (min "
+        f"of {times}), {tokens!r} tokens/s over all lanes; the train phase's step "
+        f"{train['steady_step_s']!r} s x {n} = {n * train['steady_step_s']!r} s {card}")
+    traced = trace(f"{TRAIN_ARCH} vmap stacked step, {n} lanes (warm)", one_step, card, ops)
+    del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall, "trials_per_hour": finished * 3600 / wall,
+            "stacked_calls_s": record["steps"], "ckpt_share": ckpt_s / wall,
+            "peak_bytes": peak, "stacked_step_s": step, "tokens_per_s": tokens,
+            "grad_rel_err": grad_err, "loss_rel_err": loss_err, "lane_loss_gap": max(gaps),
+            "trace_busy_ms": traced and traced["busy"]}
+
+
+
+
 def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_config,
              leaves):
     """Serve ``arch`` at full width with every launch count set to 0 just
@@ -3114,6 +3413,8 @@ ATTN_SHAPES = (
     ("granite-moe", (8, 512, 512, 24, 8, 64), None, 109, True),
     ("recurrentgemma local_attn", (8, 512, 512, 16, 1, 256), 2048, 107, True),
     ("hubert-xlarge", (8, 512, 512, 16, 16, 80), None, 119, False),
+    # phase 3g's stacked step: VMAP_LANES lanes of smollm folded into B
+    ("smollm, 4 lanes folded", (32, 512, 512, 9, 3, 64), None, 700, True),
 )
 
 
@@ -3478,6 +3779,7 @@ def main() -> int:
             "rglru_scan_bwd": check_rglru_bwd(torch, dev, ops, ref),
             "moe_router": check_moe_router(torch, dev, ops, ref, k4),
             "moe_router_bwd": check_moe_router_bwd(torch, dev, ops, ref, k4)}
+    k1_vmap = check_flash_attention_vmap(torch, dev, ops, ref, card)
     # K4's few microseconds a launch and K2's two kernels' device times are
     # read from the profiler here, early: late in a long run, sessions have
     # kept some records and dropped others.
@@ -3510,6 +3812,12 @@ def main() -> int:
     # -- 3e. the same sweep on the cluster tier, then a worker killed and restored -------------
     cluster = run_cluster(card, torch, sweep)
     per_path[f"{TRAIN_ARCH} cluster sweep"] = cluster["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3g. the sweep as lanes of one vmapped step ---------------------------------------------
+    vmap_sweep = run_vmap_sweep(card, torch, ops, dev, sweep, train)
+    per_path[f"{TRAIN_ARCH} vmap sweep"] = vmap_sweep["launches"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3631,8 +3939,10 @@ def main() -> int:
         train_step={k: v for k, v in train_r["rwkv6-1.6b"].items() if k != "launches"})
     kernels[KERNELS.index("rglru_scan_bwd")]["train_step"] = {
         k: v for k, v in train_r["recurrentgemma-9b"].items() if k != "launches"}
-    kernels[KERNELS.index("flash_attention")]["shapes"] = {
-        label: {key: val for key, val in r.items() if key != "bound"} for label, r in attn.items()}
+    kernels[KERNELS.index("flash_attention")].update(
+        shapes={label: {key: val for key, val in r.items() if key != "bound"}
+                for label, r in attn.items()},
+        vmap=k1_vmap)
     kernels[KERNELS.index("flash_attention_bwd")].update(
         bf16_ms=k1b["bf16_ms"], bf16_tensor_core_bound_ms=k1b["bf16_tensor_core_bound_ms"],
         library_kernels=k1b["library_kernels"],
@@ -3641,7 +3951,8 @@ def main() -> int:
         train_step={key: val for key, val in train.items() if key != "launches"},
         audio_train_step={key: val for key, val in train_audio.items() if key != "launches"},
         sweep={key: val for key, val in sweep.items() if key not in ("launches", "losses")},
-        cluster_sweep={key: val for key, val in cluster.items() if key != "launches"})
+        cluster_sweep={key: val for key, val in cluster.items() if key != "launches"},
+        vmap_sweep={key: val for key, val in vmap_sweep.items() if key != "launches"})
     log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "
         f"{PROFILER['unmeasured']} measurements with no whole session (not measured)")
     left = stop_started_processes()

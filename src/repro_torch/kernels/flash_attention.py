@@ -1,6 +1,9 @@
 """ctypes wrappers of the CUDA flash attention: the forward
 (``csrc/flash_attention.cu``), its backward (``csrc/flash_attention_bwd.cu``)
-and ``FlashAttentionFn``, the ``torch.autograd.Function`` that joins them.
+and ``FlashAttentionFn``, the ``torch.autograd.Function`` that joins them,
+with ``FlashAttentionBwdFn`` for its backward; both have ``vmap`` rules, so
+that ``torch.func`` transforms (``vmap`` of ``grad``) launch each kernel
+once for all lanes.
 
 Each wrapper checks what its kernel takes, allocates the outputs and launches
 on PyTorch's current stream without synchronising.  The kernels read q/k/v
@@ -19,7 +22,7 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "FlashAttentionFn",
-           "tile_config", "bwd_tile_config", "HEAD_DIMS", "DTYPES"]
+           "FlashAttentionBwdFn", "tile_config", "bwd_tile_config", "HEAD_DIMS", "DTYPES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128, 256)
@@ -159,28 +162,86 @@ def flash_attention_bwd_cuda(
     return dq, dk, dv
 
 
+def _fold(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
+    """A ``vmap`` rule's input with its lane axis ``dim`` (None: unbatched,
+    so expanded to every lane) folded into the batch axis: (N, B, ...) ->
+    (N*B, ...).  A reshape that cannot view copies; the kernels read the
+    (b, s, head) strides of what comes out."""
+    x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(n * x.shape[1], *x.shape[2:])
+
+
+def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """The CUDA forward with its CUDA backward, for CUDA tensors that need a
-    gradient (``ops.flash_attention`` routes them here).  The forward keeps
-    q, k, v, the positions, its output and its log-sum-exp; the backward
-    runs ``ops.flash_attention_bwd``, which counts its launches."""
+    """The forward with its backward, for tensors that need a gradient or
+    that a ``torch.func`` transform wraps (``ops.flash_attention`` routes
+    them here).  The forward returns (out, lse), ``lse`` not
+    differentiable, and keeps q, k, v, the positions, out and lse; the
+    backward runs ``FlashAttentionBwdFn``.  Under ``torch.func.vmap`` the
+    ``vmap`` rule folds the lanes into the batch axis and launches once for
+    all of them.  Both passes go through ``ops`` (``ops._flash_attention_lse``,
+    ``ops.flash_attention_bwd``), which count the launches and run the
+    plain version for a CPU tensor."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap):
-        out, lse = flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal, window=window,
-                                        softcap=softcap, return_lse=True)
+    def forward(q, k, v, q_pos, k_pos, causal, window, softcap):
+        from . import ops   # ops imports this module
+        return ops._flash_attention_lse(q, k, v, q_pos, k_pos, causal, window, softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, q_pos, k_pos, causal, window, softcap = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
         ctx.mask = (causal, window, softcap)
-        return out
 
     @staticmethod
-    def backward(ctx, dout):
-        from . import ops   # ops imports this module
+    def backward(ctx, dout, _dlse):
         q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
-        causal, window, softcap = ctx.mask
-        dq, dk, dv = ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, dout,
-                                             causal=causal, window=window, softcap=softcap)
+        dq, dk, dv = FlashAttentionBwdFn.apply(q, k, v, q_pos, k_pos, out, lse, dout,
+                                               *ctx.mask)
         return dq, dk, dv, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, q_pos, k_pos, causal, window, softcap):
+        n = info.batch_size
+        folded = (_fold(x, d, n) for x, d in zip((q, k, v, q_pos, k_pos), in_dims))
+        out, lse = FlashAttentionFn.apply(*folded, causal, window, softcap)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class FlashAttentionBwdFn(torch.autograd.Function):
+    """K1's backward as a function of its own, so that ``torch.func`` can
+    carry it: its ``vmap`` rule folds the lanes of q, k, v, the positions,
+    out, lse (N, B, H, Sq) and dout into the batch axis, as
+    ``FlashAttentionFn``'s does, and launches once.  It has no backward."""
+
+    @staticmethod
+    def forward(q, k, v, q_pos, k_pos, out, lse, dout, causal, window, softcap):
+        from . import ops
+        return ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, dout,
+                                       causal=causal, window=window, softcap=softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention's backward has no backward of its own: "
+                           "a double backward through ops.flash_attention is not supported")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, q_pos, k_pos, out, lse, dout, causal, window, softcap):
+        n = info.batch_size
+        folded = (_fold(x, d, n) for x, d in zip((q, k, v, q_pos, k_pos, out, lse, dout),
+                                                  in_dims))
+        grads = FlashAttentionBwdFn.apply(*folded, causal, window, softcap)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,7 +11,10 @@ card every kernel has a backward kernel: a call whose inputs need a
 gradient goes through ``FlashAttentionFn``, ``RWKV6ScanFn``,
 ``RGLRUScanFn`` or ``MoERouterFn``, whose backwards are
 ``flash_attention_bwd``, ``rwkv6_scan_bwd``, ``rglru_scan_bwd`` and
-``moe_router_bwd``.
+``moe_router_bwd``.  Under ``torch.func`` (``vmap``, ``grad``) flash
+attention goes through ``FlashAttentionFn`` and ``FlashAttentionBwdFn``,
+whose ``vmap`` rules launch once for all lanes; the other kernels have no
+``vmap`` rule yet and refuse a wrapped tensor on the card.
 """
 from __future__ import annotations
 
@@ -34,6 +37,23 @@ def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
+def _wrapped(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a ``torch.func`` transform (``vmap``, ``grad``) wraps any of
+    ``tensors``: such a tensor has no storage of its own, so it must reach a
+    kernel through an ``autograd.Function`` with a ``vmap`` rule."""
+    return any(t is not None and torch._C._functorch.is_functorch_wrapped_tensor(t)
+               for t in tensors)
+
+
+def _no_vmap_rule(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Refuse a ``torch.func``-wrapped tensor on the card for a kernel whose
+    Function has no ``vmap`` rule yet."""
+    if _wrapped(*tensors):
+        raise NotImplementedError(
+            f"{name} has no vmap rule yet: under torch.func it runs on CPU tensors only "
+            "(see ROADMAP.md, Queue 1: \"vmap rules of the scan and router kernels\")")
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -46,17 +66,31 @@ def flash_attention(
     (causal, optional window, k_pos < 0 for an empty slot); optional tanh
     softcap.  A row with every key masked returns 0.  Any length is taken:
     the kernel masks ragged edges itself, so nothing is padded.  On the
-    card, with grad enabled and q, k or v needing a gradient, the call goes
-    through ``FlashAttentionFn`` (the same forward, which also keeps its
-    log-sum-exp, and the backward kernel)."""
+    card, with grad enabled and q, k or v needing a gradient, or with a
+    ``torch.func`` transform wrapping an input, the call goes through
+    ``FlashAttentionFn`` (the same forward, which also keeps its
+    log-sum-exp, and the backward kernel; under ``vmap`` one launch for all
+    lanes)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                        window=window, softcap=softcap)
-    if _needs_grad(q, k, v):
-        out = _fa.FlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal, window, softcap)
-    else:
-        out = _fa.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal,
-                                       window=window, softcap=softcap)
+    if _needs_grad(q, k, v) or _wrapped(q, k, v, q_pos, k_pos):
+        return _fa.FlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal, window, softcap)[0]
+    out = _fa.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal,
+                                   window=window, softcap=softcap)
+    flash_attention.launches += 1
+    return out
+
+
+def _flash_attention_lse(q, k, v, q_pos, k_pos, causal, window, softcap):
+    """``FlashAttentionFn``'s forward: (out, lse (B,H,Sq) fp32), the plain
+    version for a CPU tensor, else one launch, counted as
+    ``flash_attention``'s."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                                       softcap=softcap, return_lse=True)
+    out = _fa.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                                   softcap=softcap, return_lse=True)
     flash_attention.launches += 1
     return out
 
@@ -70,8 +104,9 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of ``flash_attention`` given its output
     ``out``, its log-sum-exp ``lse`` (B, H, Sq) fp32 and the gradient
-    ``dout`` of ``out``.  ``FlashAttentionFn.backward`` calls it; one call
-    launches the kernel's two passes and counts one."""
+    ``dout`` of ``out``.  ``FlashAttentionBwdFn`` calls it (under ``vmap``
+    once for all lanes); one call launches the kernel's two passes and
+    counts one."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, q_pos, k_pos, out, lse, dout,
                                            causal=causal, window=window, softcap=softcap)
@@ -95,6 +130,7 @@ def rwkv6_scan(
     states, and the backward kernels)."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, logw, u, state)
+    _no_vmap_rule("rwkv6_scan", r, k, v, logw, u, state)
     if _needs_grad(r, k, v, logw, u, state):
         out = _rwkv.RWKV6ScanFn.apply(r, k, v, logw, u, state, chunk)
     else:
@@ -130,6 +166,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     needing a gradient, the call goes through ``RGLRUScanFn``."""
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
+    _no_vmap_rule("rglru_scan", a, b, h0)
     if _needs_grad(a, b, h0):
         out = _rglru.RGLRUScanFn.apply(a, b, h0)
     else:
@@ -162,6 +199,7 @@ def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Te
     forward, and the backward kernel)."""
     if logits.is_cpu:
         return ref.moe_router_ref(logits, top_k)
+    _no_vmap_rule("moe_router", logits)
     if logits.requires_grad and torch.is_grad_enabled():
         out = _router.MoERouterFn.apply(logits, top_k)
     else:

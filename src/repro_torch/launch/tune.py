@@ -26,8 +26,20 @@ from the same server, scheduled across a roster of simulated hosts: each
 dials the controller back over loopback TCP, saves content-addressed
 checkpoints to its host's spill directory, and a host that stops
 heartbeating is evicted, its trials restarting elsewhere from their last
-fetched checkpoint under ``--max-failures``).  ``vmap`` is not ported yet
-and exits with an error.
+fetched checkpoint under ``--max-failures``) or ``vmap`` (homogeneous sweeps
+as one SPMD program: ``min(--num-samples, 8)`` trials stacked as lanes of
+one ``torch.func.vmap`` step, momentum SGD over (lr, weight_decay), each
+kernel launched once for all lanes; ``build_vmap_executor``).  ``vmap``
+takes the dense family: on the card the scan and router kernels of the
+ssm, hybrid and moe families have no ``vmap`` rule yet, and the audio and
+vision families' frontends take no token batch, so those exit with an
+error on either device.
+
+Vmap quickstart (three lanes of the reduced model on the CPU)::
+
+    PYTHONPATH=src python -m repro_torch.launch.tune --arch smollm-135m \\
+        --reduced --device cpu --executor vmap --scheduler asha \\
+        --num-samples 3 --max-iters 3 --batch 2 --seq-len 16 --steps-per-iter 1
 
 Cluster quickstart (2 simulated hosts of 2 devices, on the CPU; one thread
 a worker, or four workers' thread pools contend for the cores)::
@@ -52,7 +64,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Any, Dict, Optional, Sequence
+
+import torch
 
 from .. import resolve_device
 from ..configs import get_config, list_archs
@@ -61,16 +76,92 @@ from ..core import (ASHAScheduler, FIFOScheduler, GPSearcher,
                     PopulationBasedTraining, Resources, TPESearcher,
                     RandomSearcher, loguniform, run_experiments, uniform)
 from ..dist.submesh import SlicePool
-from ..models import ModelConfig
+from ..models import LM, ModelConfig, forward_train
 from ..train.trainable import make_model_trainable, model_trainable_factory
 from .train import device_model
 
-# Executors of the original that the port does not run yet, and the ROADMAP
-# item (Queue 1) that ports each.
-NOT_PORTED = {"vmap": "core/vmap_executor.py"}
+# Families ``--executor vmap`` does not take, and why.
+VMAP_REFUSED = {
+    **dict.fromkeys(("ssm", "hybrid", "moe"),
+                    "on the card its kernels have no vmap rule yet (see ROADMAP.md, Queue 1: "
+                    "\"vmap rules of the scan and router kernels\")"),
+    **dict.fromkeys(("audio", "vlm"),
+                    "the vmap executor feeds token batches (SyntheticLMDataset), which its "
+                    "frontend does not take"),
+}
 
 SPACE = {"lr": loguniform(1e-4, 1e-1), "warmup": 5,
          "weight_decay": uniform(0.0, 0.2)}
+# Batches of the synthetic stream that the vmap executor keeps on the device;
+# lane i's step s reads batch s % VMAP_BANKED.
+VMAP_BANKED = 8
+
+
+class TrainForward(LM):
+    """An ``LM`` with no weights of its own (the meta device) whose forward
+    is ``forward_train``: the module ``torch.func.functional_call`` runs on
+    a lane's weights, which ``LM``, with no forward, cannot be."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg, None, torch.device("meta"))
+        self.cfg = cfg
+
+    def forward(self, batch):
+        return forward_train(self, batch, self.cfg)
+
+
+def loss_and_grads(module: TrainForward, params: Dict[str, torch.Tensor],
+                   batch: Dict[str, torch.Tensor]):
+    """(gradients by parameter name, (loss, metrics)) of ``forward_train``
+    at ``params``, through ``torch.func`` (so that ``vmap`` can take it)."""
+    return torch.func.grad_and_value(
+        lambda p: torch.func.functional_call(module, p, (batch,)), has_aux=True)(params)
+
+
+def build_vmap_executor(cfg: ModelConfig, args: argparse.Namespace):
+    """Model selection as one SPMD program: ``min(--num-samples, 8)`` lanes
+    of ``cfg``, vmapped over (lr, weight_decay) with momentum SGD.
+
+    A lane's state is {"p": parameters by name, "m": momentum, "i": the
+    step}; ``init_fn`` draws the parameters from a generator seeded with the
+    trial's ``init_seed`` on ``--device``.  Step i of a lane reads batch
+    i % 8 of the synthetic stream, banked on the device; its update is
+    m = 0.9 m + g, then p = p - lr (m + weight_decay p).  With ``--log-dir``
+    the executor's object store spills to ``<log-dir>/vmap-spill``: at
+    smollm-135m's full width a lane's snapshot is 1.08 GB, and the store's
+    2 GiB in memory would refuse the second."""
+    from ..core import CheckpointManager, ObjectStore
+    from ..core.vmap_executor import VectorTrainableSpec, VmapExecutor
+    from ..data import DataConfig, SyntheticLMDataset
+    from ..models import init_params
+
+    dev = resolve_device(args.device)
+    data = SyntheticLMDataset(DataConfig(global_batch=args.batch, seq_len=args.seq_len,
+                                         vocab_size=cfg.vocab_size))
+    drawn = [data.batch_at(i) for i in range(VMAP_BANKED)]
+    batches = {k: torch.stack([torch.from_numpy(b[k]) for b in drawn]).to(dev)
+               for k in drawn[0]}
+    module = TrainForward(cfg)
+
+    def init_fn(seed, hypers):
+        params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg, dev)
+        p = {n: t.detach() for n, t in params.named_parameters()}
+        return {"p": p, "m": {n: torch.zeros_like(t) for n, t in p.items()},
+                "i": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def step_fn(state, hypers):
+        batch = {k: x[state["i"] % VMAP_BANKED] for k, x in batches.items()}
+        grads, (_, metrics) = loss_and_grads(module, state["p"], batch)
+        m = {n: 0.9 * state["m"][n] + g for n, g in grads.items()}
+        p = {n: w - hypers["lr"] * (m[n] + hypers["weight_decay"] * w)
+             for n, w in state["p"].items()}
+        return {"p": p, "m": m, "i": state["i"] + 1}, {"loss": metrics["loss"]}
+
+    spec = VectorTrainableSpec(init_fn, step_fn, ("lr", "weight_decay"),
+                               steps_per_iter=args.steps_per_iter)
+    spill = os.path.join(args.log_dir, "vmap-spill") if args.log_dir else None
+    return VmapExecutor(spec, CheckpointManager(ObjectStore(spill_dir=spill)),
+                        n_lanes=min(args.num_samples, 8), total_devices=args.total_devices)
 
 
 def build_scheduler(name: str, max_iters: int):
@@ -131,8 +222,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="device every trial trains on (cuda, or cpu)")
     ap.add_argument("--executor", default="serial",
-                    choices=["serial", "concurrent", "process", "cluster",
-                             *NOT_PORTED])
+                    choices=["serial", "concurrent", "process", "cluster", "vmap"])
     ap.add_argument("--hosts", default="2x8",
                     help="cluster executor roster: N (hosts x 8 devices), "
                          "'3x8', or 'name:devs,...' per host (see "
@@ -208,15 +298,15 @@ def main(argv: Optional[Sequence[str]] = None):
     return its ``ExperimentAnalysis``."""
     ap = parser()
     args = ap.parse_args(argv)
-    if args.executor in NOT_PORTED:
-        ap.error(f"--executor {args.executor} is not yet ported to repro_torch "
-                 f"(see ROADMAP.md, Queue 1: \"{NOT_PORTED[args.executor]}\")")
     if args.report and not args.log_dir:
         ap.error("--report requires --log-dir (the JSONL journal feeds it)")
     if args.resume and not args.log_dir:
         ap.error("--resume requires --log-dir (the run's artifacts live there)")
 
     cfg = sweep_model(args)
+    if args.executor == "vmap" and cfg.family in VMAP_REFUSED:
+        ap.error(f"--executor vmap does not take {args.arch} ({cfg.family} family): "
+                 f"{VMAP_REFUSED[cfg.family]}")
     if args.executor in ("process", "cluster"):
         # Spawn-safe recipe: worker processes rebuild the bound trainable by
         # re-importing make_model_trainable in the child.
@@ -235,6 +325,15 @@ def main(argv: Optional[Sequence[str]] = None):
         searcher = RandomSearcher(SPACE, metric="loss", mode="min",
                                   max_trials=args.num_samples, seed=args.seed)
 
+    if args.executor == "vmap":
+        executor = build_vmap_executor(cfg, args)
+        pool = None  # lanes replace slices; placement is the stacked program's
+    elif args.executor == "cluster":
+        executor = args.executor
+        pool = None  # per-host pools: the roster is the capacity
+    else:
+        executor = args.executor
+        pool = SlicePool(n_virtual=args.total_devices)
     analysis = run_experiments(
         trainable,
         None if searcher else SPACE,
@@ -244,10 +343,8 @@ def main(argv: Optional[Sequence[str]] = None):
         stop={"training_iteration": args.max_iters},
         resources_per_trial=Resources(cpu=1, devices=args.devices_per_trial),
         total_devices=args.total_devices,
-        # per-host pools on the cluster tier: the roster is the capacity
-        slice_pool=(None if args.executor == "cluster"
-                    else SlicePool(n_virtual=args.total_devices)),
-        executor=args.executor,
+        slice_pool=pool,
+        executor=executor,
         hosts=args.hosts if args.executor == "cluster" else None,
         placement=args.placement,
         max_failures=args.max_failures,

@@ -6,8 +6,9 @@ JAX package's in the same process: each package forks its workers from a
 server of its own, so the port's workers hold no module of ``jax`` or of
 ``repro``, whatever ran before them.  PBT's exploit reaches a trial only
 through ``save()``'s host copies.  The command line finishes with its results
-table, refuses the executor that is not ported, and refuses the card when
-there is none.  On the cluster tier (``--executor cluster``) a sweep's losses
+table, runs the lane-stacked sweep (``--executor vmap``) and refuses it for the
+families whose kernels have no vmap rule, and refuses the card when there is
+none.  On the cluster tier (``--executor cluster``) a sweep's losses
 are the process tier's, bit for bit, and a trial whose socket worker is
 SIGKILLed after its second checkpoint restarts from that checkpoint and ends
 with an uninterrupted run's losses.
@@ -149,11 +150,38 @@ def test_tune_main_returns_the_analysis_and_binds_the_device():
     assert an.total_iterations() == 4 and np.isfinite(an.best_value())
 
 
-@pytest.mark.parametrize("executor,item", [("vmap", "core/vmap_executor.py")])
-def test_tune_refuses_the_executors_not_ported(executor, item, capsys):
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b", "granite-moe-3b-a800m"])
+def test_tune_refuses_the_executors_not_ported(arch, capsys):
+    """``--executor vmap`` takes the dense family; the ssm, hybrid and moe
+    families wait for their kernels' vmap rules, on either device."""
     with pytest.raises(SystemExit):
-        tune.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--executor", executor])
-    assert item in capsys.readouterr().err
+        tune.main(["--arch", arch, "--reduced", "--device", "cpu", "--executor", "vmap"])
+    assert "vmap rules of the scan and router kernels" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b"])
+def test_tune_vmap_refuses_the_frontends(arch, capsys):
+    """The vmap executor feeds token batches, which an audio or vision
+    frontend does not take."""
+    with pytest.raises(SystemExit):
+        tune.main(["--arch", arch, "--reduced", "--device", "cpu", "--executor", "vmap"])
+    assert "token batches" in capsys.readouterr().err
+
+
+def test_tune_vmap_executor_runs_the_lane_stacked_sweep():
+    """Three lanes of one stacked step under ASHA (max_t 3, grace 1,
+    reduction 3): every trial ends TERMINATED, each ran at least to the
+    first rung, and the iterations add up to what the runner recorded."""
+    an = tune.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--executor", "vmap",
+                    "--scheduler", "asha", "--num-samples", "3", "--max-iters", "3",
+                    "--batch", "2", "--seq-len", "16", "--steps-per-iter", "1"])
+    assert [t.status.value for t in an.trials] == ["TERMINATED"] * 3
+    iters = [t.training_iteration for t in an.trials]
+    assert all(1 <= i <= 3 for i in iters) and 3 in iters
+    assert an.total_iterations() == sum(iters) == sum(len(t.results) for t in an.trials)
+    for t in an.trials:
+        assert [r.training_iteration for r in t.results] == list(range(1, len(t.results) + 1))
+        assert all(np.isfinite(r.metrics["loss"]) for r in t.results)
 
 
 def test_tune_refuses_the_card_without_one(monkeypatch):
