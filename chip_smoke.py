@@ -54,6 +54,18 @@ non-zero exit:
    first step's gradient of every parameter and the four losses within
    stated limits; the steady step time, tokens/s, peak device memory and a
    trace of one warm step.
+3h. sharded: the same training on DTensor, through ``make_train_state`` /
+   ``make_train_step``: a world of one rank (NCCL, joined through a
+   ``FileStore`` under a temp directory), the (1,1) mesh of
+   ``SlicePool(devices=[cuda:0]).acquire(1).make_mesh(("data", "model"))``,
+   the ``fsdp_tp`` strategy and an ``activation_policy``, the state and
+   batches placed by ``dist.sharding``; K1 under ``local_map``.  Every
+   launch count set to 0 just before and read just after (30 K1 forwards
+   and 30 backwards a step); the four losses and the first step's
+   gradients (``full_tensor()``) against phase 3's unsharded kernel path
+   within the train phase's limits; the steady step beside phase 3's, the
+   launches a step, and a trace of one warm step (idle share, NCCL's
+   kernels).  The group is destroyed before the next phase.
 3b. sweep: the paper's workload, ``repro_torch.launch.tune`` in-process on
    smollm-135m at full width (fp32, batch 8, sequence 512): ASHA (max_t 4,
    grace 1, reduction 3) over 4 samples of the launcher's space, seed 0, 2
@@ -279,8 +291,9 @@ ARCHS = tuple(SERVE_TOL)
 FLIP_GAP = 1e-5
 TRACE_DECODE_STEPS, TRACE_TOP = 8, 10
 # PyTorch kernels a trace also prints when they are not in its top: the
-# scans of the MoE dispatch's slot positions (``models/moe.py``).
-TRACE_ALSO = ("tensor_kernel_scan",)
+# scans of the MoE dispatch's slot positions (``models/moe.py``), and NCCL's
+# collectives (phase 3h's DTensor step).
+TRACE_ALSO = ("tensor_kernel_scan", "nccl")
 # wkv_precision: K2 within this factor of the plain chunked scan's distance
 # from float64; the noise draws of its one-ulp experiment.
 K2_PRECISION_FACTOR, NOISE_SEEDS = 2.0, (3, 4, 5, 6)
@@ -431,7 +444,10 @@ def trace(name: str, fn, card: str, ops):
             f"{e.self_device_time_total / busy_us:6.1%}  {e.key[:90]}")
     out = {n: (sum(us for key, _, us in records if ours(n, key)) / 1e3,
                sum(c for key, c, _ in records if ours(n, key))) for n in KERNELS}
-    return {**{n: v for n, v in out.items() if v[1]}, "busy": busy_us / 1e3}
+    nccl = [(c, us) for key, c, us in records if "nccl" in key.lower()]
+    return {**{n: v for n, v in out.items() if v[1]}, "busy": busy_us / 1e3,
+            "wall": wall_us / 1e3, "idle_share": 1 - busy_us / wall_us,
+            "nccl": (sum(c for c, _ in nccl), sum(us for _, us in nccl) / 1e3)}
 
 
 def device_ms(torch, name: str, fn, match: str = "", iters: int = 50):
@@ -1789,9 +1805,129 @@ def run_train(card: str, torch, ops, dev) -> dict:
         held["state"], _ = kstep(held["state"], batches[0])
 
     one_step()                                                # warm-up
-    trace(f"{TRAIN_ARCH} train step (warm)", one_step, card, ops)
+    traced = trace(f"{TRAIN_ARCH} train step (warm)", one_step, card, ops)
     return {"launches": launches, "steady_step_s": steady, "tokens_per_s": B * S / steady,
-            "peak_bytes": peak, "grad_rel_err": grad_err, "loss_rel_err": max(loss_err)}
+            "peak_bytes": peak, "grad_rel_err": grad_err, "loss_rel_err": max(loss_err),
+            "losses": res.losses, "idle_share": traced and traced["idle_share"]}
+
+
+# Phase 3h: phase 3's train step on DTensor.  One card, so a world of one
+# rank (NCCL, joined through a file store under a temp directory) and the
+# (1,1) mesh of ``SlicePool(devices=[cuda:0]).acquire(1).make_mesh``: the
+# ``fsdp_tp`` strategy's placements (every fsdp and tp entry a shard over a
+# mesh dim of size 1), an ``activation_policy`` (``constrain`` at the
+# embedding and every block boundary), K1 under ``local_map``
+# (``dist.sharding.local_shards``).  The same weights and batches as phase
+# 3's kernel path, so its losses and first-step gradients are held to phase
+# 3's with phase 3's limits (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL).
+SHARDED_STRATEGY, SHARDED_AXES = "fsdp_tp", ("data", "model")
+
+
+def run_train_sharded(card: str, torch, ops, dev, train: dict) -> dict:
+    """Phase 3h: ``TRAIN_ARCH`` trained ``TRAIN_STEPS`` steps on a sharded
+    state through ``make_train_state`` / ``make_train_step``, every launch
+    count set to 0 just before and read just after; losses and first-step
+    gradients (``full_tensor()``) against phase 3's unsharded kernel path;
+    the steady step beside phase 3's, and a trace of one warm step (idle
+    share, NCCL's kernels).  The process group is destroyed before it
+    returns."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.dist import SlicePool
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import forward_train
+    from repro_torch.train import adamw, linear_warmup_cosine, make_train_state, make_train_step
+
+    cfg = launch_train.device_model(get_config(TRAIN_ARCH), dev)
+    data = SyntheticLMDataset(DataConfig(global_batch=B, seq_len=S, vocab_size=cfg.vocab_size))
+    batches = [{k: torch.from_numpy(x).to(dev) for k, x in data.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    opt = adamw(linear_warmup_cosine(3e-4, 10, TRAIN_STEPS))   # launch.train's defaults
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)   # phase 3's weights
+
+    # phase 3's kernel path, unsharded: its first-step gradients
+    plain_state = make_train_state(gen(), cfg, opt, dev)
+    ref_loss, ref_grads = first_step_grads(torch, forward_train, plain_state.params, batches[0],
+                                           cfg)
+    del plain_state
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = SlicePool(devices=[dev]).acquire(1).make_mesh(SHARDED_AXES)
+            log(f"[sharded] {TRAIN_ARCH}: world of 1 rank (nccl), mesh {tuple(mesh.shape)} "
+                f"{mesh.mesh_dim_names} over ranks {mesh.mesh.tolist()}, strategy "
+                f"{SHARDED_STRATEGY}")
+            with shd.sharding_strategy(SHARDED_STRATEGY), shd.activation_policy(mesh):
+                state = shd.shard_train_state(make_train_state(gen(), cfg, opt, dev), mesh, cfg)
+                placements = {str(tuple(p.placements)) for _, p in state.params.named_parameters()}
+                sbatches = [shd.shard_batch(b, mesh) for b in batches]
+                loss, grads = first_step_grads(torch, forward_train, state.params, sbatches[0],
+                                               cfg)
+                rel = {n: normwise(ref_grads[n], g.full_tensor()) for n, g in grads.items()}
+                del grads, ref_grads
+                worst = max(rel, key=rel.get)
+                how = "bit for bit" if max(rel.values()) == 0 else \
+                    f"max abs err over max(1, max |g|) {rel[worst]!r} ({worst})"
+                log(f"[sharded] {TRAIN_ARCH} first-step gradients, sharded vs phase 3's "
+                    f"unsharded kernel path: {how}; loss {loss!r} vs {ref_loss!r} (tol "
+                    f"{TRAIN_GRAD_TOL}); parameter placements {sorted(placements)}")
+                assert rel[worst] <= TRAIN_GRAD_TOL, f"sharded first-step gradient {worst}"
+
+                step = make_train_step(cfg, opt)
+                torch.cuda.synchronize()
+                for name in KERNELS:
+                    getattr(ops, name).launches = 0
+                losses, step_s = [], []
+                for b in sbatches:
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, b)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    losses.append(float(metrics["loss"]))
+                launches = {name: getattr(ops, name).launches for name in KERNELS}
+                expect = expected_train_launches(cfg, TRAIN_STEPS)
+                log(f"[sharded] {TRAIN_ARCH}: kernel launches on the main path: {launches} "
+                    f"({TRAIN_STEPS} steps; expected {expect})")
+                assert launches == expect, f"sharded train: expected {expect} launches"
+                loss_err = [abs(p - k) / max(1.0, abs(k)) for p, k in zip(losses, train["losses"])]
+                how = "bit for bit" if max(loss_err) == 0 else \
+                    f"differences over max(1, |loss|) {loss_err}"
+                log(f"[sharded] {TRAIN_ARCH} losses {losses} vs phase 3's {train['losses']}: "
+                    f"{how} (tol {TRAIN_LOSS_TOL})")
+                assert max(loss_err) <= TRAIN_LOSS_TOL, f"sharded losses differ: {loss_err}"
+                steady = min(step_s[1:])
+                held = {"state": state}
+
+                def one_step():
+                    held["state"], _ = step(held["state"], sbatches[0])
+
+                one_step()                                            # warm-up
+                traced = trace(f"{TRAIN_ARCH} sharded train step (warm)", one_step, card, ops)
+            del held, state, sbatches
+        finally:
+            dist.destroy_process_group()
+    per_step = {name: n // TRAIN_STEPS for name, n in launches.items() if n}
+    nccl = traced and traced["nccl"]
+    log(f"[time] {TRAIN_ARCH} sharded train step B={B} S={S} fp32, mesh (1,1): first "
+        f"{step_s[0]!r} s, steady (min of the other {TRAIN_STEPS - 1}) {steady!r} s (steps "
+        f"{step_s}) vs phase 3's steady {train['steady_step_s']!r} s "
+        f"({steady / train['steady_step_s']!r}x); launches a step {per_step}; idle share "
+        f"{traced and traced['idle_share']!r} (phase 3's {train['idle_share']!r}); NCCL kernels "
+        f"in the warm step's trace: {nccl[0] if nccl else 'not measured'} launches, "
+        f"{nccl[1] if nccl else 'not measured'} ms {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steady_step_s": steady, "first_step_s": step_s[0],
+            "unsharded_steady_step_s": train["steady_step_s"],
+            "idle_share": traced and traced["idle_share"], "nccl_kernels": nccl,
+            "grad_rel_err": rel[worst], "loss_rel_err": max(loss_err)}
 
 
 # Phase 3c: the ssm and hybrid families trained through ``launch.train`` at
@@ -1853,10 +1989,13 @@ def expected_train_launches(cfg, steps: int) -> dict:
 
 
 def first_step_grads(torch, forward_train, params, batch, cfg):
-    """(loss, {name: gradient}) of one ``forward_train`` of ``cfg``."""
+    """(loss, {name: gradient}) of one ``forward_train`` of ``cfg``; of a
+    DTensor loss, its full value."""
     loss, _ = forward_train(params, batch, cfg)
     names, tensors = zip(*params.named_parameters())
-    return float(loss.detach()), dict(zip(names, torch.autograd.grad(loss, tensors)))
+    grads = dict(zip(names, torch.autograd.grad(loss, tensors)))
+    loss = loss.detach()
+    return float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss), grads
 
 
 def train_traced(card, torch, ops, dev, cfg, tag: str) -> dict:
@@ -3803,6 +3942,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 3h. the same step on DTensor: a world of one rank, a (1,1) mesh -------------------------
+    sharded = run_train_sharded(card, torch, ops, dev, train)
+    per_path[f"{TRAIN_ARCH} sharded train"] = sharded["launches"]
+
     # -- 3b. an ASHA sweep of it through launch.tune, and one trial in a worker process ------
     sweep = run_sweep(card, torch, ops)
     per_path[f"{TRAIN_ARCH} sweep"] = sweep["launches"]
@@ -3948,7 +4091,8 @@ def main() -> int:
         library_kernels=k1b["library_kernels"],
         shapes={label: {key: val for key, val in r.items() if key != "bound"}
                 for label, r in attn_bwd.items()},
-        train_step={key: val for key, val in train.items() if key != "launches"},
+        train_step={key: val for key, val in train.items() if key not in ("launches", "losses")},
+        sharded_train_step={key: val for key, val in sharded.items() if key != "launches"},
         audio_train_step={key: val for key, val in train_audio.items() if key != "launches"},
         sweep={key: val for key, val in sweep.items() if key not in ("launches", "losses")},
         cluster_sweep={key: val for key, val in cluster.items() if key != "launches"},

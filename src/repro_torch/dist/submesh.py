@@ -10,14 +10,18 @@ sizes trials actually request.
 
 Two modes:
 
-* device mode — ``SlicePool(devices=[...])`` allocates real ``jax.Device``
-  objects; ``MeshSlice.make_mesh`` builds a ``jax.sharding.Mesh`` over them.
+* device mode — ``SlicePool(devices=[...])`` allocates the devices of the
+  default process group's ranks, one a rank (``torch.device("cuda", 0)``
+  on a card); ``MeshSlice.make_mesh`` builds a ``DeviceMesh`` over the
+  slice's ranks.
 * virtual mode — ``SlicePool(n_virtual=256)`` tracks capacity only (CPU
-  testing / benchmarks); ``make_mesh`` tiles the host's devices to the
-  requested size so mesh-shape logic stays exercised on one CPU.
+  testing / benchmarks); ``make_mesh`` builds a mesh only over a whole
+  process group of the slice's size (one rank cannot be tiled into several
+  as JAX tiles host devices).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -60,12 +64,46 @@ class MeshSlice:
 
     def make_mesh(self, axis_names: Sequence[str],
                   shape: Optional[Tuple[int, ...]] = None):
-        """The original builds a ``jax.sharding.Mesh`` here.  The port has no
-        device mode yet, so a trial's slice is a capacity window only."""
-        raise NotImplementedError(
-            "MeshSlice.make_mesh is not yet ported to repro_torch (see "
-            "ROADMAP.md, Queue 1: \"dist/submesh.py device mode and "
-            "dist/sharding.py\")")
+        """A ``torch.distributed`` ``DeviceMesh`` over this slice's ranks.
+
+        ``shape`` defaults to a balanced factorization of ``size`` over
+        ``axis_names`` (one axis -> ``(size,)``), which become the mesh's
+        ``mesh_dim_names``.  A slice's devices are ranks of the default
+        process group: ranks ``start .. start+size-1``, one device each.
+        Every rank of the group calls this for the same slice (building a
+        mesh is collective).  In virtual mode one rank cannot be tiled into
+        several, so the slice must cover the whole group (ranks
+        ``0 .. size-1``).  Raises when no group is initialised or the slice
+        does not fit in it.
+        """
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        axis_names = tuple(axis_names)
+        if shape is None:
+            shape = balanced_shape(self.size, len(axis_names))
+        if math.prod(shape) != self.size:
+            raise ValueError(f"mesh shape {shape} does not cover slice of "
+                             f"size {self.size}")
+        if not dist.is_initialized():
+            raise RuntimeError("MeshSlice.make_mesh needs a torch.distributed process group: "
+                               "a slice's devices are ranks of the default group "
+                               "(init_process_group first)")
+        world = dist.get_world_size()
+        if self.devices is not None:
+            if self.start + self.size > world:
+                raise RuntimeError(f"slice [{self.start}, {self.start + self.size}) is not "
+                                   f"inside the process group's {world} ranks")
+            device_type = torch.device(self.devices[0]).type
+        else:
+            if world != self.size:
+                raise RuntimeError(f"a virtual slice of {self.size} devices needs a process "
+                                   f"group of {self.size} ranks, not {world}: one rank "
+                                   "cannot be tiled into several")
+            device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        ranks = torch.arange(self.start, self.start + self.size).reshape(shape)
+        return DeviceMesh(device_type, ranks, mesh_dim_names=axis_names)
 
 
 class SlicePool:

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import flash_attention as _fa
 from . import moe_router as _router
@@ -54,6 +55,19 @@ def _no_vmap_rule(name: str, *tensors: Optional[torch.Tensor]) -> None:
             "(see ROADMAP.md, Queue 1: \"vmap rules of the scan and router kernels\")")
 
 
+def _no_dtensor(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Refuse a DTensor: a kernel reads one device's storage.  The model
+    runs flash attention on each rank's shards
+    (``dist.sharding.local_shards``); the scans and the router have no such
+    call yet."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        how = ("call it on each rank's shards (dist.sharding.local_shards)"
+               if name == "flash_attention" else
+               "see ROADMAP.md, Queue 1: \"The sharded step for the ssm, hybrid and moe "
+               "families\"")
+        raise NotImplementedError(f"{name} takes no DTensor: {how}")
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -70,7 +84,8 @@ def flash_attention(
     ``torch.func`` transform wrapping an input, the call goes through
     ``FlashAttentionFn`` (the same forward, which also keeps its
     log-sum-exp, and the backward kernel; under ``vmap`` one launch for all
-    lanes)."""
+    lanes).  A DTensor is refused (``_no_dtensor``)."""
+    _no_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                        window=window, softcap=softcap)
@@ -127,7 +142,8 @@ def rwkv6_scan(
     last chunk itself; the plain version steps one token at a time.  On the
     card, with grad enabled and an input needing a gradient, the call goes
     through ``RWKV6ScanFn`` (the same forward, which also keeps its chunk
-    states, and the backward kernels)."""
+    states, and the backward kernels).  A DTensor is refused."""
+    _no_dtensor("rwkv6_scan", r, k, v, logw, u, state)
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, logw, u, state)
     _no_vmap_rule("rwkv6_scan", r, k, v, logw, u, state)
@@ -163,7 +179,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t.  a/b (B,S,R) fp32; h0 (B,R) or None
     (zeros) -> h (B,S,R).  On the card, with grad enabled and an input
-    needing a gradient, the call goes through ``RGLRUScanFn``."""
+    needing a gradient, the call goes through ``RGLRUScanFn``.  A DTensor
+    is refused."""
+    _no_dtensor("rglru_scan", a, b, h0)
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
     _no_vmap_rule("rglru_scan", a, b, h0)
@@ -196,7 +214,8 @@ def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Te
     decode step, so the dispatch reads the cheap ``is_cpu``, not a
     ``device`` object.  On the card, with grad enabled and the logits
     needing a gradient, the call goes through ``MoERouterFn`` (the same
-    forward, and the backward kernel)."""
+    forward, and the backward kernel).  A DTensor is refused."""
+    _no_dtensor("moe_router", logits)
     if logits.is_cpu:
         return ref.moe_router_ref(logits, top_k)
     _no_vmap_rule("moe_router", logits)

@@ -34,7 +34,7 @@ from .. import resolve_device
 from .config import ModelConfig
 from .model import LM, init_params
 
-__all__ = ["to_state_dict", "load_module", "from_jax"]
+__all__ = ["to_state_dict", "jax_layout", "load_module", "from_jax"]
 
 _BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv", "b_in": "w_in", "b_out": "w_out"}
 
@@ -82,6 +82,36 @@ def to_state_dict(tree: Any, module: nn.Module) -> Dict[str, np.ndarray]:
         else:
             name, a = _port_leaf(path, arr, linears)
             out[name] = a
+    return out
+
+
+def jax_layout(module: nn.Module) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...], bool, bool]]:
+    """The inverse of ``to_state_dict``, from the port's side: for each
+    parameter of an ``LM``, (the path of the JAX leaf it holds, that leaf's
+    shape, whether the leaf is stacked on a segment's repeat axis, whether
+    the port holds it transposed).  A stacked leaf's shape has the repeat
+    count in front; a bias of an ``nn.Linear`` is JAX's separate bias
+    leaf."""
+    linears = {name for name, m in module.named_modules() if isinstance(m, nn.Linear)}
+    weight_of = {w: b for b, w in _BIAS_OF.items()}
+    out = {}
+    for name, p in module.named_parameters():
+        parts = name.split(".")
+        owner, leaf = ".".join(parts[:-1]), parts[-1]
+        shape, transposed = tuple(p.shape), False
+        if owner in linears and leaf == "weight":
+            path = parts[:-1] + (["w"] if owner == "lm_head" else [])
+            shape, transposed = shape[::-1], True
+        elif owner in linears and leaf == "bias":
+            path = parts[:-2] + [weight_of[parts[-2]]]
+        else:
+            path = parts
+        stacked = path[0] == "stack"
+        if stacked:
+            _, si, bi, _, *rest = path
+            path = ["stack", si, "blocks", bi, *rest]
+            shape = (len(module.stack[int(si)][int(bi)]),) + shape
+        out[name] = (tuple(path), shape, stacked, transposed)
     return out
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import sharding
 from ..kernels import ops as kops
 from .config import ModelConfig
 
@@ -92,7 +93,7 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     half = head_dim // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=positions.device) / half)
-    ang = positions.float()[..., None] * freqs
+    ang = positions.float()[..., None] * sharding.replicated_like(freqs, positions)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -177,9 +178,9 @@ def attend(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     S = q.shape[1]
     if impl == "auto":
         impl = "chunked" if (k_all.shape[1] > 2048 and S > 1) else "naive"
-    if impl == "pallas" and S > 1:
-        return kops.flash_attention(q, k_all, v_all, q_pos, k_pos, causal=causal,
-                                    window=window, softcap=cfg.logit_softcap)
+    if impl == "pallas" and S > 1:   # on each rank's shards when q is a DTensor
+        return sharding.local_shards(kops.flash_attention, q, k_all, v_all, q_pos, k_pos,
+                                     causal=causal, window=window, softcap=cfg.logit_softcap)
     if impl == "chunked" and S > 1:
         return _sdpa_chunked(q, k_all, v_all, q_pos, k_pos, causal, window,
                              cfg.logit_softcap, cfg.attn_chunk)
@@ -261,7 +262,9 @@ class Embedding(nn.Module):
                            _dtype(cfg.param_dtype))
 
     def embed_tokens(self, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        x = self.tok[tokens].to(_dtype(cfg.activation_dtype))
+        """A DTensor table is gathered whole for the lookup, as XLA gathers
+        a sharded table; the tied LM head reads it sharded."""
+        x = sharding.whole_on(self.tok, 0, 1)[tokens].to(_dtype(cfg.activation_dtype))
         if cfg.embedding_scale:
             # the scale rounded to the activation dtype first, as JAX does
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
+from ..dist.sharding import constrain, replicated_like, whole_on
 from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
@@ -76,12 +77,14 @@ def _embed_inputs(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig) 
     if cfg.frontend == "vision_stub":
         img = F.linear(batch["patch_embeds"].to(adt), params.frontend.proj.weight.to(adt))
         x = torch.cat([img, x], dim=1)
-    return x
+    return constrain(x)
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32 positions; replicated when ``x`` is a DTensor."""
     B, S, _ = x.shape
-    return torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    return replicated_like(pos, x)
 
 
 def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -92,7 +95,9 @@ def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token-mean CE in fp32. Returns (loss, accuracy)."""
+    """Token-mean CE in fp32. Returns (loss, accuracy).  A DTensor's vocab
+    dim is gathered first."""
+    logits = whole_on(logits, -1)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels[..., None].long())[..., 0]

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import constrain, replicated_like
 from . import kvcache as kv
 from . import layers as L
 from . import moe as moe_mod
@@ -178,7 +179,7 @@ def apply_stack(stack: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
     decode:  x is (B, 1, D); caches updated in ring fashion, in place
     aux is the sum of the blocks' MoE aux losses (0 without MoE blocks).
     """
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
     remat = cfg.remat and mode == "train"
     for si, (types, n) in enumerate(segment_specs(cfg)):
         for r in range(n):
@@ -202,6 +203,7 @@ def _apply_repeat(blocks, cfg: ModelConfig, types, x: torch.Tensor, positions: t
     aux_total = None
     for block, btype, st in zip(blocks, types, states):
         x, aux = _apply_block(block, cfg, btype, x, positions, st, mode)
+        x = constrain(x)   # pin batch sharding at every block boundary
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, aux_total

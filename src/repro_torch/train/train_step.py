@@ -6,7 +6,10 @@ Counterpart of ``repro.train.train_step``.  A ``TrainState`` holds the model
 takes gradients with ``torch.autograd.grad`` (the module's ``.grad`` fields
 are never used), applies the optimizer, which updates the parameters in
 place, and returns the new state.  JAX jit-compiles the step; PyTorch runs it
-eagerly.
+eagerly.  A state placed by ``dist.sharding.shard_train_state`` steps the
+same way, every rank running the step on DTensors: each gradient is
+redistributed to its parameter's placements before the update (JAX's
+``out_shardings``), and the metrics come back as plain tensors.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .. import resolve_device
+from ..dist.sharding import full_value, placed_like
 from ..models import LM, ModelConfig, forward_train, init_params
 from .optimizer import Optimizer, global_norm
 
@@ -48,7 +52,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatch: int = 0):
         loss, metrics = forward_train(params, batch, cfg)
         names, tensors = zip(*params.named_parameters())
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
+        grads = {n: torch.zeros_like(p) if g is None else placed_like(g, p)
                  for n, p, g in zip(names, tensors, grads)}
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -76,6 +80,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatch: int = 0):
         metrics = dict(metrics)
         metrics["grad_norm"] = global_norm(grads)
         metrics["total_loss"] = loss
+        metrics = {k: full_value(v) for k, v in metrics.items()}
         return TrainState(state.params, new_opt, state.step + 1), metrics
 
     return train_step

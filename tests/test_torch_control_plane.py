@@ -89,8 +89,14 @@ DEVIATIONS = {
         "_default_context": (5, 5, "uses the port's own server"),
     },
     "dist/submesh.py": {
-        "<module>": (1, 0, "math was used by make_mesh only"),
-        "MeshSlice.make_mesh": (23, 6, "raises: device mode is a ROADMAP item"),
+        "<module>": (4, 7, "the docstring's two modes: a device-mode slice's devices are "
+                           "ranks of the default process group, and virtual mode "
+                           "cannot tile one rank into several"),
+        "MeshSlice.make_mesh": (11, 28, "builds a torch.distributed DeviceMesh over the "
+                                        "slice's ranks of the default process group, "
+                                        "raising outside a group or past its ranks; in "
+                                        "virtual mode only over a whole group of the "
+                                        "slice's size, where JAX tiles the host's devices"),
     },
     "cluster/hosts.py": {
         "HostSpec": (6, 6, "defaults and their docstring are an H100 SXM node's "
@@ -290,11 +296,13 @@ def test_checkpoint_codec_refuses_a_device_tensor_it_cannot_read():
 
 
 def test_cluster_executor_and_device_meshes_name_their_roadmap_items():
-    """Device meshes name their ROADMAP item; the cluster executor is ported
-    (``tests/test_torch_cluster.py``), so only the mesh half is left here."""
+    """Both are ported: the cluster executor (``tests/test_torch_cluster.py``)
+    and device meshes (``tests/test_torch_multidevice.py``).  Outside a
+    process group a slice has no ranks to build a mesh over, so
+    ``make_mesh`` refuses, saying why; the pool itself works without one."""
     from repro_torch.dist.submesh import MeshSlice, SlicePool
 
-    with pytest.raises(NotImplementedError, match="device mode"):
+    with pytest.raises(RuntimeError, match="needs a torch.distributed process group"):
         MeshSlice(0, 2).make_mesh(("data",))
     pool = SlicePool(n_virtual=8)
     a, b = pool.acquire(4), pool.acquire(4)
