@@ -42,6 +42,8 @@ non-zero exit:
    paced by the host, the bound, and beside them the card's launch floor
    (a one-element fill kernel's device time, a one-element in-place op's
    time a call), and the forward's device time with its row statistics;
+   the kernels ``scaled_dot_product_attention`` launches at K1's timed
+   shapes and their device time (phase 5 prints them beside its time);
    the same for K4's backward at granite-moe's and deepseek-moe's training
    shapes, beside its plain version's, its SASS counts and registers; K2's
    and its
@@ -187,6 +189,24 @@ non-zero exit:
    of ``scaled_dot_product_attention`` and both of its bounds.  K2's and
    K3's backwards are timed at the training shapes beside their plain
    versions and bounds.
+3i. roofline: ``ModelTrainable`` of smollm-135m at full width on the card
+   under ``launch.train.device_model``'s config (K1 forward and backward),
+   fp32, batch 8, sequence 512, 4 steps an iteration, 2 iterations, with
+   ``profile_roofline=True``: after its profiled steps the trial counts one
+   step of a replica on the meta device (``launch/roofline.py``'s
+   ``step_costs`` on the kernel-free config).  Every launch count set to 0
+   just before and read just after; the counting pass timed, its launches
+   and the card's memory read around it.  Printed: the whole ``_profile``,
+   the counting pass's wall seconds, ``launch.mesh.HW.HBM_BYTES`` beside
+   the card's ``total_memory``.  Checks: the step's dot FLOPs are
+   3,739,842,772,992, the count of JAX's ``hlo_costs`` for the same step;
+   ``dominant`` is one of the three terms, every term above 0 but the
+   collective one, which is 0 on one rank; the trial's losses and final
+   parameters are bit for bit those of the same trial without the flag,
+   run here too; K1 runs 30 times each way a step and the counting pass
+   launches nothing; the card's memory after the count is within 64 MiB of
+   before it.  It runs last, after every phase that needs whole profiler
+   sessions.
 
 The script leaves no process behind, whether it passes or fails.  It makes
 itself the reaper of its orphaned descendants, and before the last two lines
@@ -3557,24 +3577,46 @@ ATTN_SHAPES = (
 )
 
 
-def time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causal) -> dict:
-    """K1 at one serving shape: fp32 kernel and plain version interleaved,
-    the bf16 kernel, PyTorch's ``scaled_dot_product_attention`` on the same
-    fp32 inputs (kv heads expanded beforehand, not timed) and the kernels it
-    launched, and both bounds."""
+def sdpa_call(torch, q, k, v, causal):
+    """PyTorch's ``scaled_dot_product_attention`` on K1's inputs, kv heads
+    expanded beforehand (not in the call)."""
     import torch.nn.functional as F
-    q, k, v, qp, kp = attention_inputs(torch, dev, seed, *shape, torch.float32)
-    G = shape[3] // shape[4]
+    G = q.shape[2] // k.shape[2]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in
                   (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+
+def sdpa_kernels(torch, dev) -> dict:
+    """{label: the kernels ``scaled_dot_product_attention`` launches at each
+    of K1's timed shapes, on ``time_attention``'s inputs: (name, launches
+    kept of 10, device ms a launch)}.  Read early, beside K4's and K2's
+    profiler readings: late in a full run the first session of this
+    measurement came back empty at every shape on an H100 (at
+    hubert-xlarge's three times in a row, which failed the run), while the
+    same sessions in a fresh process came back whole."""
+    out = {}
+    for label, shape, _, seed, causal in ATTN_SHAPES:
+        q, k, v, _, _ = attention_inputs(torch, dev, seed, *shape, torch.float32)
+        found = device_kernels(torch, f"scaled_dot_product_attention {label}",
+                               sdpa_call(torch, q, k, v, causal))
+        out[label] = [(name, n, ms / n) for name, n, ms in found]
+    return out
+
+
+def time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causal,
+                   lib_kernels) -> dict:
+    """K1 at one serving shape: fp32 kernel and plain version interleaved,
+    the bf16 kernel, PyTorch's ``scaled_dot_product_attention`` on the same
+    fp32 inputs (kv heads expanded beforehand, not timed) beside the kernels
+    it launched (``lib_kernels``, from ``sdpa_kernels``), and both bounds."""
+    q, k, v, qp, kp = attention_inputs(torch, dev, seed, *shape, torch.float32)
+    sdpa = sdpa_call(torch, q, k, v, causal)
     plain = lambda: ref.flash_attention_ref(q, k, v, qp, kp, causal=causal, window=window)
     lib_err = max_err(sdpa().transpose(1, 2), plain())
     kms, pms, runs = time_pair(
         lambda: ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window), plain, 20)
     library_ms = time_ms(sdpa)
-    lib_kernels = [(name, n, ms / n) for name, n, ms in
-                   device_kernels(torch, f"scaled_dot_product_attention {label}", sdpa)]
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp, causal=causal,
                                                   window=window))
@@ -3848,6 +3890,95 @@ def time_router_bwd(torch, dev, ops, ref, router, card, label, shape, seed, floo
             "lanes_per_row": lanes, "sass": code, "ptxas": regs[0] if regs else None}
 
 
+# Phase 3i: the trainable's roofline profile (``profile_roofline=True``).
+# JAX's ``hlo_costs`` of the compiled smollm-135m AdamW step at B x S counts
+# this many dot FLOPs; the port's count of the same step on the meta device
+# must be the same number (a count, not a speed).
+PROFILE_DOT_FLOPS = 3_739_842_772_992
+PROFILE_ITERS = 2
+PROFILE_MEM_SLACK = 64 * 2**20
+
+
+def run_profile(card: str, torch, ops, dev) -> dict:
+    """Phase 3i: ``TRAIN_ARCH``'s trial with ``profile_roofline=True`` and
+    the same trial without it, on the card, ``PROFILE_ITERS`` iterations of
+    ``TRAIN_STEPS`` steps each; every launch count set to 0 just before the
+    profiled trial and read just after.  The counting pass is timed, and its
+    launches and the card's memory read around it.  Returns the profile and
+    the readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.train import device_model
+    from repro_torch.train.trainable import ModelTrainable, make_model_trainable
+
+    cfg = device_model(get_config(TRAIN_ARCH), dev)
+    cls = make_model_trainable(cfg, batch=B, seq_len=S, steps_per_iter=TRAIN_STEPS,
+                               total_steps=PROFILE_ITERS * TRAIN_STEPS, device="cuda")
+    real, count = ModelTrainable._roofline_costs, {}
+
+    def counted(self):
+        torch.cuda.synchronize()
+        before = {name: getattr(ops, name).launches for name in KERNELS}
+        mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        costs = real(self)
+        count["wall_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        count["launches"] = {name: getattr(ops, name).launches - before[name]
+                             for name in KERNELS}
+        count["memory_delta"] = torch.cuda.memory_allocated() - mem
+        count["costs"] = costs
+        return costs
+
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    with patched(ModelTrainable, "_roofline_costs", counted):
+        trial = cls({"profile_roofline": True})
+        results = [trial.step() for _ in range(PROFILE_ITERS)]
+    torch.cuda.synchronize()
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    prof = results[0]["_profile"]
+    log(f"[profile] {TRAIN_ARCH} B={B} S={S}, {TRAIN_STEPS} steps an iteration, "
+        f"profile_roofline=True: _profile {json.dumps(prof, sort_keys=True)} {card}")
+    assert "costs" in count, f"the trial made no roofline count: {prof.get('roofline_error')}"
+    costs = count["costs"]
+    log(f"[profile] counting pass (a replica on the meta device, kernel-free config): "
+        f"{count['wall_s']!r} s wall; costs {json.dumps(costs, sort_keys=True)}; kernel "
+        f"launches in it {count['launches']}; card memory after it minus before "
+        f"{count['memory_delta']} bytes")
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[profile] launch.mesh.HW.HBM_BYTES {HW.HBM_BYTES} vs this card's total_memory "
+        f"{total} (equal: {HW.HBM_BYTES == total}) {card}")
+
+    plain = cls({"profile_roofline": False})
+    plain_results = [plain.step() for _ in range(PROFILE_ITERS)]
+    losses = [r["loss"] for r in results]
+    plain_losses = [r["loss"] for r in plain_results]
+    same = all(torch.equal(a, b) for a, b in zip(trial.state.params.parameters(),
+                                                 plain.state.params.parameters()))
+    log(f"[profile] losses with the flag {losses}, without {plain_losses}; final parameters "
+        f"bit for bit: {same}")
+    expect = expected_train_launches(cfg, PROFILE_ITERS * TRAIN_STEPS)
+    log(f"[profile] kernel launches of the profiled trial: {launches} ({PROFILE_ITERS * TRAIN_STEPS} "
+        f"steps)")
+    terms = {key: prof[f"roofline_{key}_s"] for key in ("compute", "memory", "collective")}
+    assert costs["dot_flops"] == PROFILE_DOT_FLOPS, \
+        f"dot FLOPs {costs['dot_flops']!r}, JAX's hlo_costs {PROFILE_DOT_FLOPS}"
+    assert prof["roofline_compute_s"] == round(costs["dot_flops"] / HW.PEAK_FLOPS_BF16, 6)
+    assert prof["dominant"] in terms and prof["predicted_step_s"] > 0, prof
+    assert terms["compute"] > 0 and terms["memory"] > 0 and terms["collective"] == 0, terms
+    assert prof["achieved_vs_predicted"] > 0 and prof["temp_bytes"] > 0, prof
+    assert losses == plain_losses and same, "profile_roofline changed the training"
+    assert launches == expect, f"expected {expect} launches"
+    assert not any(count["launches"].values()), f"the count launched {count['launches']}"
+    assert abs(count["memory_delta"]) <= PROFILE_MEM_SLACK, count["memory_delta"]
+    del trial, plain
+    return {"launches": launches, "profile": prof, "count_wall_s": count["wall_s"],
+            "dot_flops": costs["dot_flops"], "traffic_bytes": costs["traffic_bytes"],
+            "count_memory_delta": count["memory_delta"], "losses": losses,
+            "total_memory": total}
+
+
 def main() -> int:
     import os
 
@@ -3926,6 +4057,7 @@ def main() -> int:
     router = {label: time_router(torch, dev, ops, ref, k4, card, label, shape, 400 + i)
               for i, (label, shape) in enumerate(ROUTER_SHAPES)}
     r0 = router[ROUTER_SHAPES[0][0]]
+    sdpa_lib = sdpa_kernels(torch, dev)
     router_bwd = {label: time_router_bwd(torch, dev, ops, ref, k4, card, label, shape, seed,
                                          floor, k4b_sass, k4b_ptxas)
                   for label, shape, seed in ROUTER_BWD_SHAPES}
@@ -3994,7 +4126,8 @@ def main() -> int:
     # -- 5. kernel times at the serving and training shapes -----------------------------------
     f32, bf16 = torch.float32, torch.bfloat16
     times = {}
-    attn = {label: time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causal)
+    attn = {label: time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causal,
+                                  sdpa_lib[label])
             for label, shape, window, seed, causal in ATTN_SHAPES}
     k1 = attn[ATTN_SHAPES[0][0]]
     times["flash_attention"] = (k1["ms"], k1["plain_ms"], k1["bound"], k1["library_ms"])
@@ -4039,6 +4172,12 @@ def main() -> int:
     for name, (kms, pms, (bms, by, flops, nbytes), lms) in times.items():
         log(f"[time] {name} bound: {bms!r} ms by {by} ({flops:.4g} flop, {nbytes:.4g} bytes; "
             f"H100 SXM peaks at 700 W) {card}")
+
+    # -- 3i. the trainable's roofline profile, after every phase that needs whole profiler sessions
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile = run_profile(card, torch, ops, dev)
+    per_path[f"{TRAIN_ARCH} profiled trial"] = profile["launches"]
 
     # The backwards are the gradients of the same TPU kernels (forward-only in JAX)
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:77",
@@ -4096,7 +4235,8 @@ def main() -> int:
         audio_train_step={key: val for key, val in train_audio.items() if key != "launches"},
         sweep={key: val for key, val in sweep.items() if key not in ("launches", "losses")},
         cluster_sweep={key: val for key, val in cluster.items() if key != "launches"},
-        vmap_sweep={key: val for key, val in vmap_sweep.items() if key != "launches"})
+        vmap_sweep={key: val for key, val in vmap_sweep.items() if key != "launches"},
+        profiled_trial={key: val for key, val in profile.items() if key != "launches"})
     log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "
         f"{PROFILER['unmeasured']} measurements with no whole session (not measured)")
     left = stop_started_processes()

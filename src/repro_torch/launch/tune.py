@@ -51,8 +51,11 @@ a worker, or four workers' thread pools contend for the cores)::
 
 ``--hosts`` shapes the roster (``2x8`` = two hosts of eight devices;
 ``a:8,b:16`` names heterogeneous ones).  ``--placement roofline``
-right-sizes each trial's slice from its roofline profile; the port's
-profiles have no roofline fields yet, so it places ``--devices-per-trial``,
+right-sizes each trial's slice from its roofline profile: a trial bound
+with ``profile_roofline=True`` (``make_model_trainable``) counts one step
+of itself on the meta device after its first iteration, and its profile's
+``roofline_*_s`` give the placement its costs from then on (a resumed or
+restarted trial); until a trial has one, it places ``--devices-per-trial``,
 as ``fixed`` does.
 
 ``--trace``, ``--metrics-interval``, ``--live-table``, ``--report``,

@@ -25,7 +25,7 @@ import torch
 from .. import resolve_device
 from ..core.api import Trainable
 from ..data.pipeline import DataConfig, SyntheticLMDataset
-from ..models import LM, ModelConfig, param_count
+from ..models import LM, ModelConfig, init_params, param_count
 from .optimizer import adamw, linear_warmup_cosine, sgd
 from .train_step import TrainState, make_train_state, make_train_step
 
@@ -82,9 +82,12 @@ class ModelTrainable(Trainable):
 
     Hardware profile: after every (re)build the first reported result
     carries a one-shot ``_profile`` entry in its metrics: the first step's
-    time against the steady state's (each synchronised with the device) and,
-    on the card, the device memory in use and its peak (torch's CUDA memory
-    statistics).  Disable with ``profile=False``."""
+    time against the steady state's (each synchronised with the device),
+    on the card the device memory in use and its peak (torch's CUDA memory
+    statistics), and with ``profile_roofline=True`` an achieved-vs-predicted
+    roofline tag from ``launch/roofline.py``, counted on a replica of the
+    trial on the meta device (``_roofline_costs``).  Disable with
+    ``profile=False``."""
 
     def setup(self, config: Dict[str, Any]) -> None:
         self.model_cfg: ModelConfig = config["model_cfg"]
@@ -104,8 +107,8 @@ class ModelTrainable(Trainable):
         """Optimizer and step under ``hp``; a fresh model from ``init_seed``
         unless ``params`` are kept, and a fresh optimizer state."""
         self._opt = _build_optimizer(hp, self.total_steps)
-        self._step_fn = make_train_step(self.model_cfg, self._opt,
-                                        microbatch=int(hp.get("microbatch", 0)))
+        self._microbatch = int(hp.get("microbatch", 0))
+        self._step_fn = make_train_step(self.model_cfg, self._opt, microbatch=self._microbatch)
         if params is None:
             seed = int(hp.get("init_seed", 0))
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -114,6 +117,7 @@ class ModelTrainable(Trainable):
             self.state = TrainState(params, self._opt.init(dict(params.named_parameters())),
                                     self.state.step)
         self._pending_profile = bool(hp.get("profile", True))
+        self._profile_roofline = bool(hp.get("profile_roofline"))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -164,7 +168,45 @@ class ModelTrainable(Trainable):
         if self.device.type == "cuda":
             prof["device_bytes_in_use"] = int(torch.cuda.memory_allocated(self.device))
             prof["device_peak_bytes"] = int(torch.cuda.max_memory_allocated(self.device))
+        if self._profile_roofline:
+            try:
+                from ..launch.roofline import analyze
+                costs = self._roofline_costs()
+                for key in ("arg_bytes", "temp_bytes", "output_bytes"):
+                    prof[key] = int(costs[key])
+                rep = analyze(
+                    arch=self.model_cfg.arch_id, shape_name="trial",
+                    mesh_name="local", chips=1, costs=costs,
+                    n_params_active=int(param_count(self.state.params)),
+                    n_tokens=self.batch * self.seq_len, kind="train",
+                    arg_bytes=prof["arg_bytes"], temp_bytes=prof["temp_bytes"],
+                    output_bytes=prof["output_bytes"])
+                prof["predicted_step_s"] = round(rep.step_time_s, 6)
+                prof["dominant"] = rep.dominant
+                prof["roofline_compute_s"] = round(rep.compute_s, 6)
+                prof["roofline_memory_s"] = round(rep.memory_s, 6)
+                prof["roofline_collective_s"] = round(rep.collective_s, 6)
+                if rep.step_time_s > 0:
+                    prof["achieved_vs_predicted"] = round(
+                        steady / rep.step_time_s, 4)
+            except Exception as e:  # best-effort decoration, never a crash
+                prof["roofline_error"] = f"{type(e).__name__}: {e}"
         return prof
+
+    def _roofline_costs(self) -> Dict[str, float]:
+        """``step_costs`` of one step of this trial: its config without
+        kernels (``kernel_free``), a model on the meta device, the trial's
+        optimizer's state, a meta batch of the trial's shapes and dtypes and
+        its microbatching.  The live state, its random generators and the
+        device are not touched, and no kernel is launched."""
+        from ..launch.roofline import kernel_free, step_costs
+        cfg = kernel_free(self.model_cfg)
+        params = init_params(None, cfg, "meta")
+        state = TrainState(params, self._opt.init(dict(params.named_parameters())),
+                           self.state.step)
+        batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype, device="meta")
+                 for k, v in self._data.batch_at(0).items()}
+        return step_costs(make_train_step(cfg, self._opt, self._microbatch), state, batch)
 
     def save(self) -> Any:
         st = self.state

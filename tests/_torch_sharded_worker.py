@@ -13,7 +13,9 @@ Imports ``torch`` and ``repro_torch`` only: each rank is a process started
 with ``spawn``, which imports this module, never the test file (that imports
 ``jax``).  ``run`` joins a gloo process group through a file store, builds
 each setup's mesh from a device-mode ``SlicePool`` over the group's ranks,
-and trains the same weights on the same batches under that setup.
+and trains the same weights on the same batches under that setup.  Then
+every rank runs the mesh, refusal and roofline checks;
+``test_torch_roofline.py`` spawns 2 ranks with no setup for the last.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ AXES = ("data", "model")
 WORLD, STEPS, B, S = 8, 5, 8, 64
 SETUPS = [("(1,1)", (1, 1), "fsdp_tp"), ("(4,2) fsdp_tp", (4, 2), "fsdp_tp"),
           ("(4,2) dp_only", (4, 2), "dp_only")]
+ROOFLINE_SHAPE = (3, 5)     # each rank's tensor in ``roofline_checks``' all-gather
 
 
 def _placements(t) -> tuple:
@@ -140,9 +143,42 @@ def refusals(world: int) -> dict:
     return out
 
 
+def roofline_checks(world: int) -> dict:
+    """``launch/roofline.py``'s collective count and ``launch/mesh.py``'s
+    meshes: one ``_c10d_functional.all_gather_into_tensor`` (the op DTensor
+    issues) of a ``ROOFLINE_SHAPE`` tensor and its ``wait_tensor`` under
+    ``step_costs``, a mesh over the group's ranks from ``make_mesh``, and
+    what ``make_production_mesh`` (256 and 512 ranks) and a mesh twice the
+    group's size say."""
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.launch.roofline import step_costs
+
+    gathered = {}
+
+    def gather(t):
+        c10d = torch.ops._c10d_functional
+        out = c10d.all_gather_into_tensor(t, world, dist.group.WORLD.group_name)
+        gathered["out"] = c10d.wait_tensor(out)
+        return gathered["out"]
+
+    costs = step_costs(gather, torch.full(ROOFLINE_SHAPE, float(dist.get_rank())))
+    mesh = make_mesh((world, 1), ("data", "model"))
+    out = {"costs": costs, "gathered": gathered["out"].tolist(),
+           "mesh": (tuple(mesh.shape), tuple(mesh.mesh_dim_names), mesh.mesh.tolist())}
+    for name, make in (("single", make_production_mesh),
+                       ("multi", lambda: make_production_mesh(multi_pod=True)),
+                       ("too wide", lambda: make_mesh((2 * world,), ("data",)))):
+        try:
+            make()
+            out[name] = None
+        except RuntimeError as e:
+            out[name] = str(e)
+    return out
+
+
 def run(rank: int, world: int, store: str, inputs: str, out) -> None:
-    """One rank: every setup whose mesh holds this rank, then the mesh
-    checks.  ``inputs`` is a pickle of (cfg, weights, batches, setups),
+    """One rank: every setup whose mesh holds this rank, then the mesh,
+    refusal and roofline checks.  ``inputs`` is a pickle of (cfg, weights, batches, setups),
     read here so that starting a rank sends nothing large down its pipe.
     Puts (rank, results) or (rank, a traceback) on ``out``."""
     os.environ["OMP_NUM_THREADS"] = "1"
@@ -164,6 +200,7 @@ def run(rank: int, world: int, store: str, inputs: str, out) -> None:
                 pool.release(sl)
             results["mesh"] = mesh_checks(world)
             results["refusals"] = refusals(world)
+            results["roofline"] = roofline_checks(world)
             dist.barrier()
         finally:
             dist.destroy_process_group()
@@ -173,18 +210,19 @@ def run(rank: int, world: int, store: str, inputs: str, out) -> None:
         raise
 
 
-def spawn_ranks(tmp: Path, cfg, weights, batches, deadline_s: float) -> dict:
-    """Start ``WORLD`` ranks (``spawn``, one thread each) on ``SETUPS``;
+def spawn_ranks(tmp: Path, cfg, weights, batches, deadline_s: float, setups=SETUPS,
+                world: int = WORLD) -> dict:
+    """Start ``world`` ranks (``spawn``, one thread each) on ``setups``;
     return {rank: results}.  Raises RuntimeError with the first rank's
     traceback, or at the deadline.  No rank outlives this."""
     inputs = tmp / "inputs.pkl"
     with open(inputs, "wb") as f:
-        pickle.dump((cfg, weights, batches, SETUPS), f)
+        pickle.dump((cfg, weights, batches, tuple(setups)), f)
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     procs = [ctx.Process(target=run, daemon=True,
-                         args=(r, WORLD, str(tmp / "store"), str(inputs), out))
-             for r in range(WORLD)]
+                         args=(r, world, str(tmp / "store"), str(inputs), out))
+             for r in range(world)]
     old = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"       # read by each rank as it starts
     try:
@@ -197,11 +235,11 @@ def spawn_ranks(tmp: Path, cfg, weights, batches, deadline_s: float) -> dict:
             os.environ["OMP_NUM_THREADS"] = old
     results, deadline = {}, time.monotonic() + deadline_s
     try:
-        while len(results) < WORLD:
+        while len(results) < world:
             try:
                 rank, got = out.get(timeout=max(1.0, deadline - time.monotonic()))
             except queue.Empty:
-                raise RuntimeError(f"ranks {sorted(set(range(WORLD)) - set(results))} gave "
+                raise RuntimeError(f"ranks {sorted(set(range(world)) - set(results))} gave "
                                    f"no result within {deadline_s} s") from None
             if isinstance(got, str):
                 raise RuntimeError(f"rank {rank} failed:\n{got}")
@@ -247,6 +285,7 @@ def main() -> None:
         print(f"{name:14s} losses {[round(x, 6) for x in losses]}  largest relative gap "
               f"from (1,1) {gap:.3g}; {len(results[0][name]['sharded'])} parameters with a Shard placement, "
               f"K1 on local q {results[0][name]['attention_calls'][0][1]}")
+    print(f"roofline checks: step_costs of one all-gather {results[0]['roofline']['costs']}")
 
 
 if __name__ == "__main__":
