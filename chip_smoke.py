@@ -205,8 +205,26 @@ non-zero exit:
    parameters are bit for bit those of the same trial without the flag,
    run here too; K1 runs 30 times each way a step and the counting pass
    launches nothing; the card's memory after the count is within 64 MiB of
-   before it.  It runs last, after every phase that needs whole profiler
+   before it.  It runs after every phase that needs whole profiler
    sessions.
+3j. dry-run: ``python -m repro_torch.launch.dryrun`` for smollm-135m on the
+   single-pod mesh (every shape: 3 counted, long_500k skipped) and its
+   train_4k on the multi-pod mesh, two subprocesses at once, each counting
+   rank 0 of a fake process group of 256 or 512 ranks on the meta device.
+   Each record's dot FLOPs must equal this repository's CPU run of the same
+   command (``DRYRUN_FLOPS``), and the card's free memory must move by under
+   64 MiB around the runs; each record's roofline line and ``t_count_s``
+   are printed.  Then the record's config on one card: smollm-135m under
+   ``dryrun_config`` (bf16, remat) at B=8, S=4096, counted by ``lower_one``
+   on a (1,1) mesh (``DRYRUN_ONE_RANK_FLOPS``), and 3 AdamW steps of it on
+   the card twice from the same weights and batches, on the kernel-free
+   path that was counted and with ``attn_impl="pallas"`` (K1 forward and
+   backward, bf16, hd 64: 60 forwards and 30 backwards a step under
+   remat), every launch count set to 0 just before each and read just
+   after.  Each path's peak memory is printed beside the record's
+   ``arg_bytes + temp_bytes`` and its steady step beside ``step_time_s``
+   (findings, not gates); the losses must be finite and the two paths'
+   first-step losses within 2e-2 relative.
 
 The script leaves no process behind, whether it passes or fails.  It makes
 itself the reaper of its orphaned descendants, and before the last two lines
@@ -992,6 +1010,8 @@ def check_flash_attention(torch, dev, ops, ref) -> float:
          None),
         # paligemma-3b's prefill: 256 image patches and 512 text tokens, MQA hd 256
         ("paligemma-3b prefill hd256 MQA", (8, 768, 768, 8, 1, 256), f32, {}, None),
+        # phase 3j's train step: smollm-135m under dryrun_config, 64 key tiles a row
+        ("smollm dry-run config S=4096 bf16", (8, 4096, 4096, 9, 3, 64), bf16, {}, None),
     ]
     main_err = None
     for i, (name, shape, dtype, kw, edit) in enumerate(cases):
@@ -1047,7 +1067,8 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
     and against a second run of itself, bit for bit;
     then ``FlashAttentionFn`` (``ops.flash_attention`` on tensors that need a
     gradient) against autograd of the plain forward at smollm's train
-    shape and hubert-xlarge's (bidirectional, hd 80).  Returns the max abs
+    shape, hubert-xlarge's (bidirectional, hd 80) and phase 3j's (S=4096).
+    Returns the max abs
     error of dq, dk, dv at smollm's train shape, fp32."""
     from repro_torch.kernels import flash_attention as fa
     cases = [  # name, (B, Sq, Sk, H, K, hd), kwargs, edit
@@ -1067,6 +1088,7 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
          None),
         ("hd80 ragged", (2, 77, 130, 4, 2, 80), {}, None),
         ("hd80 ragged bidirectional", (2, 77, 130, 4, 2, 80), {"causal": False}, None),
+        ("smollm dry-run config S=4096", (8, 4096, 4096, 9, 3, 64), {}, None),
     ]
     main_err = None
     for i, (name, shape, kw, edit) in enumerate(cases):
@@ -1100,7 +1122,8 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
             if i == 0 and dtype == torch.float32:
                 main_err = max(errs)
     for label, shape, causal in (("smollm train", (8, 512, 512, 9, 3, 64), True),
-                                 ("hubert-xlarge train", (8, 512, 512, 16, 16, 80), False)):
+                                 ("hubert-xlarge train", (8, 512, 512, 16, 16, 80), False),
+                                 ("smollm dry-run config", (8, 4096, 4096, 9, 3, 64), True)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, qp, kp = attention_inputs(torch, dev, 500, *shape, dtype)
             dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(650),
@@ -3979,6 +4002,156 @@ def run_profile(card: str, torch, ops, dev) -> dict:
             "total_memory": total}
 
 
+# Phase 3j: the dry-run (``repro_torch.launch.dryrun``) on the card's machine.
+# Each record's dot FLOPs of one rank, as this repository's CPU run of the
+# same commands counts them (counts, not speeds): (mesh, shape) -> FLOPs.
+DRYRUN_FLOPS = {("pod16x16", "train_4k"): 97_235_912_097_792,
+                ("pod16x16", "prefill_32k"): 151_749_925_797_888,
+                ("pod16x16", "decode_32k"): 18_652_004_352,
+                ("pods2x16x16", "train_4k"): 48_617_956_048_896}
+# The record's config on one card: smollm-135m under dryrun_config, B x S
+DRYRUN_B, DRYRUN_S, DRYRUN_STEPS = 8, 4096, 3
+DRYRUN_ONE_RANK_FLOPS = 73_405_286_055_936   # lower_one's count of it on a (1,1) mesh
+DRYRUN_LOSS_TOL = 2e-2
+DRYRUN_MEM_SLACK = 64 * 2**20
+
+
+def run_dryrun_cli(card: str, torch) -> dict:
+    """Phase 3j (a): ``python -m repro_torch.launch.dryrun`` for smollm-135m
+    on the single-pod mesh (every shape) and for its train_4k on the
+    multi-pod mesh, as two subprocesses at once (a fake process group of
+    256 or 512 ranks each, on the meta device); their summaries, their
+    records' dot FLOPs against ``DRYRUN_FLOPS``, and the card's free memory
+    before and after them."""
+    import tempfile
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {"single": (["--arch", TRAIN_ARCH, "--mesh", "single"],
+                       "3 counted, 1 skipped (documented), 0 errors"),
+            "multi": (["--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh", "multi"],
+                      "1 counted, 0 skipped (documented), 0 errors")}
+    free0 = free_device_memory(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+            for name, (args, _) in runs.items()}
+        outs = {name: p.communicate(timeout=900) for name, p in procs.items()}
+        wall = time.perf_counter() - t0
+        records = {name: json.loads((Path(out) / f"dryrun_{name}.json").read_text())
+                   for name in runs if (Path(out) / f"dryrun_{name}.json").exists()}
+    free1 = free_device_memory(torch)
+    for name, (stdout, stderr) in outs.items():
+        summary = [ln for ln in stdout.splitlines() if ln.startswith("[dryrun] ") and "counted" in ln]
+        log(f"[dryrun] --mesh {name}: rc {procs[name].returncode}, {summary[-1] if summary else stdout[-400:]!r}")
+        assert procs[name].returncode == 0, stderr[-3000:]
+        assert summary and summary[-1] == f"[dryrun] {runs[name][1]}", summary
+    counted = {}
+    for name, recs in records.items():
+        for r in recs:
+            if r["status"] != "counted":
+                log(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: {r['status']} ({r.get('reason')})")
+                continue
+            counted[(r["mesh"], r["shape"])] = r
+            log(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']} ({r['chips']} ranks, rank 0): "
+                f"dot_flops {r['device_flops']!r}, bytes {r['device_bytes']!r}, collectives "
+                f"{r['collectives_by_kind']}, arg/temp/output {r['arg_bytes']}/{r['temp_bytes']}/"
+                f"{r['output_bytes']}; roofline compute {r['compute_s'] * 1e3:.3f} ms memory "
+                f"{r['memory_s'] * 1e3:.3f} ms collective {r['collective_s'] * 1e3:.3f} ms -> "
+                f"{r['dominant']}-bound, useful-flops {r['useful_flops_ratio']:.4f}, "
+                f"hbm/dev {r['hbm_per_device_gib']:.2f} GiB; t_count_s {r['t_count_s']}")
+    log(f"[dryrun] both runs {wall!r} s wall (at once, on the host); the card's free memory "
+        f"before {free0}, after {free1} bytes {card}")
+    assert set(counted) == set(DRYRUN_FLOPS), sorted(counted)
+    for key, flops in DRYRUN_FLOPS.items():
+        assert counted[key]["device_flops"] == flops, (key, counted[key]["device_flops"], flops)
+    assert abs(free1 - free0) <= DRYRUN_MEM_SLACK, (free0, free1)
+    return {"wall_s": wall, "t_count_s": {f"{m} {s}": r["t_count_s"] for (m, s), r in counted.items()},
+            "device_flops": {f"{m} {s}": r["device_flops"] for (m, s), r in counted.items()},
+            "memory_delta": free0 - free1}
+
+
+def run_dryrun_config(card: str, torch, ops, dev) -> dict:
+    """Phase 3j (b): the record's config on one card.  ``lower_one`` counts
+    smollm-135m under ``dryrun_config`` at B x S on a (1,1) mesh of a fake
+    group of one rank (destroyed before the steps); then ``DRYRUN_STEPS``
+    AdamW steps of that config on the card, twice, from the same weights and
+    batches: the kernel-free path that was counted, and ``attn_impl="pallas"``
+    (K1's forward and backward in bf16 at hd 64), every launch count set to 0
+    just before each and read just after.  Each path's peak memory beside the
+    record's ``arg_bytes + temp_bytes`` and its steady step beside
+    ``step_time_s``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import kernel_free
+    from repro_torch.launch.shapes import ShapeSpec, dryrun_config
+    from repro_torch.launch.train import batch_source
+    from repro_torch.train import adamw, linear_warmup_cosine, make_train_state, make_train_step
+
+    shape = ShapeSpec("train_4k", "train", DRYRUN_S, DRYRUN_B)
+    with dryrun.fake_group(1):
+        rec = dryrun.lower_one(TRAIN_ARCH, shape, make_mesh((1, 1), ("data", "model")),
+                               "one-card", verbose=False)
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    log(f"[dryrun] {TRAIN_ARCH} dryrun_config B={DRYRUN_B} S={DRYRUN_S} on a (1,1) mesh: "
+        f"dot_flops {rec['device_flops']!r}, arg/temp/output {rec['arg_bytes']}/"
+        f"{rec['temp_bytes']}/{rec['output_bytes']} bytes, step_time_s {rec['step_time_s']!r} "
+        f"({rec['dominant']}-bound), t_count_s {rec['t_count_s']}")
+    assert rec["device_flops"] == DRYRUN_ONE_RANK_FLOPS, rec["device_flops"]
+
+    free = kernel_free(dryrun_config(get_config(TRAIN_ARCH)))
+    paths = {"kernel-free": free, "K1": dataclasses.replace(free, attn_impl="pallas")}
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                batch_source(free, DRYRUN_B, DRYRUN_S)(i).items()} for i in range(DRYRUN_STEPS)]
+    out = {}
+    for tag, cfg in paths.items():
+        opt = adamw(linear_warmup_cosine(3e-4, 100, 10_000),
+                    moment_dtype=getattr(torch, cfg.opt_moment_dtype))
+        state = make_train_state(torch.Generator(device=dev).manual_seed(0), cfg, opt, dev)
+        step = make_train_step(cfg, opt, microbatch=cfg.train_microbatch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for name in KERNELS:
+            getattr(ops, name).launches = 0
+        losses, times = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {name: getattr(ops, name).launches for name in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        steady = min(times[1:])
+        predicted = rec["arg_bytes"] + rec["temp_bytes"]
+        log(f"[dryrun] {tag} path, {DRYRUN_STEPS} steps: losses {losses}, step times {times}, "
+            f"launches {launches}; peak memory {peak} bytes vs the record's arg+temp {predicted} "
+            f"(ratio {peak / predicted:.4f}); steady step {steady!r} s vs step_time_s "
+            f"{rec['step_time_s']!r} (ratio {steady / rec['step_time_s']:.3f}) {card}")
+        assert all(math.isfinite(x) for x in losses), losses
+        out[tag] = {"losses": losses, "step_s": times, "peak_bytes": peak,
+                    "peak_over_record": peak / predicted,
+                    "steady_over_predicted": steady / rec["step_time_s"], "launches": launches}
+        del state, step, opt
+    expect = expected_train_launches(paths["K1"], DRYRUN_STEPS)
+    assert not any(out["kernel-free"]["launches"].values()), out["kernel-free"]["launches"]
+    assert out["K1"]["launches"] == expect, (out["K1"]["launches"], expect)
+    rel = abs(out["K1"]["losses"][0] - out["kernel-free"]["losses"][0]) / \
+        abs(out["kernel-free"]["losses"][0])
+    log(f"[dryrun] first-step losses: kernel-free {out['kernel-free']['losses'][0]!r}, K1 "
+        f"{out['K1']['losses'][0]!r}, relative gap {rel!r} (limit {DRYRUN_LOSS_TOL})")
+    assert rel <= DRYRUN_LOSS_TOL, rel
+    return {"record": {k: rec[k] for k in ("device_flops", "arg_bytes", "temp_bytes",
+                                           "output_bytes", "step_time_s", "t_count_s")},
+            "paths": {tag: {k: v for k, v in o.items() if k != "launches"}
+                      for tag, o in out.items()},
+            "first_loss_gap": rel, "launches": out["K1"]["launches"]}
+
+
 def main() -> int:
     import os
 
@@ -4179,6 +4352,13 @@ def main() -> int:
     profile = run_profile(card, torch, ops, dev)
     per_path[f"{TRAIN_ARCH} profiled trial"] = profile["launches"]
 
+    # -- 3j. the dry-run on this machine, then the record's config on the card ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_cli = run_dryrun_cli(card, torch)
+    dry_cfg = run_dryrun_config(card, torch, ops, dev)
+    per_path[f"{TRAIN_ARCH} dry-run config"] = dry_cfg["launches"]
+
     # The backwards are the gradients of the same TPU kernels (forward-only in JAX)
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:77",
                "flash_attention_bwd": "src/repro/kernels/flash_attention.py:77",
@@ -4236,7 +4416,8 @@ def main() -> int:
         sweep={key: val for key, val in sweep.items() if key not in ("launches", "losses")},
         cluster_sweep={key: val for key, val in cluster.items() if key != "launches"},
         vmap_sweep={key: val for key, val in vmap_sweep.items() if key != "launches"},
-        profiled_trial={key: val for key, val in profile.items() if key != "launches"})
+        profiled_trial={key: val for key, val in profile.items() if key != "launches"},
+        dryrun={"cli": dry_cli, "one_card": {k: v for k, v in dry_cfg.items() if k != "launches"}})
     log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "
         f"{PROFILER['unmeasured']} measurements with no whole session (not measured)")
     left = stop_started_processes()

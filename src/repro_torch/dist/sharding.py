@@ -43,10 +43,20 @@ What differs from the original:
 * ``make_shardings`` gives each spec as DTensor placements, one per mesh
   dim; ``shard_train_state`` and ``shard_batch`` distribute a train state
   and a batch by them (the original's ``jax.jit(..., in_shardings=...)``).
-* ``constrain`` redistributes a DTensor activation; under an active policy a
+* ``constrain`` redistributes a DTensor activation, sums its partial sums
+  and pins its gradient to the same placements; under an active policy a
   plain tensor raises, so that nothing runs unsharded unseen.
-* ``local_shards`` runs a kernel wrapper on each rank's shards
-  (``local_map``), which XLA's partitioner does for a Pallas call.
+* ``local_shards`` runs attention, the kernel's wrapper or the plain
+  version, on each rank's shards (``local_map``), which XLA's partitioner
+  does for a Pallas call and for a batch- and head-local product.
+* DTensor chooses each op's placements by the cost of communication, not
+  of compute, and leaves sums partial; XLA's partitioner splits the work.
+  Under an active policy the model asks for XLA's choices: ``gathered``
+  (FSDP weights gathered for their use), ``constrain`` at residual adds
+  and norms, ``spread_over_idle``/``spread_product`` (a product over the
+  axes nothing else splits), ``lookup`` (the embedding on each rank's
+  ids), ``policy_caches``, ``microbatch``.  On plain tensors, or without
+  a policy, each leaves the unsharded path as it was.
 """
 from __future__ import annotations
 
@@ -55,13 +65,15 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import local_map
 
 __all__ = [
     "P", "spec_for", "param_specs", "train_state_specs", "batch_specs",
     "cache_specs", "make_shardings", "constrain", "sharding_strategy",
     "activation_policy", "STRATEGIES", "shard_train_state", "shard_batch",
+    "shard_params", "shard_caches", "policy_caches", "microbatch",
+    "pin_grad", "gathered", "spread_over_idle", "spread_product", "lookup",
     "local_shards", "replicated_like", "whole_on", "placed_like", "full_value",
 ]
 
@@ -430,18 +442,55 @@ def _distribute(t: torch.Tensor, mesh, placements) -> DTensor:
     return distribute_tensor(t, mesh, placements)
 
 
+def _shard_modules(params, mesh, placements: Dict[str, Any]):
+    """``params``' parameters replaced, in place, by DTensors placed by
+    ``placements`` (parameter name -> placements); returns ``params``."""
+    from torch import nn
+    for name, p in list(params.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = params.get_submodule(owner) if owner else params
+        dt = _distribute(p.detach(), mesh, placements[name])
+        setattr(module, leaf, nn.Parameter(dt, requires_grad=p.requires_grad))
+    return params
+
+
+def shard_params(params, mesh, cfg=None):
+    """An ``LM`` with its parameters replaced, in place, by DTensors placed
+    by ``param_specs`` (the original's ``in_shardings`` of a serving
+    step's parameters); returns it."""
+    return _shard_modules(params, mesh, make_shardings(param_specs(params, mesh, cfg), mesh))
+
+
+def shard_caches(caches: Any, mesh, global_batch: int) -> Any:
+    """Decode caches (the same full caches on every rank) as DTensors placed
+    by ``cache_specs``, in the caches' nest."""
+    shardings = make_shardings(cache_specs(caches, mesh, global_batch), mesh)
+
+    def place(tree, placements):
+        if isinstance(tree, dict):
+            return {k: place(v, placements[k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(place(v, pl) for v, pl in zip(tree, placements))
+        return _distribute(tree, mesh, placements)
+
+    return place(caches, shardings)
+
+
+def policy_caches(caches: Any, global_batch: int) -> Any:
+    """Fresh decode caches placed by ``cache_specs`` on the active
+    ``activation_policy``'s mesh (``shard_caches``); as they are when no
+    policy is active."""
+    mesh = _state["act_mesh"]
+    return caches if mesh is None else shard_caches(caches, mesh, global_batch)
+
+
 def shard_train_state(state, mesh, cfg=None):
     """The state with its ``LM``'s parameters replaced, in place, by
     DTensors placed by ``train_state_specs`` (``make_shardings``), and its
     optimizer moments distributed likewise; counters stay Python ints."""
-    from torch import nn
     from ..train import TrainState
     shardings = make_shardings(train_state_specs(state, mesh, cfg), mesh)
-    for name, p in list(state.params.named_parameters()):
-        owner, _, leaf = name.rpartition(".")
-        module = state.params.get_submodule(owner) if owner else state.params
-        dt = _distribute(p.detach(), mesh, shardings.params[name])
-        setattr(module, leaf, nn.Parameter(dt, requires_grad=p.requires_grad))
+    _shard_modules(state.params, mesh, shardings.params)
 
     def moments(tree, placements):
         if isinstance(tree, dict):
@@ -471,13 +520,139 @@ def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """A DTensor parameter's gradient redistributed to the parameter's
-    placements (autograd may hand it back partial or otherwise placed), so
-    that the optimizer's moments keep the parameter's; a plain gradient as
-    it is."""
-    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
-        return g.redistribute(p.device_mesh, p.placements)
-    return g
+    """``g`` redistributed to the placements of the DTensor ``p`` of its
+    shape: a parameter's gradient (autograd may hand it back partial or
+    otherwise placed), so that the optimizer's moments keep the
+    parameter's, or an activation placed as the input it came from (a
+    partial placement of ``p`` taken as replicated); a plain tensor as it
+    is."""
+    if not isinstance(p, DTensor):
+        return g
+    placements = tuple(Replicate() if isinstance(pl, Partial) else pl for pl in p.placements)
+    return g if tuple(g.placements) == placements else g.redistribute(p.device_mesh, placements)
+
+
+@contextlib.contextmanager
+def gathered(*modules):
+    """Under an active ``activation_policy``, each DTensor parameter of
+    ``modules`` (``None`` skipped) stands, inside the block, as its gather
+    over the data axes, its ``model`` split kept: XLA's partitioner
+    all-gathers an FSDP-sharded weight before its use, so that the batch
+    stays split over the data axes and each matmul runs on 1/ranks of the
+    work.  A vector (a norm's scale, a mix or decay vector) is gathered
+    whole, as XLA gathers it: split over ``model`` it would make DTensor
+    split the activation it scales, and the next matmul's fan-in; a linear
+    layer's bias is split as its weight's output dim.  Autograd's
+    backward reduce-scatters the gradient onto the parameter.  Without a
+    policy nothing changes."""
+    mesh = _state["act_mesh"]
+    swapped = []
+    if mesh is not None:
+        data = [i for i, a in enumerate(_axis_names(mesh)) if a != _MODEL_AXIS]
+        for module in modules:
+            for mod in ([] if module is None else module.modules()):
+                for name, p in list(mod._parameters.items()):
+                    if not isinstance(p, DTensor):
+                        continue
+                    if isinstance(mod, torch.nn.Linear) and name == "bias":
+                        # split as the (gathered) weight's output dim, which follows it
+                        placements = tuple(pl if pl == Shard(0) else Replicate()
+                                           for pl in mod._parameters["weight"].placements)
+                    else:
+                        placements = tuple(Replicate() if i in data or p.ndim <= 1 else pl
+                                           for i, pl in enumerate(p.placements))
+                    placements = _on_split_dims(placements, p)
+                    if placements != tuple(p.placements):
+                        swapped.append((mod, name, p))
+                        mod._parameters[name] = p.redistribute(p.device_mesh, placements)
+    try:
+        yield
+    finally:
+        for mod, name, p in swapped:
+            mod._parameters[name] = p
+
+
+def spread_over_idle(x: torch.Tensor, w: Optional[torch.Tensor] = None,
+                     dim: int = 1, over: str = _MODEL_AXIS) -> torch.Tensor:
+    """``x`` with ``dim`` split over the ``model`` axis (``over="model"``)
+    or over the data axes (``over="data"``) where ``x`` is whole on them,
+    and so is the weight ``w`` of the product it feeds when one is given:
+    XLA's partitioner splits such a product over the idle axes (a
+    projection that the head-aware rules keep off ``model``, a router, the
+    dispatch of tokens to experts that ``model`` splits, the one group of a
+    decode step's tokens that the data axes cannot split).  Where ``dim``
+    does not divide, the batch (dim 0) is split further, if it divides.
+    Otherwise, and for a plain tensor, ``x`` as it is."""
+    if not isinstance(x, DTensor) or (w is not None and not isinstance(w, DTensor)):
+        return x
+    names, sizes = _axis_names(x.device_mesh), x.device_mesh.shape
+    idle = [i for i, a in enumerate(names) if (a == _MODEL_AXIS) == (over == _MODEL_AXIS)
+            and sizes[i] > 1 and isinstance(x.placements[i], (Replicate, Partial))
+            and (w is None or isinstance(w.placements[i], Replicate))]
+    if not idle:
+        return x
+    for d in (dim, 0):
+        split = math.prod(n for n, p in zip(sizes, x.placements) if p == Shard(d))
+        if d < x.ndim and x.shape[d] % (split * math.prod(sizes[i] for i in idle)) == 0:
+            placements = list(x.placements)
+            for i in idle:
+                placements[i] = Shard(d)
+            return x.redistribute(x.device_mesh, placements)
+    return x
+
+
+def spread_product(fn: Callable, x: torch.Tensor, w: Optional[torch.Tensor] = None,
+                   overs: Sequence[str] = (_MODEL_AXIS,)) -> torch.Tensor:
+    """``fn(x)`` (a product of ``x`` by the weight ``w``, on x's last dim)
+    with x's rows, its other dims flattened, split further over the idle
+    axes of ``overs`` in turn (``spread_over_idle``), and the result placed
+    back as the rows were before, then unflattened: XLA splits such a
+    product over the axes that nothing else splits.  The rows are split as
+    one dim because DTensor does not flatten a split sequence dim into a
+    matmul's rows alike in every torch version.  A plain ``x``, or one
+    with no idle axis, is ``fn(x)``."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    rows = x.reshape(-1, x.shape[-1])
+    split = rows
+    for over in overs:
+        split = spread_over_idle(split, w, dim=0, over=over)
+    if split is rows:
+        return fn(x)
+    y = placed_like(fn(split), rows)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def pin_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is in the forward, with its gradient redistributed in
+    the backward to the placements ``x`` has (DTensor's redistribute to the
+    same placements); a plain tensor, or one on a mesh of one rank (where
+    every placement holds the same values), as it is."""
+    if not isinstance(x, DTensor) or x.device_mesh.size() == 1:
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
+
+
+def _on_split_dims(placements: Sequence[Any], x: DTensor) -> Tuple[Any, ...]:
+    """``placements`` where ``x``'s mesh dim has more than one rank, and
+    x's own where it has one: a placement on a mesh dim of one rank holds
+    the same values whatever it is, so redistributing there only costs a
+    dispatch."""
+    return tuple(own if n == 1 else pl
+                 for pl, own, n in zip(placements, x.placements, x.device_mesh.shape))
+
+
+def microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Slice ``i`` of ``n`` along dim 0 of a batch leaf, ``x.reshape(n, B //
+    n, ...)[i]`` as the original slices it.  A DTensor is gathered whole
+    first (DTensor cannot split a sharded dim unevenly, nor index one), and
+    the slice placed by ``batch_specs``."""
+    if not isinstance(x, DTensor):
+        return x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+    mesh = x.device_mesh
+    whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    part = whole.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+    return part.redistribute(mesh, make_shardings(batch_specs(part, mesh), mesh))
 
 
 def full_value(x: torch.Tensor) -> torch.Tensor:
@@ -489,14 +664,32 @@ def full_value(x: torch.Tensor) -> torch.Tensor:
 def whole_on(x: torch.Tensor, *dims: int) -> torch.Tensor:
     """``x`` with each of ``dims`` whole on every rank: a DTensor's shards
     of those dims gathered (a vocab-split logit row before a gather or an
-    argmax along it, an embedding table before a lookup); a plain tensor as
-    it is."""
+    argmax along it, an embedding table before a lookup), and a partial
+    sum summed; a plain tensor as it is."""
     if not isinstance(x, DTensor):
         return x
     dims = {d % x.ndim for d in dims}
-    placements = tuple(Replicate() if isinstance(p, Shard) and p.dim in dims else p
+    placements = tuple(Replicate() if isinstance(p, Partial) or
+                       (isinstance(p, Shard) and p.dim in dims) else p
                        for p in x.placements)
     return x if placements == tuple(x.placements) else x.redistribute(x.device_mesh, placements)
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  A DTensor table is gathered whole (``whole_on``);
+    with DTensor ids each rank looks up its own ids (``local_map``), placed
+    as they are, and the table's gradient comes back partial over the mesh
+    dims that split the ids: DTensor's own index and its backward differ
+    between torch versions."""
+    whole = whole_on(table, 0, 1)
+    if not isinstance(ids, DTensor):
+        return whole[ids]
+    pl = tuple(ids.placements)
+    rep = (Replicate(),) * len(pl)
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in pl)
+    mapped = local_map(lambda t, i: t[i], out_placements=(pl,), in_placements=(rep, pl),
+                       in_grad_placements=(grad, pl), device_mesh=ids.device_mesh)
+    return mapped(whole, ids)
 
 
 # -- in-model activation constraints ------------------------------------------------
@@ -528,8 +721,31 @@ def constrain(x: torch.Tensor) -> torch.Tensor:
             and _state["strategy"] != "dp_only"
             and _model_size(mesh) > 1 and shape[1] % _model_size(mesh) == 0):
         entries[1] = _MODEL_AXIS
-    placements = _placements(P(*entries), mesh)
-    return x if tuple(x.placements) == placements else x.redistribute(mesh, placements)
+    placements = _on_split_dims(_placements(P(*entries), mesh), x)
+    if placements != tuple(x.placements):
+        if any(isinstance(p, Partial) for p in x.placements):
+            x = _SumPartials.apply(x, placements)
+        else:
+            x = x.redistribute(mesh, placements)
+    # the gradient, too, comes back placed so: from a column-split matmul
+    # downstream it comes partial, and XLA sums it here
+    return pin_grad(x)
+
+
+class _SumPartials(torch.autograd.Function):
+    """A DTensor's partial sums summed into ``placements`` (an all-reduce or
+    a reduce-scatter), with its gradient passed back as it comes, as XLA
+    differentiates an all-reduce.  DTensor's own backward would hand back a
+    partial gradient, which makes the next matmul's backward gather its
+    weight and run whole on every rank of the axis."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 # -- kernels on local shards --------------------------------------------------------
@@ -555,20 +771,50 @@ def _attention_placements(q: DTensor, k: DTensor):
 def local_shards(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, k_pos: torch.Tensor, **kwargs) -> torch.Tensor:
     """``fn(q, k, v, q_pos, k_pos, **kwargs)`` (an attention kernel's
-    wrapper) on each rank's local shards when ``q`` is a DTensor, under
-    ``local_map``; the inputs are first redistributed to
-    ``_attention_placements``, and the output is placed as q then is.
+    wrapper, or the plain attention) on each rank's local shards when ``q``
+    is a DTensor, under ``local_map``; the inputs are first redistributed
+    by ``_attention_inputs``, and the output is placed as q then is.
     Autograd's backward goes through the same map, so the wrapper's
     backward runs on the local shards of the output's gradient.  A plain
     ``q`` calls ``fn`` as it is."""
     if not isinstance(q, DTensor):
         return fn(q, k, v, q_pos, k_pos, **kwargs)
+    args = _attention_inputs(q, k, v, q_pos, k_pos)
+    qkv, pos = _attention_placements(args[0], args[1])
+    mapped = local_map(lambda *a: fn(*a, **kwargs), out_placements=(qkv,),
+                       in_placements=(qkv, qkv, qkv, pos, pos), device_mesh=q.device_mesh)
+    return mapped(*args)
+
+
+def _repeat_heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """k or v (B, S, K, hd) with each of its K heads repeated for the H // K
+    query heads of its group: (B, S, H, hd), the same attention.  A
+    DTensor's heads are gathered first."""
+    B, S, K, hd = t.shape
+    if K == H:
+        return t
+    t = whole_on(t, 2)[:, :, :, None].expand(B, S, K, H // K, hd)
+    return t.reshape(B, S, H, hd)
+
+
+def _attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, k_pos: torch.Tensor):
+    """q, k, v and the positions redistributed to ``_attention_placements``
+    when ``q`` is a DTensor (a plain position made replicated), so that
+    attention runs on each rank's batch and heads alone, the GQA groups
+    whole; plain tensors as they are.  Where q's heads are split over a
+    mesh dim that the kv heads do not divide, k and v are first repeated to
+    q's H heads (each kv head once for each query head of its group, the
+    same attention), so that the heads stay split, as XLA splits them."""
+    if not isinstance(q, DTensor):
+        return q, k, v, q_pos, k_pos
     mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    if any(isinstance(p, Shard) and p.dim == 2 and H % n == 0 and K % n
+           for n, p in zip(mesh.shape, q.placements)):
+        k, v = _repeat_heads(k, H), _repeat_heads(v, H)
     qkv, pos = _attention_placements(q, k)
     q_pos, k_pos = (replicated_like(p, q) if not isinstance(p, DTensor) else p
                     for p in (q_pos, k_pos))
-    args = [t.redistribute(mesh, pl) if tuple(t.placements) != pl else t
-            for t, pl in zip((q, k, v, q_pos, k_pos), (qkv, qkv, qkv, pos, pos))]
-    mapped = local_map(lambda *a: fn(*a, **kwargs), out_placements=(qkv,),
-                       in_placements=(qkv, qkv, qkv, pos, pos), device_mesh=mesh)
-    return mapped(*args)
+    return tuple(t.redistribute(mesh, pl) if tuple(t.placements) != pl else t
+                 for t, pl in zip((q, k, v, q_pos, k_pos), (qkv, qkv, qkv, pos, pos)))

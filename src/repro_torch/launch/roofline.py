@@ -45,6 +45,27 @@ config with ``attn_impl="pallas"`` made ``"auto"`` and ``kernel_impl="jnp"``
 kernels compute the same function, so the count is the function's work, not
 the kernel's.
 
+A step on DTensors is counted for one rank, as JAX's walker counts the
+SPMD-partitioned program of one device.  The mode returns
+``NotImplemented`` for an op with a DTensor among its arguments, so that
+DTensor's own handler runs the op, and the mode then sees what the rank
+runs: the local op on its shards and the collectives of a redistribution.
+On a miss of its sharding-propagation cache DTensor also runs the op once
+on global-shape fake tensors, to learn the output's shape, and computes
+shard sizes with small tensor ops of its own; that planning is no work of
+the rank's and is counted nothing: DTensor runs it under a
+``FakeTensorMode``, and the mode skips every op it sees while one is
+active.  That one test suffices on torch 2.11 and 2.13: a mark set inside
+DTensor's propagation and redistribution-planning functions missed some
+planning ops on both, and a test for fake tensors among the arguments
+added nothing.  So the count does not depend on the cache's state: a step
+counted twice in one process, or once in a fresh one, gives the same
+numbers (``tests/test_torch_dryrun.py``).  ``arg_bytes`` and
+``output_bytes`` take a DTensor's local shard.  A step without DTensors
+is counted as before, op by op.  Re-routing was chosen over reading the
+local shapes off the DTensor arguments because DTensor alone knows which
+redistribution and which local op it runs.
+
 ``normalize_cost_analysis`` has no counterpart: it evens out what XLA's
 ``compiled.cost_analysis()`` returns across jax versions, and the port has
 no compiler and so no cost analysis.  ``RooflineReport.ca_flops_raw`` and
@@ -59,6 +80,7 @@ from dataclasses import dataclass
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -93,7 +115,15 @@ def _tensors(tree):
 
 
 def _nbytes(t: torch.Tensor) -> int:
+    """A tensor's bytes; a DTensor's, those of this rank's shard."""
+    if isinstance(t, DTensor):
+        t = t.to_local()
     return t.numel() * t.element_size()
+
+
+def _planning() -> bool:
+    """Whether DTensor's planning runs this op (the module docstring)."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
 
 
 class _CostMode(TorchDispatchMode):
@@ -114,14 +144,18 @@ class _CostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        flat = tree_flatten((args, kwargs))[0]
+        if any(isinstance(x, DTensor) for x in flat):
+            return NotImplemented              # DTensor runs it; the local ops come back here
+        if _planning():
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         name = func._opname
         if func.namespace == "aten" and name in _DOTS:
             a = args[_DOTS[name]]
             self._add("dot_flops", 2.0 * out.numel() * a.shape[-1])
         kind = _COLLECTIVES.get(name) if func.namespace == "_c10d_functional" else None
-        inputs = [x.untyped_storage() for x in tree_flatten((args, kwargs))[0]
-                  if isinstance(x, torch.Tensor)]
+        inputs = [x.untyped_storage() for x in flat if isinstance(x, torch.Tensor)]
         returns = func._schema.returns
         for i, o in enumerate(tree_flatten(out)[0]):
             if not isinstance(o, torch.Tensor):

@@ -14,7 +14,9 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..dist.sharding import placed_like
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv6_mod
 from .config import ModelConfig
@@ -60,9 +62,15 @@ def update_attn_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
     else:
         pos_vec = positions[0]  # synchronized decode: same positions per batch row
     slots = (pos_vec % cap).long()
-    cache["k"][:, slots] = k_new.to(cache["k"].dtype)
-    cache["v"][:, slots] = v_new.to(cache["v"].dtype)
-    cache["kpos"][slots] = pos_vec.to(torch.int32)
+    k, v, kpos = cache["k"], cache["v"], cache["kpos"]
+    if isinstance(k, DTensor):
+        # each rank writes its own shard: the new k/v placed as the cache is,
+        # the slots whole (DTensor's own index_put_ differs between versions)
+        k_new, v_new = (placed_like(t.to(k.dtype), k).to_local() for t in (k_new, v_new))
+        k, v, kpos, slots, pos_vec = (t.to_local() for t in (k, v, kpos, slots, pos_vec))
+    k[:, slots] = k_new.to(k.dtype)
+    v[:, slots] = v_new.to(v.dtype)
+    kpos[slots] = pos_vec.to(torch.int32)
     return cache
 
 

@@ -73,6 +73,12 @@ class Norm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # on DTensors pinned to the batch's placements, its gradient too: XLA
+        # sums the partial gradient of the split matmuls after the norm before
+        # the norm's backward, and a DTensor norm may come out partial
+        return sharding.constrain(self._norm(x))
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "layernorm":
             xf = x.float()
             mu = xf.mean(-1, keepdim=True)
@@ -173,7 +179,9 @@ def attend(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     """Scaled-dot-product attention core with mask from positions.
 
     ``impl="pallas"`` (the JAX name, kept so configs compare equal) selects
-    the CUDA flash-attention kernel for S > 1."""
+    the CUDA flash-attention kernel for S > 1.  On DTensors attention runs
+    on each rank's batch and heads (``sharding.local_shards``), the kernel
+    and the plain versions alike, as XLA partitions it."""
     impl = impl or cfg.attn_impl
     S = q.shape[1]
     if impl == "auto":
@@ -181,11 +189,18 @@ def attend(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     if impl == "pallas" and S > 1:   # on each rank's shards when q is a DTensor
         return sharding.local_shards(kops.flash_attention, q, k_all, v_all, q_pos, k_pos,
                                      causal=causal, window=window, softcap=cfg.logit_softcap)
-    if impl == "chunked" and S > 1:
-        return _sdpa_chunked(q, k_all, v_all, q_pos, k_pos, causal, window,
-                             cfg.logit_softcap, cfg.attn_chunk)
-    bias = _mask_bias(q_pos, k_pos, causal, window)
-    return _sdpa(q, k_all, v_all, bias, cfg.logit_softcap)
+    chunk = cfg.attn_chunk if impl == "chunked" and S > 1 else None
+    return sharding.local_shards(_plain_attention, q, k_all, v_all, q_pos, k_pos, causal=causal,
+                                 window=window, softcap=cfg.logit_softcap, chunk=chunk)
+
+
+def _plain_attention(q, k, v, q_pos, k_pos, causal: bool, window: Optional[int],
+                     softcap: Optional[float], chunk: Optional[int]) -> torch.Tensor:
+    """Attention in PyTorch: online softmax over q-chunks of ``chunk``, or
+    at once when ``chunk`` is None."""
+    if chunk:
+        return _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, softcap, chunk)
+    return _sdpa(q, k, v, _mask_bias(q_pos, k_pos, causal, window), softcap)
 
 
 class Attention(nn.Module):
@@ -204,9 +219,11 @@ class Attention(nn.Module):
 
     def _qkv(self, x: torch.Tensor, cfg: ModelConfig):
         B, S, _ = x.shape
+        # DTensors: a projection off the model axis split over it, as XLA splits it
+        kv = lambda lin: sharding.spread_product(lin, x, lin.weight)
         return (self.wq(x).reshape(B, S, cfg.n_heads, cfg.hd),
-                self.wk(x).reshape(B, S, cfg.kv_heads, cfg.hd),
-                self.wv(x).reshape(B, S, cfg.kv_heads, cfg.hd))
+                kv(self.wk).reshape(B, S, cfg.kv_heads, cfg.hd),
+                kv(self.wv).reshape(B, S, cfg.kv_heads, cfg.hd))
 
     def project_qkv(self, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
         """QKV projection + RoPE.  Returns q (B,S,H,hd), k/v (B,S,K,hd)."""
@@ -263,8 +280,9 @@ class Embedding(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """A DTensor table is gathered whole for the lookup, as XLA gathers
-        a sharded table; the tied LM head reads it sharded."""
-        x = sharding.whole_on(self.tok, 0, 1)[tokens].to(_dtype(cfg.activation_dtype))
+        a sharded table (``sharding.lookup``); the tied LM head reads it
+        sharded."""
+        x = sharding.lookup(self.tok, tokens).to(_dtype(cfg.activation_dtype))
         if cfg.embedding_scale:
             # the scale rounded to the activation dtype first, as JAX does
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)

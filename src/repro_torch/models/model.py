@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
-from ..dist.sharding import constrain, replicated_like, whole_on
+from ..dist.sharding import constrain, gathered, policy_caches, replicated_like, whole_on
 from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
@@ -70,14 +70,15 @@ def _embed_inputs(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig) 
     """(B, S, d_model) in the activation dtype: the projected frames
     (``audio_stub``), the projected patches followed by the token embeddings
     (``vision_stub``), or the token embeddings."""
-    adt = L._dtype(cfg.activation_dtype)
-    if cfg.frontend == "audio_stub":
-        return F.linear(batch["features"].to(adt), params.frontend.proj.weight.to(adt))
-    x = params.embed.embed_tokens(batch["tokens"], cfg)
-    if cfg.frontend == "vision_stub":
-        img = F.linear(batch["patch_embeds"].to(adt), params.frontend.proj.weight.to(adt))
-        x = torch.cat([img, x], dim=1)
-    return constrain(x)
+    with gathered(params.frontend):   # a sharded projection, FSDP-gathered for its use
+        adt = L._dtype(cfg.activation_dtype)
+        if cfg.frontend == "audio_stub":
+            return F.linear(batch["features"].to(adt), params.frontend.proj.weight.to(adt))
+        x = params.embed.embed_tokens(batch["tokens"], cfg)
+        if cfg.frontend == "vision_stub":
+            img = F.linear(batch["patch_embeds"].to(adt), params.frontend.proj.weight.to(adt))
+            x = torch.cat([img, x], dim=1)
+        return constrain(x)
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -88,7 +89,8 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return L.lm_logits(params.embed, params.lm_head, params.final_norm(x), cfg)
+    with gathered(params.embed, params.lm_head, params.final_norm):
+        return L.lm_logits(params.embed, params.lm_head, params.final_norm(x), cfg)
 
 
 # -- losses -------------------------------------------------------------------------
@@ -146,7 +148,7 @@ def prefill(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     logits (B, V), caches).  A VLM prompt is its image prefix
     ("patch_embeds") followed by its "tokens"; ``max_len`` counts both."""
     x = _embed_inputs(params, batch, cfg)
-    caches = T.init_caches(cfg, x.shape[0], max_len, x.device)
+    caches = policy_caches(T.init_caches(cfg, x.shape[0], max_len, x.device), x.shape[0])
     x, caches, _ = T.apply_stack(params.stack, cfg, x, _positions(x), caches, mode="prefill")
     return _logits(params, x[:, -1:], cfg)[:, 0], caches
 
@@ -158,6 +160,7 @@ def decode_step(params: LM, caches: List[Any], tokens: torch.Tensor, pos: int,
     (after a VLM prompt it counts the image prefix).  Returns (logits (B, V), caches updated in place)."""
     x = params.embed.embed_tokens(tokens[:, None], cfg)
     B = x.shape[0]
-    positions = torch.full((B, 1), int(pos), dtype=torch.int32, device=x.device)
+    positions = replicated_like(
+        torch.full((B, 1), int(pos), dtype=torch.int32, device=x.device), x)
     x, caches, _ = T.apply_stack(params.stack, cfg, x, positions, caches, mode="decode")
     return _logits(params, x, cfg)[:, 0], caches

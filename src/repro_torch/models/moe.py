@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist import sharding
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from . import layers as L
@@ -93,7 +94,7 @@ def _dispatch_tensors(top_w: torch.Tensor, top_idx: torch.Tensor, moe: MoEConfig
     pos = torch.cumsum(flat.transpose(1, 2), dim=-1).transpose(1, 2) - flat
     pos = pos.reshape(onehot.shape)                                 # (G,S,k,E)
     in_cap = (pos < C).float() * onehot
-    slots = torch.arange(C, device=pos.device)
+    slots = sharding.replicated_like(torch.arange(C, device=pos.device), pos)
     slot = (pos.long()[..., None] == slots).float()                 # (G,S,k,E,C)
     disp_k = in_cap[..., None] * slot
     dispatch = disp_k.sum(2)                                        # (G,S,E,C)
@@ -131,7 +132,10 @@ def _experts_ffn(p: MoELayer, expert_in: torch.Tensor, cfg: ModelConfig,
 
 def _router_logits(p: MoELayer, xg: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
     router_dtype = L._dtype(moe.router_dtype)
-    return xg.to(router_dtype) @ p.router.to(router_dtype)         # (G,S,E)
+    # DTensors: the product split over the axes that nothing else splits, as XLA's
+    logits = sharding.spread_product(lambda x: x.to(router_dtype) @ p.router.to(router_dtype),
+                                     xg, p.router, overs=("data", "model"))
+    return sharding.constrain(logits)   # (G,S,E)
 
 
 def _apply_moe_scatter(p: MoELayer, xg: torch.Tensor, cfg: ModelConfig
@@ -188,7 +192,10 @@ def apply_moe_layer(p: MoELayer, x: torch.Tensor, cfg: ModelConfig
         pad = n_groups * g + (g if n_tokens > n_groups * g else 0) - n_tokens
         xt = F.pad(xt, (0, 0, 0, pad))
         n_groups = xt.shape[0] // g
-    xg = xt.reshape(n_groups, g, D)
+    # a DTensor's gradient comes back as the groups were placed: from the
+    # dispatch it may come split over two mesh axes, which DTensor cannot
+    # fold back into a batch dim of fewer rows than ranks
+    xg = sharding.pin_grad(xt.reshape(n_groups, g, D))
 
     if moe.impl == "scatter":
         routed, aux = _apply_moe_scatter(p, xg, cfg)
@@ -202,11 +209,24 @@ def apply_moe_layer(p: MoELayer, x: torch.Tensor, cfg: ModelConfig
         aux = moe.n_experts * torch.mean(torch.sum(f * pbar, dim=-1))
 
         dtype = xg.dtype
-        expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dtype), xg)   # (E,G,C,D)
-        expert_out = _experts_ffn(p, expert_in, cfg, "egcd")
+        # on DTensors the experts split over the model axis, as their weights are,
+        # and the slots over the data axes where these split no group (decode)
+        dispatch, combine = (sharding.spread_over_idle(t, dim=2) for t in (dispatch, combine))
+        combine = sharding.spread_over_idle(combine, dim=3, over="data")
+        dispatch = sharding.spread_over_idle(dispatch, dim=1, over="data")
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dtype),
+                                 sharding.spread_over_idle(xg, dim=1, over="data"))
+        expert_in = sharding.spread_over_idle(expert_in, dim=2, over="data")  # (E,G,C,D)
+        # (placed as its input: DTensor may split the slots unevenly inside)
+        expert_out = sharding.placed_like(_experts_ffn(p, expert_in, cfg, "egcd"), expert_in)
         routed = torch.einsum("gsec,egcd->gsd", combine.to(dtype), expert_out)  # (G,S,D)
 
-    out = routed.reshape(-1, D)[:n_tokens].reshape(B, S, D)
+    # a DTensor's groups back on the batch's placements first: DTensor mis-splits
+    # a token dim split over more ranks than the batch dim it unflattens into
+    out = sharding.constrain(routed).reshape(-1, D)
+    if pad:   # (a DTensor's full slice would gather the token dim)
+        out = out[:n_tokens]
+    out = out.reshape(B, S, D)
     if moe.n_shared:
         out = out + p.shared(x)
     return out, aux.float()

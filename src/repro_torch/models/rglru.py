@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import replicated_like
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import _dtype, _linear, _normal
@@ -83,7 +84,8 @@ def _causal_conv1d(p: RGLRU, u: torch.Tensor,
     """Depthwise causal conv. u (B,S,R); conv_state (B,W-1,R) carries history."""
     W = p.conv_w.shape[0]
     if conv_state is None:
-        conv_state = torch.zeros((u.shape[0], W - 1, u.shape[2]), dtype=u.dtype, device=u.device)
+        conv_state = replicated_like(
+            torch.zeros((u.shape[0], W - 1, u.shape[2]), dtype=u.dtype, device=u.device), u)
     xext = torch.cat([conv_state.to(u.dtype), u], dim=1)      # (B, S+W-1, R)
     S = u.shape[1]
     out = sum(xext[:, i:i + S] * p.conv_w[i].to(u.dtype) for i in range(W)) \

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import replicated_like, whole_on
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import _dtype, _linear, _normal
@@ -90,7 +91,8 @@ def _ddlerp(p: TimeMix, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Data-dependent lerp -> (5, B, S, D) mixed inputs for r/k/v/w/g."""
     xm = x + (s - x) * p.mu_x.to(x.dtype)
     lora = torch.tanh(p.maa_w1(xm))                               # (B,S,5*r)
-    lora = lora.reshape(*lora.shape[:-1], _N_MIX, _LORA_MIX)
+    # a DTensor's 5*r dim whole first: 5 mixes do not split over the model axis
+    lora = whole_on(lora, -1).reshape(*lora.shape[:-1], _N_MIX, _LORA_MIX)
     m = torch.einsum("bsnr,nrd->nbsd", lora, p.maa_w2.to(x.dtype))
     m = m + p.mu_rkvwg.to(x.dtype)[:, None, None, :]
     return x[None] + (s - x)[None] * m
@@ -123,8 +125,9 @@ def _wkv_chunked(r, k, v, logw, u, state, chunk: int):
     pad = n_chunks * L - S
     if pad:  # logw=0 -> w=1 (no decay) and k=0: padded steps leave the state alone
         r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, logw))
-    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device), diagonal=-1)
-    eye = torch.eye(L, device=r.device)
+    mask = replicated_like(
+        torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device), diagonal=-1), r)
+    eye = replicated_like(torch.eye(L, device=r.device), r)
     uf = u.float()
     ys = []
     for c in range(n_chunks):
@@ -177,8 +180,8 @@ def apply_time_mix(p: TimeMix, x: torch.Tensor, cfg: ModelConfig,
     g = F.silu(p.w_g(xg))
     logw = _decay(p, xw).reshape(B, S, H, N)
 
-    wkv0 = state["wkv"] if state else torch.zeros((B, H, N, N), dtype=torch.float32,
-                                                  device=x.device)
+    wkv0 = state["wkv"] if state else replicated_like(
+        torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device), x)
     if S == 1:
         y, wkv = _wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p.u, wkv0)
         y = y[:, None]

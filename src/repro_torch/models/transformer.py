@@ -25,7 +25,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import constrain, replicated_like
+from ..dist.sharding import constrain, gathered, replicated_like
 from . import kvcache as kv
 from . import layers as L
 from . import moe as moe_mod
@@ -132,7 +132,7 @@ def _apply_block(bp: Block, cfg: ModelConfig, btype: str, x: torch.Tensor,
     if btype == "rwkv6":
         h, tm_state = rwkv6_mod.apply_time_mix(bp.tm, bp.norm1(x), cfg,
                                                state["tm"] if state else None)
-        x = x + h
+        x = constrain(x + h)   # a DTensor's partial sums (a split fan-in) summed here
         h, cm_state = rwkv6_mod.apply_channel_mix(bp.cm, bp.norm2(x), cfg,
                                                   state["cm"] if state else None)
         if state is not None:
@@ -142,7 +142,7 @@ def _apply_block(bp: Block, cfg: ModelConfig, btype: str, x: torch.Tensor,
         h, new_state = rglru_mod.apply_rglru_block(bp.rglru, bp.norm1(x), cfg, state)
         if state is not None:
             _write(state, new_state)
-        x = x + h
+        x = constrain(x + h)
         return x + bp.mlp(bp.norm2(x)), None
 
     # attention / local_attn
@@ -162,7 +162,7 @@ def _apply_block(bp: Block, cfg: ModelConfig, btype: str, x: torch.Tensor,
         out = L.attend(q, k_all, v_all, positions, kpos, cfg, causal=causal, window=window)
         B, S, H, hd = out.shape
         h = bp.attn.wo(out.reshape(B, S, H * hd))
-    x = x + h
+    x = constrain(x + h)
     if cfg.family == "moe":
         h2, aux = moe_mod.apply_moe_layer(bp.moe, bp.norm2(x), cfg)
         return x + h2, aux
@@ -202,7 +202,8 @@ def _apply_repeat(blocks, cfg: ModelConfig, types, x: torch.Tensor, positions: t
     Returns (x, the sum of their aux losses or None)."""
     aux_total = None
     for block, btype, st in zip(blocks, types, states):
-        x, aux = _apply_block(block, cfg, btype, x, positions, st, mode)
+        with gathered(block):   # a sharded block's weights, FSDP-gathered for its use
+            x, aux = _apply_block(block, cfg, btype, x, positions, st, mode)
         x = constrain(x)   # pin batch sharding at every block boundary
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux

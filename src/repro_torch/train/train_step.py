@@ -18,6 +18,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .. import resolve_device
+from ..dist import sharding
 from ..dist.sharding import full_value, placed_like
 from ..models import LM, ModelConfig, forward_train, init_params
 from .optimizer import Optimizer, global_norm
@@ -58,8 +59,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatch: int = 0):
 
     def accumulated(params: LM, batch: Batch):
         def slice_batch(i):
-            return {k: x.reshape(microbatch, x.shape[0] // microbatch, *x.shape[1:])[i]
-                    for k, x in batch.items()}
+            return {k: sharding.microbatch(x, microbatch, i) for k, x in batch.items()}
 
         loss, metrics, grads = single(params, slice_batch(0))
         for i in range(1, microbatch):

@@ -57,7 +57,8 @@ def test_the_scan_sees_every_file():
             "kernels/moe_router.py", "models/layers.py", "models/rwkv6.py",
             "models/rglru.py", "models/moe.py", "launch/serve.py",
             "core/workers.py", "core/experiment.py", "launch/tune.py",
-            "cluster/executor.py", "cluster/worker.py", "testing/scenarios.py"} <= names
+            "cluster/executor.py", "cluster/worker.py", "testing/scenarios.py",
+            "launch/shapes.py", "launch/dryrun.py", "launch/perf.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -87,7 +88,8 @@ def test_the_string_scan_finds_module_names(tmp_path, text, names):
 
 def test_serve_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert, "
-            "repro_torch.launch.tune, repro_torch.cluster, repro_torch.testing.kill9; "
+            "repro_torch.launch.tune, repro_torch.cluster, repro_torch.testing.kill9, "
+            "repro_torch.launch.dryrun, repro_torch.launch.perf; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
