@@ -29,7 +29,12 @@ non-zero exit:
    at 4 lanes of smollm's train shape, fp32 and bf16: one launch of each
    pass a call, every lane's output and gradients bit for bit the
    lane-by-lane calls, and within K1's limits of ``vmap`` of the plain
-   version, the vmapped calls timed; the same for K2's and K3's backwards at
+   version, the vmapped calls timed; K2, K3 and K4 under ``torch.func.vmap``
+   the same way at 4 lanes of their training shapes (fp32, and bf16 for K2
+   and K4; K2's lanes each with its own ``u``, then with one shared zero
+   state; K3's ``h0`` None, a lane's own, one for every lane), one launch of
+   each pass a call and every lane bit for bit its lane-by-lane ``*_cuda``
+   calls; the same for K2's and K3's backwards at
    the training shapes and edge cases (a ragged last chunk, an initial
    state, a final-state gradient), with ``RWKV6ScanFn`` and ``RGLRUScanFn``;
    and K4's backward at K4's cases, on the kernel forward's outputs and row
@@ -123,6 +128,23 @@ non-zero exit:
    stacked call's time and the checkpoints' share, peak memory, the
    stacked step's time beside 4 train-phase steps, tokens/s over all lanes
    and a trace of one warm stacked step.
+3k. vmap of the other token families: 3g's sweep through ``launch.tune
+   --executor vmap`` for rwkv6-1.6b (4 lanes, 3 of its 24 layers, B=8),
+   recurrentgemma-9b (2 lanes, one repeat: 3 of its 38 layers, B=2) and
+   granite-moe-3b-a800m (4 lanes, 3 of its 32 layers, B=8), each at full
+   width (S=512, fp32, ASHA over 2 iterations of 1 step, no checkpoints),
+   with remat off as ``build_vmap_executor`` trains: every launch count set
+   to 0 just before and read just after, K1, K2, K3 and K4 forward and
+   backward each once a layer for all lanes (``expected_train_launches``),
+   every trial TERMINATED and the device memory in use back within 64 MiB.
+   Then lanes of different weights and batches: each lane's first-step
+   loss and gradients against the plain path under the same ``vmap``
+   within phases 3c's and 3d's limits (rwkv6 against float64 on the
+   parameters its plain fp32 path resolves; granite's routing
+   teacher-forced, each flip a near-tie), each lane's loss against the
+   lane stepped alone within 3g's limit.  Printed: trials/hour, the stacked
+   step beside n x the lane alone, tokens/s over all lanes, peak memory and
+   a trace of one warm stacked step.
 3c. train the ssm and hybrid families through ``repro_torch.launch.train``
    at full width, fp32, batch 8, sequence 512, 3 steps each: rwkv6-1.6b at
    full depth (24 K2 forwards and backwards a step), then recurrentgemma-9b
@@ -245,7 +267,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import gc
 import json
 import math
@@ -1215,6 +1236,162 @@ def check_flash_attention_vmap(torch, dev, ops, ref, card) -> dict:
     return out_fig
 
 
+# K2, K3 and K4 under torch.func.vmap, forward and vmap(grad), at VMAP_LANES
+# lanes of each kernel's training shape: K2 (B=8 S=512 H=32 N=64, chunk 32)
+# folds the lanes into its heads, K3 (B=8 S=512 R=4096) into its batch, K4
+# (granite's 16 groups x 256 tokens, E=40 k=8) puts them first as one more
+# row axis.  Every (batch row, head), (batch row, channel) and row is then
+# worked as in the lane's own call, so every lane's outputs and gradients
+# must be the lane-by-lane ``*_cuda`` calls' bits, with one launch of each
+# pass a call.
+VMAP_K2 = (8, 512, 32, 64)
+VMAP_K3 = (8, 512, 4096)
+VMAP_K4 = (16, 256, 40, 8)
+
+
+def vmap_launches(ops, names, fn):
+    """(``fn()``, the launches each wrapper of ``names`` made during it)."""
+    before = [getattr(ops, n).launches for n in names]
+    out = fn()
+    return out, tuple(getattr(ops, n).launches - b for n, b in zip(names, before))
+
+
+def check_scans_router_vmap(torch, dev, ops, card) -> dict:
+    """K2's, K3's and K4's forwards and ``vmap(grad)`` of them at VMAP_LANES
+    lanes of their training shapes, fp32 and, where the kernel takes it,
+    bf16: one launch of each pass a call, and every lane bit for bit the
+    lane-by-lane calls.  K2's cases give every lane its own ``u`` (each
+    lane's ``du`` must be its own) and its own initial state with a
+    final-state gradient, then the model's: one zero state for every lane
+    (unbatched, so expanded) and no final-state gradient.  K3's: ``h0``
+    None, one a lane, one for every lane.  Returns each vmapped call's
+    time."""
+    from repro_torch.kernels import moe_router as k4
+    from repro_torch.kernels import rglru_scan as k3
+    from repro_torch.kernels import rwkv6_scan as k2
+    n, fig = VMAP_LANES, {}
+    grad_of = lambda loss, argnums, dims: torch.func.vmap(
+        torch.func.grad(loss, argnums=argnums), in_dims=dims)
+
+    # K2: r, k, v, logw, u, state, dy, ds (None: the final state is not used)
+    B_, S_, H, N = VMAP_K2
+    for dtype in (torch.float32, torch.bfloat16):
+        lanes = [rwkv_inputs(torch, dev, 800 + i, B_, S_, H, N, dtype) for i in range(n)]
+        r, k, v, logw, u, s0 = (torch.stack(xs) for xs in zip(*lanes))
+        del lanes
+        g = torch.Generator(device=dev).manual_seed(810)
+        dy = torch.randn(r.shape, generator=g, device=dev).to(dtype)
+        ds = torch.randn(s0.shape, generator=g, device=dev)
+        for case, state, ds_case in (("own u, own state, final-state gradient", s0, ds),
+                                     ("own u, one zero state, no final-state gradient",
+                                      torch.zeros_like(s0[0]), None)):
+            sdim = 0 if state.dim() == 5 else None
+
+            def loss(r, k, v, logw, u, st, dy, ds):
+                y, s_out = ops.rwkv6_scan(r, k, v, logw, u, st)
+                out = (y.float() * dy.float()).sum()
+                return out if ds is None else out + (s_out * ds).sum()
+
+            fwd = torch.func.vmap(ops.rwkv6_scan, in_dims=(0, 0, 0, 0, 0, sdim))
+            grads = grad_of(loss, (0, 1, 2, 3, 4), (0, 0, 0, 0, 0, sdim, 0,
+                                                    None if ds_case is None else 0))
+            (y, s_out), f_n = vmap_launches(ops, ("rwkv6_scan",),
+                                            lambda: fwd(r, k, v, logw, u, state))
+            got, g_n = vmap_launches(ops, ("rwkv6_scan", "rwkv6_scan_bwd"),
+                                     lambda: grads(r, k, v, logw, u, state, dy, ds_case))
+            torch.cuda.synchronize()
+            assert (f_n, g_n) == ((1,), (1, 1)), f"K2 under vmap, {case}: launches {f_n} {g_n}"
+            for i in range(n):
+                st = state if sdim is None else state[i]
+                y1, s1, ws = k2.rwkv6_scan_cuda(r[i], k[i], v[i], logw[i], u[i], st,
+                                                return_states=True)
+                assert torch.equal(y[i], y1) and torch.equal(s_out[i], s1), \
+                    f"K2 {dtype} {case} lane {i}: the forward's bits differ"
+                lane = k2.rwkv6_scan_bwd_cuda(r[i], k[i], v[i], logw[i], u[i], st, ws, dy[i],
+                                              None if ds_case is None else ds_case[i])
+                assert all(torch.equal(a[i], b) for a, b in zip(got, lane[:5])), \
+                    f"K2 {dtype} {case} lane {i}: the gradients' bits differ"
+            du_spread = float((got[4][1:] - got[4][:1]).abs().amax(dim=(1, 2)).min())
+            fwd_ms = time_ms(lambda: fwd(r, k, v, logw, u, state), iters=10)
+            grad_ms = time_ms(lambda: grads(r, k, v, logw, u, state, dy, ds_case), iters=5)
+            log(f"[kernel] rwkv6_scan under vmap, {n} lanes x {VMAP_K2} {dtype}, {case}: one "
+                f"launch of each pass a call (lanes folded into the heads), every lane's y, "
+                f"final state and dr/dk/dv/dlogw/du bit for bit its lane-by-lane calls' (the "
+                f"lanes' du differ from lane 0's by at least {du_spread!r})")
+            log(f"[time] rwkv6_scan under vmap {dtype}, {n} lanes x B={B_} S={S_} H={H} N={N}, "
+                f"{case}: forward {fwd_ms!r} ms, vmap(grad) {grad_ms!r} ms a call {card}")
+            fig[f"rwkv6_scan {str(dtype)[6:]} {case}"] = {"fwd_ms": fwd_ms, "grad_ms": grad_ms}
+            del y, s_out, got
+        del r, k, v, logw, u, s0, dy, ds
+
+    # K3: a, b, h0 (None, one a lane, one for every lane), dh
+    B_, S_, R = VMAP_K3
+    lanes = [rglru_inputs(torch, dev, 820 + i, B_, S_, R) for i in range(n)]
+    a, b, h0 = (torch.stack(xs) for xs in zip(*lanes))
+    del lanes
+    dh = torch.randn(a.shape, generator=torch.Generator(device=dev).manual_seed(830), device=dev)
+    for case, h, hdim in (("h0 None", None, None), ("h0 one a lane", h0, 0),
+                          ("h0 one for every lane", h0[0], None)):
+        def loss(a, b, h, dh):
+            return (ops.rglru_scan(a, b, h) * dh).sum()
+
+        argnums = (0, 1) if h is None or hdim is None else (0, 1, 2)
+        fwd = torch.func.vmap(ops.rglru_scan, in_dims=(0, 0, hdim))
+        grads = grad_of(loss, argnums, (0, 0, hdim, 0))
+        out, f_n = vmap_launches(ops, ("rglru_scan",), lambda: fwd(a, b, h))
+        got, g_n = vmap_launches(ops, ("rglru_scan", "rglru_scan_bwd"),
+                                 lambda: grads(a, b, h, dh))
+        torch.cuda.synchronize()
+        assert (f_n, g_n) == ((1,), (1, 1)), f"K3 under vmap, {case}: launches {f_n} {g_n}"
+        for i in range(n):
+            hi = h if h is None or hdim is None else h[i]
+            h1 = k3.rglru_scan_cuda(a[i], b[i], hi)
+            assert torch.equal(out[i], h1), f"K3 {case} lane {i}: the forward's bits differ"
+            lane = k3.rglru_scan_bwd_cuda(a[i], hi, h1, dh[i])
+            assert all(torch.equal(x[i], y) for x, y in zip(got, lane)), \
+                f"K3 {case} lane {i}: the gradients' bits differ"
+        fwd_ms = time_ms(lambda: fwd(a, b, h), iters=10)
+        grad_ms = time_ms(lambda: grads(a, b, h, dh), iters=5)
+        log(f"[kernel] rglru_scan under vmap, {n} lanes x {VMAP_K3} fp32, {case}: one launch of "
+            f"each pass a call (lanes folded into the batch), every lane's h and gradients bit "
+            f"for bit its lane-by-lane calls'")
+        log(f"[time] rglru_scan under vmap, {n} lanes x B={B_} S={S_} R={R}, {case}: forward "
+            f"{fwd_ms!r} ms, vmap(grad) {grad_ms!r} ms a call {card}")
+        fig[f"rglru_scan {case}"] = {"fwd_ms": fwd_ms, "grad_ms": grad_ms}
+        del out, got
+    del a, b, h0, dh
+
+    # K4: logits (G, S, E) a lane, the gradient dw of the weights
+    G, S_, E, top_k = VMAP_K4
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = torch.stack([router_logits(torch, dev, G * S_, E, 840 + i).reshape(G, S_, E)
+                              for i in range(n)]).to(dtype)
+        dw = torch.randn((n, G, S_, top_k), generator=torch.Generator(device=dev).manual_seed(850),
+                         device=dev)
+        fwd = torch.func.vmap(lambda x: ops.moe_router(x, top_k))
+        grads = grad_of(lambda x, d: (ops.moe_router(x, top_k)[0] * d).sum(), 0, (0, 0))
+        (w, idx), f_n = vmap_launches(ops, ("moe_router",), lambda: fwd(logits))
+        got, g_n = vmap_launches(ops, ("moe_router", "moe_router_bwd"), lambda: grads(logits, dw))
+        torch.cuda.synchronize()
+        assert (f_n, g_n) == ((1,), (1, 1)), f"K4 under vmap {dtype}: launches {f_n} {g_n}"
+        for i in range(n):
+            w1, idx1, stats = k4.moe_router_cuda(logits[i], top_k, return_stats=True)
+            assert torch.equal(w[i], w1) and torch.equal(idx[i], idx1), \
+                f"K4 {dtype} lane {i}: the forward's bits differ"
+            assert torch.equal(got[i], k4.moe_router_bwd_cuda(logits[i], w1, idx1, dw[i], stats)), \
+                f"K4 {dtype} lane {i}: the gradient's bits differ"
+        fwd_ms = time_ms(lambda: fwd(logits), iters=20)
+        grad_ms = time_ms(lambda: grads(logits, dw), iters=10)
+        log(f"[kernel] moe_router under vmap, {n} lanes x (G, S, E, k) {VMAP_K4} {dtype}: one "
+            f"launch of each pass a call (lanes first, one more row axis), every lane's weights, "
+            f"experts and dlogits bit for bit its lane-by-lane calls'")
+        log(f"[time] moe_router under vmap {dtype}, {n} lanes x T={G * S_} E={E} k={top_k}: "
+            f"forward {fwd_ms!r} ms, vmap(grad) {grad_ms!r} ms a call (host included) {card}")
+        fig[f"moe_router {str(dtype)[6:]}"] = {"fwd_ms": fwd_ms, "grad_ms": grad_ms}
+        del logits, dw, w, idx, got
+    return fig
+
+
 def check_rwkv6(torch, dev, ops, ref) -> float:
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # name, (B, S, H, N), chunk, dtype, zero initial state
@@ -1710,20 +1887,25 @@ class RoutingCheck:
         return out
 
     def forced(self, logits, moe, kernel_impl="jnp"):
-        torch = self.torch
         _, idx, probs = self.real(logits, moe, "jnp")
         kidx = self.kernel_idx[self.calls]
+        self.compare(idx, kidx, probs.detach())
+        w = probs.gather(-1, kidx.long())
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), kidx, probs
+
+    def compare(self, idx, kidx, probs):
+        """Keep the gaps of call ``self.calls``'s rows whose experts differ
+        between the plain path (``idx``, ``probs``) and the kernel path
+        (``kidx``); count the call."""
         diff = idx != kidx
         rows = diff.any(-1)
         if bool(rows.any()):
             j = diff[rows].int().argmax(-1)               # the first slot that differs
-            n = torch.arange(len(j), device=j.device)
-            p = probs.detach()[rows]
+            n = self.torch.arange(len(j), device=j.device)
+            p = probs[rows]
             self.gaps.append((self.calls, p[n, idx[rows][n, j].long()]
                               - p[n, kidx[rows][n, j].long()]))
         self.calls += 1
-        w = probs.gather(-1, kidx.long())
-        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), kidx, probs
 
     def report(self, tag: str, where) -> dict:
         """Count the decisions that differ; each must be a near-tie.
@@ -3274,33 +3456,87 @@ def restart_split(rows, killed: dict, fetches: list) -> dict:
 # gradients against the plain path (``attn_impl="naive"``) under the same
 # vmap, within the train phase's limits, and each lane's loss against that
 # lane stepped alone through the unvmapped ``step_fn``, within the train
-# phase's loss limit.
+# phase's loss limit (``vmap_lane_checks``, which phase 3k runs too).
 VMAP_SWEEP_ARGS = with_flags(SWEEP_ARGS, executor="vmap")
 # The plain path's lanes in one vmap: its S x S attention scores for all 4
 # lanes do not fit beside the stacked state on an 80 GB card.
 VMAP_PLAIN_LANES = 2
+VMAP_TIMED_STEPS = 3
 
 
-def run_vmap_sweep(card: str, torch, ops, dev, sweep: dict, train: dict) -> dict:
-    """Phase 3g: the lane-stacked sweep with every launch count set to 0
-    just before and read just after, its stacked steps and checkpoints
-    timed; the lane checks; the stacked step's time and a trace of one."""
+# The vmap phase of the other token families (3k): phase 3g's sweep through
+# ``repro_torch.launch.tune --executor vmap`` for rwkv6-1.6b, recurrentgemma-9b
+# and granite-moe-3b-a800m at full width (d_model, heads, head size, experts,
+# vocab), K2, K3 and K4 forward and backward each launched once a layer for
+# all lanes beside K1 in the hybrid's local attention and the MoE's
+# attention.  ``build_vmap_executor`` trains with remat off (``torch.func``
+# takes no ``torch.utils.checkpoint``), so a lane keeps every layer's
+# activations for its backward, and a lane of momentum SGD holds about 20 B a
+# parameter at its update (p, m, the gradients, the new p and m).  Each
+# arch's cut, (lanes, layers, batch), with its reckoning on an 80 GB card:
+# - rwkv6-1.6b (24 layers, 55.5 M parameters a layer, 268 M in its
+#   embedding and head): 4 lanes of 3 layers, B=8: 435 M parameters, 35 GB
+#   of lanes at the update; the backward holds the lanes' activations (~1.5
+#   GB a layer and ~4 GB of logits and their gradient a lane), and at 4
+#   layers it ran out of the card (on an H100 80GB HBM3 at 700 W, 75.9 GiB
+#   allocated when the embedding's batched gradient, 2 GiB, was asked for).
+# - recurrentgemma-9b (38 layers; 1.05 B parameters in its 256,000 x 4,096
+#   embedding, 219 M a layer): 2 lanes of one repeat (3 layers: 2 RG-LRU, 1
+#   local attention), B=2: 1.71 B parameters, 68 GB of lanes at the update,
+#   which leaves ~10 GB for two lanes' activations; at B=8 one lane's fp32
+#   logits alone are 4.2 GB, and 4 lanes' state 136 GB.
+# - granite-moe-3b-a800m (32 layers, 101 M parameters a layer): 4 lanes of 3
+#   layers, B=8: 378 M parameters, 30 GB of lanes at the update; the
+#   einsum dispatch keeps ~1.4 GB a layer for the backward under autograd.
+# Every trial must end TERMINATED and the device memory in use come back
+# within SWEEP_MEM_SLACK.  The sweep keeps no checkpoints (the executor's
+# ``checkpoint_freq`` set to 0): a lane's snapshot is 3.0-13.6 GB here, and
+# phase 3g spilled 1.08 GB ones at ~2 s a GB; 3g measures their share.  Then
+# lanes of different weights (seeds) and batches: each lane's first-step
+# loss and gradients against the plain path (``attn_impl="naive"``,
+# ``kernel_impl="jnp"``) under the same vmap, VMAP_PLAIN_LANES at a time,
+# within phases 3c's and 3d's limits (rwkv6 on the parameters the plain fp32
+# path resolves against float64, as phase 3c holds it; granite with the
+# plain path's routing teacher-forced to the kernel path's, each flip a
+# near-tie), and each lane's loss against the lane stepped alone through
+# the unvmapped ``step_fn`` within phase 3g's loss limit.
+VMAP_FAMILIES = (("rwkv6-1.6b", 4, 3, 8), ("recurrentgemma-9b", 2, 3, 2),
+                 ("granite-moe-3b-a800m", 4, 3, 8))
+VMAP_FAMILY_ITERS = 2
+# The lane checks' limits: the train phases' (3, 3c, 3d); rwkv6's gradients
+# are held against float64 instead (``check_grads_vs_f64``).
+VMAP_GRAD_TOL = {TRAIN_ARCH: TRAIN_GRAD_TOL,
+                 "recurrentgemma-9b": TRAIN_R_GRAD_TOL["recurrentgemma-9b"],
+                 "granite-moe-3b-a800m": TRAIN_MOE_GRAD_TOL}
+VMAP_LOSS_TOL = {TRAIN_ARCH: TRAIN_LOSS_TOL, **TRAIN_R_LOSS_TOL,
+                 "granite-moe-3b-a800m": TRAIN_MOE_LOSS_TOL}
+
+
+def vmap_sweep(card: str, torch, ops, argv, tag: str, n_lanes: int, n_layers=None,
+               checkpoints: bool = True):
+    """``launch.tune.main(argv)`` with ``--executor vmap`` and a log
+    directory under a temp directory: every launch count set to 0 just
+    before and read just after, the stacked steps (synchronised) and the
+    lane saves timed; with ``n_layers`` the arch's depth cut to that many
+    layers, without ``checkpoints`` the executor's ``checkpoint_freq`` 0.
+    Every trial must end TERMINATED, the sweep run ``n_lanes`` lanes and
+    launch each kernel as ``expected_train_launches`` says, and the device
+    memory in use come back within SWEEP_MEM_SLACK.  Returns (the lanes'
+    config, the parsed arguments, the trials' configs, the figures)."""
     import os
     import tempfile
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.launch import tune
 
-    args = tune.parser().parse_args(VMAP_SWEEP_ARGS)
-    cfg = tune.sweep_model(args)
-    n_attn = sum(t in ("attention", "local_attn") for t in cfg.pattern_for_layers())
     record = {"steps": [], "saves": [], "lanes": None}
-    build = tune.build_vmap_executor
+    build, real_config = tune.build_vmap_executor, tune.get_config
 
     def timed_build(c, a):
         """The launcher's executor, its stacked steps (synchronised) and its
         checkpoints timed."""
         ex = build(c, a)
+        if not checkpoints:
+            ex.checkpoint_freq = 0
         vstep, save = ex._vstep, ex.save_checkpoint
         record["lanes"] = ex.n_lanes
 
@@ -3320,15 +3556,22 @@ def run_vmap_sweep(card: str, torch, ops, dev, sweep: dict, train: dict) -> dict
         ex._vstep, ex.save_checkpoint = timed_vstep, timed_save
         return ex
 
+    def config(arch):
+        cfg = real_config(arch)
+        return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as tmp, patched(tune, "build_vmap_executor", timed_build):
+    with tempfile.TemporaryDirectory() as tmp, patched(tune, "build_vmap_executor", timed_build), \
+            patched(tune, "get_config", config):
+        args = tune.parser().parse_args(argv)
+        cfg = dataclasses.replace(tune.sweep_model(args), remat=False)   # the lanes' config
         for name in KERNELS:
             getattr(ops, name).launches = 0
         t0 = time.perf_counter()
-        analysis = tune.main([*VMAP_SWEEP_ARGS, "--log-dir", os.path.join(tmp, "vmap")])
+        analysis = tune.main([*argv, "--log-dir", os.path.join(tmp, "vmap")])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: getattr(ops, name).launches for name in KERNELS}
@@ -3339,100 +3582,217 @@ def run_vmap_sweep(card: str, torch, ops, dev, sweep: dict, train: dict) -> dict
     steps = calls * args.steps_per_iter
     finished = sum(t.status.value == "TERMINATED" for t in trials)
     ckpt_s, step_s = sum(record["saves"]), sum(record["steps"])
-    log(f"[vmap] {TRAIN_ARCH} lane-stacked ASHA sweep ({' '.join(VMAP_SWEEP_ARGS)}): {finished} "
-        f"of {len(trials)} trials finished in {wall!r} s wall, {finished * 3600 / wall!r} "
-        f"trials/hour (3b's serial executor in this run: {sweep['trials_per_hour']!r}) {card}")
+    log(f"[vmap] {tag} lane-stacked ASHA sweep ({' '.join(argv)}"
+        f"{'' if checkpoints else '; no checkpoints'}): {finished} of {len(trials)} trials "
+        f"finished in {wall!r} s wall, {finished * 3600 / wall!r} trials/hour {card}")
     for t in trials:
         log(f"[vmap]   {t.trial_id} {t.status.value}: {t.training_iteration} iterations, losses "
-            f"{[r.metrics['loss'] for r in t.results]}")
-        if t.error:
-            log(f"[vmap]   {t.trial_id} error: {t.error}")
-    log(f"[vmap] {record['lanes']} lanes, {calls} stacked calls of {args.steps_per_iter} steps: "
-        f"first {record['steps'][0]!r} s, the others {record['steps'][1:]} s; {steps} stacked "
-        f"steps in {step_s!r} s ({step_s / wall!r} of the wall time) {card}")
-    log(f"[vmap] checkpoints: {len(record['saves'])} lane saves (host copies, the store and its "
-        f"spill) in {ckpt_s!r} s, {ckpt_s / wall!r} of the wall time; {spilled / 1e9:.3f} GB in "
-        f"the spill directory at the sweep's end {card}")
-    log(f"[vmap] kernel launches on the vmap sweep's path: {launches} ({steps} stacked steps; "
-        f"{n_attn} attention layers a step)")
-    assert finished == len(trials) == 4, "every trial of the vmap sweep must end TERMINATED"
-    assert record["lanes"] == 4, f"the vmap sweep ran {record['lanes']} lanes, not 4"
+            f"{[r.metrics['loss'] for r in t.results]}" + (f"; error {t.error}" if t.error else ""))
+    log(f"[vmap] {tag}: {record['lanes']} lanes, {calls} stacked calls of {args.steps_per_iter} "
+        f"steps: {record['steps']} s; {steps} stacked steps in {step_s!r} s ({step_s / wall!r} "
+        f"of the wall time) {card}")
+    if checkpoints:
+        log(f"[vmap] {tag} checkpoints: {len(record['saves'])} lane saves (host copies, the store "
+            f"and its spill) in {ckpt_s!r} s, {ckpt_s / wall!r} of the wall time; "
+            f"{spilled / 1e9:.3f} GB in the spill directory at the sweep's end {card}")
     expect = expected_train_launches(cfg, steps)
-    assert launches == expect, f"vmap sweep: expected {expect} launches"
+    log(f"[vmap] {tag} kernel launches on the vmap sweep's path: {launches} ({steps} stacked "
+        f"steps; expected {expect})")
+    assert finished == len(trials) == n_lanes, f"{tag}: every trial must end TERMINATED"
+    assert record["lanes"] == n_lanes, f"{tag}: the sweep ran {record['lanes']} lanes"
+    assert launches == expect, f"{tag} vmap sweep: expected {expect} launches"
     configs = [t.config for t in trials]
     del analysis, trials, t
     gc.collect()
     torch.cuda.empty_cache()
     after = torch.cuda.memory_allocated()
-    log(f"[vmap] device memory: peak {peak / 2**20:.1f} MiB; allocated before the sweep "
+    log(f"[vmap] {tag} device memory: peak {peak / 2**20:.1f} MiB; allocated before the sweep "
         f"{before / 2**20:.1f} MiB, after {after / 2**20:.1f} MiB {card}")
     assert abs(after - before) <= SWEEP_MEM_SLACK, "the vmap executor still holds device memory"
+    fig = {"launches": launches, "wall_s": wall, "trials_per_hour": finished * 3600 / wall,
+           "stacked_calls_s": record["steps"], "peak_bytes": peak}
+    if checkpoints:
+        fig["ckpt_share"] = ckpt_s / wall
+    return cfg, args, configs, fig
 
-    # the lanes: different weights and batches, the sweep's hyperparameters
+
+def lanes_of(torch, t):
+    """The tensor under ``torch.func``'s wrappers, its lane axis first: a
+    value computed inside one ``vmap`` (of ``grad``), taken out of it."""
+    ft = torch._C._functorch
+    while ft.is_functorch_wrapped_tensor(t):
+        if ft.is_batchedtensor(t):
+            t = ft.get_unwrapped(t).movedim(ft.maybe_get_bdim(t), 0)
+        else:
+            t = ft.get_unwrapped(t)
+    return t
+
+
+class LaneRoutingCheck(RoutingCheck):
+    """``RoutingCheck`` for lanes under ``torch.func.vmap``.  ``record``
+    keeps each router call's experts for every lane, taken out of the
+    transform (lanes first).  ``forced`` returns the experts handed to it in
+    ``forcing``, the kernel path's passed into the plain path's vmap as an
+    input, so that they are batched as its own values are; it keeps the
+    plain path's experts and probabilities, and ``settle`` then finds the
+    decisions that differ, as ``forced`` does, with the lanes' rows side by
+    side."""
+
+    def __init__(self, torch, moe_mod):
+        super().__init__(torch, moe_mod)
+        self.lanes, self.plain, self.forcing = [], [], None
+
+    def record(self, logits, moe, kernel_impl="jnp"):
+        out = self.real(logits, moe, kernel_impl)
+        self.lanes.append(lanes_of(self.torch, out[1]))
+        return out
+
+    def forced(self, logits, moe, kernel_impl="jnp"):
+        _, idx, probs = self.real(logits, moe, "jnp")
+        kidx = self.forcing[len(self.plain) % len(self.forcing)]
+        self.plain.append((lanes_of(self.torch, idx), lanes_of(self.torch, probs.detach())))
+        w = probs.gather(-1, kidx.long())
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), kidx, probs
+
+    def settle(self) -> None:
+        calls = len(self.lanes)
+        parts = len(self.plain) // calls
+        assert parts * calls == len(self.plain), (calls, len(self.plain))
+        for c in range(calls):
+            idx, probs = (self.torch.cat([self.plain[j * calls + c][i] for j in range(parts)])
+                          for i in (0, 1))
+            kidx = self.lanes[c].flatten(0, 1)
+            self.kernel_idx.append(kidx)
+            self.compare(idx.flatten(0, 1), kidx, probs.flatten(0, 1))
+
+
+def vmap_lane_checks(card: str, torch, ops, dev, cfg, args, configs, tag: str) -> dict:
+    """The lanes of phases 3g and 3k: weights of seeds 0..n-1, lane i's
+    first batch i of the bank, the sweep's hyperparameters.  Each lane's
+    first-step loss and gradients against the plain path under the same
+    vmap (VMAP_GRAD_TOL, VMAP_LOSS_TOL; the ssm family's gradients against
+    float64, the moe family's routing teacher-forced), each lane's loss of
+    the stacked step against the lane stepped alone (TRAIN_LOSS_TOL), the
+    stacked step timed beside the lanes stepped alone, and a trace of
+    one."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import tune
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.models import moe as moe_mod
+
     spec = tune.build_vmap_executor(cfg, args).spec
     hypers = {k: torch.tensor([float(c[k]) for c in configs], dtype=torch.float32, device=dev)
               for k in spec.hyper_names}
-    n = len(configs)
+    n, batch, arch = len(configs), args.batch, cfg.arch_id
     lanes = [spec.init_fn(seed, {}) for seed in range(n)]
     state = {part: {k: torch.stack([s[part][k] for s in lanes]) for k in lanes[0][part]}
              for part in ("p", "m")}
     state["i"] = torch.arange(n, dtype=torch.int32, device=dev)
     del lanes
-    data = SyntheticLMDataset(DataConfig(global_batch=B, seq_len=S, vocab_size=cfg.vocab_size))
+    data = SyntheticLMDataset(DataConfig(global_batch=batch, seq_len=args.seq_len,
+                                         vocab_size=cfg.vocab_size))
     drawn = [data.batch_at(i) for i in range(n)]     # lane i's first batch: i % 8 of the bank
-    batch = {k: torch.stack([torch.from_numpy(b[k]) for b in drawn]).to(dev) for k in drawn[0]}
-    plain = dataclasses.replace(cfg, attn_impl="naive")
+    batches = {k: torch.stack([torch.from_numpy(b[k]) for b in drawn]).to(dev)
+               for k in drawn[0]}
+    plain = dataclasses.replace(cfg, attn_impl="naive", kernel_impl="jnp")
+    routing = LaneRoutingCheck(torch, moe_mod) if cfg.family == "moe" else None
 
-    def lane_grads(c, lo, hi):
+    def lane_grads(c, lo, hi, forcing=None):
         """({name: gradients of lanes lo..hi-1 on the host}, their losses,
         the launches) of one vmapped ``loss_and_grads`` of ``c``."""
+        module = tune.TrainForward(c)
+
+        def one(p, b, forced):
+            if routing is not None:
+                routing.forcing = forced
+            return tune.loss_and_grads(module, p, b)
+
         for name in KERNELS:
             getattr(ops, name).launches = 0
-        g, (loss, _) = torch.func.vmap(functools.partial(tune.loss_and_grads,
-                                                         tune.TrainForward(c)))(
-            {k: x[lo:hi] for k, x in state["p"].items()}, {k: x[lo:hi] for k, x in batch.items()})
+        g, (loss, _) = torch.func.vmap(one, in_dims=(0, 0, None if forcing is None else 0))(
+            {k: x[lo:hi] for k, x in state["p"].items()},
+            {k: x[lo:hi] for k, x in batches.items()}, forcing)
         torch.cuda.synchronize()
         return ({k: x.cpu() for k, x in g.items()}, loss.tolist(),
                 {name: getattr(ops, name).launches for name in KERNELS})
 
-    kernel_g, k_loss, k_launches = lane_grads(cfg, 0, n)
+    with contextlib.ExitStack() as stack:
+        if routing is not None:
+            stack.enter_context(patched(moe_mod, "_route", routing.record))
+        kernel_g, k_loss, k_launches = lane_grads(cfg, 0, n)
     assert k_launches == expected_train_launches(cfg, 1), k_launches
-    parts = [lane_grads(plain, lo, min(lo + VMAP_PLAIN_LANES, n))
-             for lo in range(0, n, VMAP_PLAIN_LANES)]
+    parts = []
+    for lo in range(0, n, VMAP_PLAIN_LANES):
+        hi = min(lo + VMAP_PLAIN_LANES, n)
+        with contextlib.ExitStack() as stack:
+            forcing = None
+            if routing is not None:
+                stack.enter_context(patched(moe_mod, "_route", routing.forced))
+                forcing = [k[lo:hi] for k in routing.lanes]
+            parts.append(lane_grads(plain, lo, hi, forcing))
     assert all(not any(part[2].values()) for part in parts), "the plain path launched a kernel"
     plain_g = {k: torch.cat([part[0][k] for part in parts]) for k in kernel_g}
     p_loss = [x for part in parts for x in part[1]]
     del parts
+    loss_err = max(abs(a - b) / max(1.0, abs(a)) for a, b in zip(k_loss, p_loss))
+    out = {"loss_rel_err": loss_err}
+    if routing is not None:
+        routing.settle()
+        out["routing_flips"] = routing.report(f"[vmap] {tag} first step",
+                                              train_call(cfg.n_layers, remat=False))
     rel = {(name, lane): normwise(plain_g[name][lane], g[lane])
            for name, g in kernel_g.items() for lane in range(n)}
     worst = max(rel, key=rel.get)
-    grad_err = rel[worst]
-    loss_err = max(abs(a - b) / max(1.0, abs(a)) for a, b in zip(k_loss, p_loss))
-    log(f"[vmap] first-step gradients of {n} lanes (seeds 0-{n - 1}, batches 0-{n - 1}), kernel "
-        f"path (all lanes in one vmap: one K1 forward and backward a layer) vs plain path (under "
+    log(f"[vmap] {tag} first-step gradients of {n} lanes (seeds 0-{n - 1}, batches 0-{n - 1}), "
+        f"kernel path (all lanes in one vmap: each kernel once a layer) vs plain path (under "
         f"vmap, {VMAP_PLAIN_LANES} lanes at a time), max abs err over max(1, max |g|): "
-        f"{grad_err!r} ({worst[0]}, lane {worst[1]}; median {statistics.median(rel.values())!r}); "
-        f"losses {k_loss} vs {p_loss}, differences over max(1, |loss|) up to {loss_err!r} (tol "
-        f"{TRAIN_GRAD_TOL}, {TRAIN_LOSS_TOL})")
-    assert grad_err <= TRAIN_GRAD_TOL, f"vmap first-step gradient {worst}: {grad_err}"
-    assert loss_err <= TRAIN_LOSS_TOL, f"vmap losses differ: {k_loss} vs {p_loss}"
+        f"{rel[worst]!r} ({worst[0]}, lane {worst[1]}; median "
+        f"{statistics.median(rel.values())!r}); losses {k_loss} vs {p_loss}, differences over "
+        f"max(1, |loss|) up to {loss_err!r} (limits {VMAP_GRAD_TOL.get(arch, 'against float64')}, "
+        f"{VMAP_LOSS_TOL[arch]})")
+    assert loss_err <= VMAP_LOSS_TOL[arch], f"{arch} vmap losses differ: {k_loss} vs {p_loss}"
+    if cfg.family == "ssm":
+        # held against float64 on the plain path, lane by lane, as phase 3c holds it
+        f64 = []
+        for lane in range(n):
+            params = init_params(torch.Generator(device=dev).manual_seed(lane), cfg, dev)
+            b = {k: x[lane] for k, x in batches.items()}
+            _, g64, _ = first_step_grads_f64(torch, forward_train, params, b, plain)
+            del params
+            errs = {path: {} for path in ("kernel", "plain")}
+            for name, exact in g64.items():
+                scale = float(exact.abs().max()) or 1.0
+                for path, gs in (("kernel", kernel_g), ("plain", plain_g)):
+                    errs[path][name] = float((gs[name][lane].to(exact) - exact).abs().max()) / scale
+            del g64
+            f64.append(check_grads_vs_f64(errs, f"vmap {tag} lane {lane}"))
+        out["f64"] = f64
+    else:
+        assert rel[worst] <= VMAP_GRAD_TOL[arch], f"{arch} vmap first-step gradient {worst}"
+        out["grad_rel_err"] = rel[worst]
     del kernel_g, plain_g
     gc.collect()
     torch.cuda.empty_cache()
 
+    # each lane of the stacked step against the lane stepped alone
     vstep = torch.func.vmap(spec.step_fn)
-    _, metrics = vstep(state, hypers)
-    stacked_loss = metrics["loss"].tolist()
-    alone = []
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    stacked_loss = vstep(state, hypers)[1]["loss"].tolist()
+    assert {name: getattr(ops, name).launches for name in KERNELS} == \
+        expected_train_launches(cfg, 1), "the stacked step launched a kernel more than once a layer"
+    alone, alone_s = [], []
     for lane in range(n):
         one = {part: {k: x[lane] for k, x in state[part].items()} for part in ("p", "m")}
         one["i"] = state["i"][lane]
+        t0 = time.perf_counter()
         alone.append(float(spec.step_fn(one, {k: h[lane] for k, h in hypers.items()})[1]["loss"]))
+        alone_s.append(time.perf_counter() - t0)   # float() synchronised
         del one
     gaps = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(stacked_loss, alone)]
-    log(f"[vmap] each lane's loss, stacked {stacked_loss} vs stepped alone {alone}: differences "
-        f"over max(1, |loss|) {gaps} (tol {TRAIN_LOSS_TOL})")
-    assert max(gaps) <= TRAIN_LOSS_TOL, f"a lane of the stacked step differs: {gaps}"
+    log(f"[vmap] {tag} each lane's loss, stacked {stacked_loss} vs stepped alone {alone}: "
+        f"differences over max(1, |loss|) {gaps} (tol {TRAIN_LOSS_TOL})")
+    assert max(gaps) <= TRAIN_LOSS_TOL, f"{arch}: a lane of the stacked step differs: {gaps}"
 
     held = {"state": state}
     del state
@@ -3441,28 +3801,62 @@ def run_vmap_sweep(card: str, torch, ops, dev, sweep: dict, train: dict) -> dict
         held["state"], _ = vstep(held["state"], hypers)
 
     one_step()                                                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(3):
+    for _ in range(VMAP_TIMED_STEPS):
         t0 = time.perf_counter()
         one_step()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    step = min(times)
-    tokens = n * B * S / step
-    log(f"[time] {TRAIN_ARCH} vmap stacked step, {n} lanes x B={B} S={S} fp32: {step!r} s (min "
-        f"of {times}), {tokens!r} tokens/s over all lanes; the train phase's step "
-        f"{train['steady_step_s']!r} s x {n} = {n * train['steady_step_s']!r} s {card}")
-    traced = trace(f"{TRAIN_ARCH} vmap stacked step, {n} lanes (warm)", one_step, card, ops)
+    step_peak = torch.cuda.max_memory_allocated()
+    step, lane_s = min(times), min(alone_s[1:] or alone_s)
+    tokens = n * batch * args.seq_len / step
+    log(f"[time] {tag} vmap stacked step, {n} lanes x B={batch} S={args.seq_len} fp32: {step!r} "
+        f"s (min of {times}), {tokens!r} tokens/s over all lanes; a lane stepped alone "
+        f"{lane_s!r} s (min of {alone_s[1:] or alone_s}) x {n} = {n * lane_s!r} s; peak device "
+        f"memory over the stacked steps {step_peak / 2**20:.1f} MiB {card}")
+    traced = trace(f"{tag} vmap stacked step, {n} lanes (warm)", one_step, card, ops)
     del held
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "wall_s": wall, "trials_per_hour": finished * 3600 / wall,
-            "stacked_calls_s": record["steps"], "ckpt_share": ckpt_s / wall,
-            "peak_bytes": peak, "stacked_step_s": step, "tokens_per_s": tokens,
-            "grad_rel_err": grad_err, "loss_rel_err": loss_err, "lane_loss_gap": max(gaps),
-            "trace_busy_ms": traced and traced["busy"]}
+    return {**out, "lane_loss_gap": max(gaps), "stacked_step_s": step, "lane_step_s": lane_s,
+            "tokens_per_s": tokens, "step_peak_bytes": step_peak,
+            "trace_busy_ms": traced and traced["busy"],
+            "idle_share": traced and traced["idle_share"]}
 
 
+def run_vmap_sweep(card: str, torch, ops, dev, sweep: dict, train: dict) -> dict:
+    """Phase 3g: the lane-stacked sweep of TRAIN_ARCH (``vmap_sweep``),
+    beside phase 3b's serial one, then ``vmap_lane_checks``; the stacked
+    step beside 4 train-phase steps."""
+    cfg, args, configs, fig = vmap_sweep(card, torch, ops, VMAP_SWEEP_ARGS, TRAIN_ARCH, 4)
+    log(f"[vmap] {TRAIN_ARCH}: {fig['trials_per_hour']!r} trials/hour; 3b's serial executor "
+        f"in this run: {sweep['trials_per_hour']!r} {card}")
+    lanes = vmap_lane_checks(card, torch, ops, dev, cfg, args, configs, TRAIN_ARCH)
+    n = len(configs)
+    log(f"[time] {TRAIN_ARCH} vmap stacked step {lanes['stacked_step_s']!r} s; the train phase's "
+        f"step {train['steady_step_s']!r} s x {n} = {n * train['steady_step_s']!r} s {card}")
+    return {**fig, **lanes}
+
+
+def run_vmap_family(card: str, torch, ops, dev, arch: str, n_lanes: int, n_layers: int,
+                    batch: int) -> dict:
+    """Phase 3k for one arch: its lane-stacked sweep through ``launch.tune``
+    at full width, its depth cut to ``n_layers``, ``n_lanes`` lanes of
+    ``batch`` x S tokens, no checkpoints (``vmap_sweep``); then
+    ``vmap_lane_checks``."""
+    from repro_torch.configs import get_config
+
+    tag = f"{arch} ({n_layers} of {get_config(arch).n_layers} layers, {n_lanes} lanes, B={batch})"
+    argv = ("--arch", arch, "--scheduler", "asha", "--num-samples", str(n_lanes),
+            "--max-iters", str(VMAP_FAMILY_ITERS), "--batch", str(batch), "--seq-len", str(S),
+            "--steps-per-iter", "1", "--executor", "vmap", "--total-devices", "8",
+            "--devices-per-trial", "2", "--seed", "0", "--device", dev.type)
+    cfg, args, configs, fig = vmap_sweep(card, torch, ops, argv, tag, n_lanes, n_layers,
+                                         checkpoints=False)
+    return {**fig, "lanes": n_lanes, "layers": n_layers, "batch": batch,
+            **vmap_lane_checks(card, torch, ops, dev, cfg, args, configs, tag)}
 
 
 def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_config,
@@ -4174,6 +4568,11 @@ def main() -> int:
     from repro_torch.models import decode_step, prefill
     from repro_torch.models.transformer import leaves
 
+    t_start = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        log(f"[phase] {name} done at {time.perf_counter() - t_start:.1f} s")
+
     # -- 1. device and build ---------------------------------------------------------------
     dev = torch.device("cuda", 0)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -4223,6 +4622,7 @@ def main() -> int:
             "moe_router": check_moe_router(torch, dev, ops, ref, k4),
             "moe_router_bwd": check_moe_router_bwd(torch, dev, ops, ref, k4)}
     k1_vmap = check_flash_attention_vmap(torch, dev, ops, ref, card)
+    scans_vmap = check_scans_router_vmap(torch, dev, ops, card)
     # K4's few microseconds a launch and K2's two kernels' device times are
     # read from the profiler here, early: late in a long run, sessions have
     # kept some records and dropped others.
@@ -4240,6 +4640,8 @@ def main() -> int:
     k2b_info = infos[KERNELS.index("rwkv6_scan_bwd")]
     k2_bwd_passes, k2_bwd_sass = report_k2_bwd_build(torch, ops, rw, _build._nvcc(),
                                                      k2b_info.path, k2b_info.log, card)
+
+    phase_done("1 and 2")
 
     # -- 3. train smollm-135m at full width --------------------------------------------------------
     train = run_train(card, torch, ops, dev)
@@ -4268,6 +4670,16 @@ def main() -> int:
     per_path[f"{TRAIN_ARCH} vmap sweep"] = vmap_sweep["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("3, 3h, 3b, 3e, 3g")
+
+    # -- 3k. the ssm, hybrid and moe families' sweeps as lanes of one vmapped step --------------
+    vmap_families = {}
+    for arch, lanes, layers, batch in VMAP_FAMILIES:
+        vmap_families[arch] = run_vmap_family(card, torch, ops, dev, arch, lanes, layers, batch)
+        per_path[f"{arch} vmap sweep"] = vmap_families[arch]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_done("3k")
 
     # -- 3c. train rwkv6-1.6b and a cut recurrentgemma-9b through the scan kernels -------------
     train_r = {}
@@ -4288,6 +4700,7 @@ def main() -> int:
     per_path[f"{TRAIN_AUDIO} train"] = train_audio["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("3c, 3d, 3f")
 
     # -- 4 and 5. serve each model at full width, then its times -----------------------------------
     for arch in ARCHS:
@@ -4295,6 +4708,8 @@ def main() -> int:
                                   get_config, leaves)
         gc.collect()
         torch.cuda.empty_cache()
+
+    phase_done("4")
 
     # -- 5. kernel times at the serving and training shapes -----------------------------------
     f32, bf16 = torch.float32, torch.bfloat16
@@ -4346,6 +4761,8 @@ def main() -> int:
         log(f"[time] {name} bound: {bms!r} ms by {by} ({flops:.4g} flop, {nbytes:.4g} bytes; "
             f"H100 SXM peaks at 700 W) {card}")
 
+    phase_done("5")
+
     # -- 3i. the trainable's roofline profile, after every phase that needs whole profiler sessions
     gc.collect()
     torch.cuda.empty_cache()
@@ -4358,6 +4775,7 @@ def main() -> int:
     dry_cli = run_dryrun_cli(card, torch)
     dry_cfg = run_dryrun_config(card, torch, ops, dev)
     per_path[f"{TRAIN_ARCH} dry-run config"] = dry_cfg["launches"]
+    phase_done("3i, 3j")
 
     # The backwards are the gradients of the same TPU kernels (forward-only in JAX)
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:77",
@@ -4401,6 +4819,12 @@ def main() -> int:
         train_step={k: v for k, v in train_r["rwkv6-1.6b"].items() if k != "launches"})
     kernels[KERNELS.index("rglru_scan_bwd")]["train_step"] = {
         k: v for k, v in train_r["recurrentgemma-9b"].items() if k != "launches"}
+    for name, arch in (("rwkv6_scan", "rwkv6-1.6b"), ("rglru_scan", "recurrentgemma-9b"),
+                       ("moe_router", "granite-moe-3b-a800m")):
+        kernels[KERNELS.index(name)]["vmap"] = {
+            case: t for case, t in scans_vmap.items() if case.startswith(name)}
+        kernels[KERNELS.index(f"{name}_bwd")]["vmap_sweep"] = {
+            k: v for k, v in vmap_families[arch].items() if k != "launches"}
     kernels[KERNELS.index("flash_attention")].update(
         shapes={label: {key: val for key, val in r.items() if key != "bound"}
                 for label, r in attn.items()},

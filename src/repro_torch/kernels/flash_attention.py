@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _vmap
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "FlashAttentionFn",
            "FlashAttentionBwdFn", "tile_config", "bwd_tile_config", "HEAD_DIMS", "DTYPES"]
@@ -162,19 +162,6 @@ def flash_attention_bwd_cuda(
     return dq, dk, dv
 
 
-def _fold(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
-    """A ``vmap`` rule's input with its lane axis ``dim`` (None: unbatched,
-    so expanded to every lane) folded into the batch axis: (N, B, ...) ->
-    (N*B, ...).  A reshape that cannot view copies; the kernels read the
-    (b, s, head) strides of what comes out."""
-    x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
-    return x.reshape(n * x.shape[1], *x.shape[2:])
-
-
-def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """The forward with its backward, for tensors that need a gradient or
     that a ``torch.func`` transform wraps (``ops.flash_attention`` routes
@@ -209,9 +196,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, q_pos, k_pos, causal, window, softcap):
         n = info.batch_size
-        folded = (_fold(x, d, n) for x, d in zip((q, k, v, q_pos, k_pos), in_dims))
+        folded = (_vmap.fold(x, d, n) for x, d in zip((q, k, v, q_pos, k_pos), in_dims))
         out, lse = FlashAttentionFn.apply(*folded, causal, window, softcap)
-        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+        return (_vmap.unfold(out, n), _vmap.unfold(lse, n)), (0, 0)
 
 
 class FlashAttentionBwdFn(torch.autograd.Function):
@@ -238,10 +225,10 @@ class FlashAttentionBwdFn(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, q_pos, k_pos, out, lse, dout, causal, window, softcap):
         n = info.batch_size
-        folded = (_fold(x, d, n) for x, d in zip((q, k, v, q_pos, k_pos, out, lse, dout),
+        folded = (_vmap.fold(x, d, n) for x, d in zip((q, k, v, q_pos, k_pos, out, lse, dout),
                                                   in_dims))
         grads = FlashAttentionBwdFn.apply(*folded, causal, window, softcap)
-        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+        return tuple(_vmap.unfold(g, n) for g in grads), (0, 0, 0)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,7 @@
 """ctypes wrappers of the CUDA MoE router (``csrc/moe_router.cu``) and its
 backward (``csrc/moe_router_bwd.cu``), and ``MoERouterFn``, the two joined
-for autograd.
+for autograd, with ``MoERouterBwdFn`` for its backward; both have ``vmap``
+rules that launch once for all lanes.
 
 The host's work a forward call is kept to what a call must do, because the kernel
 takes a few microseconds and runs once per MoE layer of every decode step:
@@ -27,10 +28,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _vmap
 
-__all__ = ["moe_router_cuda", "moe_router_bwd_cuda", "MoERouterFn", "check", "plan", "DTYPES",
-           "MAX_EXPERTS", "MAX_TOP_K"]
+__all__ = ["moe_router_cuda", "moe_router_bwd_cuda", "MoERouterFn", "MoERouterBwdFn", "check",
+           "plan", "DTYPES", "MAX_EXPERTS", "MAX_TOP_K"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_EXPERTS, MAX_TOP_K = 256, 8
@@ -174,25 +175,69 @@ def moe_router_bwd_cuda(logits: torch.Tensor, w: torch.Tensor, idx: torch.Tensor
 
 
 class MoERouterFn(torch.autograd.Function):
-    """The CUDA router with its CUDA backward, for CUDA logits that need a
-    gradient (``ops.moe_router`` routes them here).  The forward launches
-    the router kernel with its row statistics (8 B a row) and keeps the
-    logits, its two outputs and the statistics (a recompute under remat
-    keeps its own); the indices take no gradient.  The backward runs
-    ``ops.moe_router_bwd``, which counts its launches."""
+    """The router with its backward, for logits that need a gradient or
+    that a ``torch.func`` transform wraps (``ops.moe_router`` routes them
+    here).  The forward returns (weights, indices, row statistics): the
+    kernel's launch asks for the statistics (8 B a row), which the plain
+    version on the CPU does not make (None).  It keeps the logits, its
+    outputs and the statistics (a recompute under remat keeps its own); the
+    indices and statistics take no gradient.  The backward runs
+    ``MoERouterBwdFn``; an unused weights' gradient stays None.  Under
+    ``torch.func.vmap`` the ``vmap`` rule puts the lanes first, as one more
+    row axis: the kernel routes each row of E on its own and takes any
+    leading shape, so one launch routes every lane's rows, each bit for bit
+    its own call.  Both passes go through ``ops`` (``ops._moe_router``,
+    ``ops.moe_router_bwd``), which count the launches and run the plain
+    version for a CPU tensor."""
 
     @staticmethod
-    def forward(ctx, logits, top_k):
-        w, idx, stats = moe_router_cuda(logits, top_k, return_stats=True)
-        ctx.mark_non_differentiable(idx)
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(logits, w, idx, stats)
-        return w, idx
-
-    @staticmethod
-    def backward(ctx, dw, _didx):
+    def forward(logits, top_k):
         from . import ops   # ops imports this module
+        return ops._moe_router(logits, top_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        w, idx, stats = output
+        ctx.mark_non_differentiable(idx, *(() if stats is None else (stats,)))
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(inputs[0], w, idx, stats)
+
+    @staticmethod
+    def backward(ctx, dw, _didx, _dstats):
         if dw is None:
             return None, None
         logits, w, idx, stats = ctx.saved_tensors
-        return ops.moe_router_bwd(logits, w, idx, dw, stats), None
+        return MoERouterBwdFn.apply(logits, w, idx, dw, stats), None
+
+    @staticmethod
+    def vmap(info, in_dims, logits, top_k):
+        logits = _vmap.lanes_first(logits, in_dims[0], info.batch_size)
+        w, idx, stats = MoERouterFn.apply(logits, top_k)
+        return (w, idx, stats), (0, 0, None if stats is None else 0)
+
+
+class MoERouterBwdFn(torch.autograd.Function):
+    """K4's backward as a function of its own, so that ``torch.func`` can
+    carry it: its ``vmap`` rule puts the lanes of the logits, weights,
+    indices, their gradient and the row statistics first, as
+    ``MoERouterFn``'s does, and launches once.  It has no backward."""
+
+    @staticmethod
+    def forward(logits, w, idx, dw, stats):
+        from . import ops
+        return ops.moe_router_bwd(logits, w, idx, dw, stats)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the MoE router's backward has no backward of its own: a double "
+                           "backward through ops.moe_router is not supported")
+
+    @staticmethod
+    def vmap(info, in_dims, logits, w, idx, dw, stats):
+        xs = (_vmap.lanes_first(x, d, info.batch_size)
+              for x, d in zip((logits, w, idx, dw, stats), in_dims))
+        return MoERouterBwdFn.apply(*xs), 0

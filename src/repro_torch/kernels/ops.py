@@ -8,13 +8,14 @@ show that its main path went through the kernel.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
 card every kernel has a backward kernel: a call whose inputs need a
-gradient goes through ``FlashAttentionFn``, ``RWKV6ScanFn``,
-``RGLRUScanFn`` or ``MoERouterFn``, whose backwards are
-``flash_attention_bwd``, ``rwkv6_scan_bwd``, ``rglru_scan_bwd`` and
-``moe_router_bwd``.  Under ``torch.func`` (``vmap``, ``grad``) flash
-attention goes through ``FlashAttentionFn`` and ``FlashAttentionBwdFn``,
-whose ``vmap`` rules launch once for all lanes; the other kernels have no
-``vmap`` rule yet and refuse a wrapped tensor on the card.
+gradient, or that a ``torch.func`` transform (``vmap``, ``grad``) wraps,
+goes through ``FlashAttentionFn``, ``RWKV6ScanFn``, ``RGLRUScanFn`` or
+``MoERouterFn``, whose backwards are ``FlashAttentionBwdFn``,
+``RWKV6ScanBwdFn``, ``RGLRUScanBwdFn`` and ``MoERouterBwdFn``; each
+Function's forward calls the private helper here that launches (and counts)
+the kernel, and each backward's the public ``*_bwd`` wrapper.  Every one of
+them has a ``vmap`` rule that folds the lanes into an axis the kernel
+already iterates over and launches once for all lanes.
 """
 from __future__ import annotations
 
@@ -44,15 +45,6 @@ def _wrapped(*tensors: Optional[torch.Tensor]) -> bool:
     kernel through an ``autograd.Function`` with a ``vmap`` rule."""
     return any(t is not None and torch._C._functorch.is_functorch_wrapped_tensor(t)
                for t in tensors)
-
-
-def _no_vmap_rule(name: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Refuse a ``torch.func``-wrapped tensor on the card for a kernel whose
-    Function has no ``vmap`` rule yet."""
-    if _wrapped(*tensors):
-        raise NotImplementedError(
-            f"{name} has no vmap rule yet: under torch.func it runs on CPU tensors only "
-            "(see ROADMAP.md, Queue 1: \"vmap rules of the scan and router kernels\")")
 
 
 def _no_dtensor(name: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -140,17 +132,28 @@ def rwkv6_scan(
 
     The kernel works in chunks of ``min(chunk, S)`` steps and masks a ragged
     last chunk itself; the plain version steps one token at a time.  On the
-    card, with grad enabled and an input needing a gradient, the call goes
-    through ``RWKV6ScanFn`` (the same forward, which also keeps its chunk
-    states, and the backward kernels).  A DTensor is refused."""
+    card, with grad enabled and an input needing a gradient, or with a
+    ``torch.func`` transform wrapping an input, the call goes through
+    ``RWKV6ScanFn`` (the same forward, which also keeps its chunk states,
+    and the backward kernels; under ``vmap`` one launch for all lanes).  A
+    DTensor is refused."""
     _no_dtensor("rwkv6_scan", r, k, v, logw, u, state)
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, logw, u, state)
-    _no_vmap_rule("rwkv6_scan", r, k, v, logw, u, state)
-    if _needs_grad(r, k, v, logw, u, state):
-        out = _rwkv.RWKV6ScanFn.apply(r, k, v, logw, u, state, chunk)
-    else:
-        out = _rwkv.rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk)
+    if _needs_grad(r, k, v, logw, u, state) or _wrapped(r, k, v, logw, u, state):
+        return _rwkv.RWKV6ScanFn.apply(r, k, v, logw, u, state, chunk)[:2]
+    out = _rwkv.rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk)
+    rwkv6_scan.launches += 1
+    return out
+
+
+def _rwkv6_scan(r, k, v, logw, u, state, chunk):
+    """``RWKV6ScanFn``'s forward: (y, final state, the workspace of chunk
+    states), the plain version for a CPU tensor, which keeps no workspace
+    (None), else one launch, counted as ``rwkv6_scan``'s."""
+    if r.device.type == "cpu":
+        return (*ref.rwkv6_scan_ref(r, k, v, logw, u, state), None)
+    out = _rwkv.rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk, return_states=True)
     rwkv6_scan.launches += 1
     return out
 
@@ -165,8 +168,8 @@ def rwkv6_scan_bwd(
     it), the gradient ``dy`` of y and ``ds_out`` of the final state (None
     when it is not used).  The plain version steps one token at a time and
     reads no workspace, so on the CPU ``states`` is None.
-    ``RWKV6ScanFn.backward`` calls it; one call launches the kernel's three
-    passes and counts one."""
+    ``RWKV6ScanBwdFn`` calls it (under ``vmap`` once for all lanes); one
+    call launches the kernel's three passes and counts one."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_bwd_ref(r, k, v, logw, u, state, dy, ds_out)
     grads = _rwkv.rwkv6_scan_bwd_cuda(r, k, v, logw, u, state, states, dy, ds_out,
@@ -179,25 +182,30 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t.  a/b (B,S,R) fp32; h0 (B,R) or None
     (zeros) -> h (B,S,R).  On the card, with grad enabled and an input
-    needing a gradient, the call goes through ``RGLRUScanFn``.  A DTensor
-    is refused."""
+    needing a gradient, or with a ``torch.func`` transform wrapping an
+    input, the call goes through ``RGLRUScanFn`` (under ``vmap`` one launch
+    for all lanes).  A DTensor is refused."""
     _no_dtensor("rglru_scan", a, b, h0)
+    if a.device.type != "cpu" and (_needs_grad(a, b, h0) or _wrapped(a, b, h0)):
+        return _rglru.RGLRUScanFn.apply(a, b, h0)
+    return _rglru_scan(a, b, h0)
+
+
+def _rglru_scan(a, b, h0):
+    """h: the plain version for a CPU tensor, else one launch, counted as
+    ``rglru_scan``'s."""
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
-    _no_vmap_rule("rglru_scan", a, b, h0)
-    if _needs_grad(a, b, h0):
-        out = _rglru.RGLRUScanFn.apply(a, b, h0)
-    else:
-        out = _rglru.rglru_scan_cuda(a, b, h0)
+    h = _rglru.rglru_scan_cuda(a, b, h0)
     rglru_scan.launches += 1
-    return out
+    return h
 
 
 def rglru_scan_bwd(a: torch.Tensor, h0: Optional[torch.Tensor], h: torch.Tensor,
                    dh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Gradients (da, db, dh0) of ``rglru_scan`` from its output ``h`` and
-    the gradient ``dh`` of h; dh0 is None when h0 is.  ``RGLRUScanFn.backward``
-    calls it."""
+    the gradient ``dh`` of h; dh0 is None when h0 is.  ``RGLRUScanBwdFn``
+    calls it (under ``vmap`` once for all lanes)."""
     if a.device.type == "cpu":
         return ref.rglru_scan_bwd_ref(a, h0, h, dh)
     grads = _rglru.rglru_scan_bwd_cuda(a, h0, h, dh)
@@ -213,16 +221,27 @@ def moe_router(logits: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Te
     itself, so nothing is padded.  Called once per MoE layer of every
     decode step, so the dispatch reads the cheap ``is_cpu``, not a
     ``device`` object.  On the card, with grad enabled and the logits
-    needing a gradient, the call goes through ``MoERouterFn`` (the same
-    forward, and the backward kernel).  A DTensor is refused."""
+    needing a gradient, or with a ``torch.func`` transform wrapping them,
+    the call goes through ``MoERouterFn`` (the same forward with its row
+    statistics, and the backward kernel; under ``vmap`` one launch for all
+    lanes).  A DTensor is refused."""
     _no_dtensor("moe_router", logits)
     if logits.is_cpu:
         return ref.moe_router_ref(logits, top_k)
-    _no_vmap_rule("moe_router", logits)
-    if logits.requires_grad and torch.is_grad_enabled():
-        out = _router.MoERouterFn.apply(logits, top_k)
-    else:
-        out = _router.moe_router_cuda(logits, top_k)
+    if (logits.requires_grad and torch.is_grad_enabled()) or _wrapped(logits):
+        return _router.MoERouterFn.apply(logits, top_k)[:2]
+    out = _router.moe_router_cuda(logits, top_k)
+    moe_router.launches += 1
+    return out
+
+
+def _moe_router(logits, top_k):
+    """``MoERouterFn``'s forward: (weights, idx, row statistics (..., 2)
+    fp32), the plain version for a CPU tensor, which makes no statistics
+    (None), else one launch, counted as ``moe_router``'s."""
+    if logits.is_cpu:
+        return (*ref.moe_router_ref(logits, top_k), None)
+    out = _router.moe_router_cuda(logits, top_k, return_stats=True)
     moe_router.launches += 1
     return out
 
@@ -233,7 +252,8 @@ def moe_router_bwd(logits: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     weights from its outputs ``w`` and ``idx`` (..., k) and the gradient
     ``dw`` of w.  On the card the kernel also takes the forward's row
     statistics ``stats`` (..., 2) and raises without them; the plain
-    version needs none.  ``MoERouterFn.backward`` calls it."""
+    version needs none.  ``MoERouterBwdFn`` calls it (under ``vmap`` once
+    for all lanes)."""
     if logits.is_cpu:
         return ref.moe_router_bwd_ref(logits, w, idx, dw)
     out = _router.moe_router_bwd_cuda(logits, w, idx, dw, stats)

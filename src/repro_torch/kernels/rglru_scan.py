@@ -1,6 +1,7 @@
 """ctypes wrappers of the CUDA RG-LRU scan (``csrc/rglru_scan.cu``) and its
 backward (``csrc/rglru_scan_bwd.cu``), and ``RGLRUScanFn``, the two joined
-for autograd.
+for autograd, with ``RGLRUScanBwdFn`` for its backward; both have ``vmap``
+rules that launch once for all lanes.
 
 Each checks what its kernel takes, allocates its outputs and launches on
 PyTorch's current stream without synchronising.  Inputs that are already
@@ -14,9 +15,9 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _vmap
 
-__all__ = ["rglru_scan_cuda", "rglru_scan_bwd_cuda", "RGLRUScanFn"]
+__all__ = ["rglru_scan_cuda", "rglru_scan_bwd_cuda", "RGLRUScanFn", "RGLRUScanBwdFn"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,22 +105,65 @@ def rglru_scan_bwd_cuda(a: torch.Tensor, h0: Optional[torch.Tensor], h: torch.Te
 
 
 class RGLRUScanFn(torch.autograd.Function):
-    """The CUDA forward with its CUDA backward, for CUDA tensors that need a
-    gradient (``ops.rglru_scan`` routes them here).  The forward keeps a, h0
-    and its output h; the backward runs ``ops.rglru_scan_bwd``, which counts
-    its launches, and returns a gradient only where one is needed."""
+    """The forward with its backward, for tensors that need a gradient or
+    that a ``torch.func`` transform wraps (``ops.rglru_scan`` routes them
+    here).  The forward keeps a, h0 and its output h; the backward runs
+    ``RGLRUScanBwdFn`` and returns a gradient only where one is needed.
+    Under ``torch.func.vmap`` the ``vmap`` rule folds the lanes into the
+    batch axis (an unbatched input expanded, an ``h0`` of None kept None)
+    and launches once for all of them: each thread owns one (batch row,
+    channel), so each lane is its own call bit for bit.  Both passes go
+    through ``ops`` (``ops._rglru_scan``, ``ops.rglru_scan_bwd``), which
+    count the launches and run the plain version for a CPU tensor."""
 
     @staticmethod
-    def forward(ctx, a, b, h0):
-        h = rglru_scan_cuda(a, b, h0)
-        ctx.save_for_backward(a, h0, h)
-        return h
+    def forward(a, b, h0):
+        from . import ops   # ops imports this module
+        return ops._rglru_scan(a, b, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, _, h0 = inputs
+        ctx.save_for_backward(a, h0, output)
 
     @staticmethod
     def backward(ctx, dh):
-        from . import ops   # ops imports this module
         a, h0, h = ctx.saved_tensors
-        da, db, dh0 = ops.rglru_scan_bwd(a, h0, h, dh)
+        da, db, dh0 = RGLRUScanBwdFn.apply(a, h0, h, dh)
         need = ctx.needs_input_grad
         return (da if need[0] else None, db if need[1] else None,
                 dh0 if need[2] else None)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, h0):
+        n = info.batch_size
+        folded = (_vmap.fold(x, d, n) for x, d in zip((a, b, h0), in_dims))
+        return _vmap.unfold(RGLRUScanFn.apply(*folded), n), 0
+
+
+class RGLRUScanBwdFn(torch.autograd.Function):
+    """K3's backward as a function of its own, so that ``torch.func`` can
+    carry it: its ``vmap`` rule folds the lanes of a, h0, h and dh into the
+    batch axis, as ``RGLRUScanFn``'s does, and launches once.  It has no
+    backward."""
+
+    @staticmethod
+    def forward(a, h0, h, dh):
+        from . import ops
+        return ops.rglru_scan_bwd(a, h0, h, dh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the RG-LRU scan's backward has no backward of its own: a double "
+                           "backward through ops.rglru_scan is not supported")
+
+    @staticmethod
+    def vmap(info, in_dims, a, h0, h, dh):
+        n = info.batch_size
+        folded = (_vmap.fold(x, d, n) for x, d in zip((a, h0, h, dh), in_dims))
+        grads = tuple(_vmap.unfold(g, n) for g in RGLRUScanBwdFn.apply(*folded))
+        return grads, (0, 0, None if grads[2] is None else 0)

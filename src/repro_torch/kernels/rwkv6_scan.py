@@ -1,6 +1,8 @@
 """ctypes wrappers of the CUDA RWKV-6 WKV scan (``csrc/rwkv6_scan.cu``) and
 its backward (``csrc/rwkv6_scan_bwd.cu``), and ``RWKV6ScanFn``, the two
-joined for autograd.
+joined for autograd, with ``RWKV6ScanBwdFn`` for its backward; both have
+``vmap`` rules, so that ``torch.func`` transforms (``vmap`` of ``grad``)
+launch each kernel once for all lanes.
 
 The forward checks what the kernels take, allocates y, the final state and
 the workspace of chunk states, and launches the two kernels (the chunk
@@ -19,10 +21,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _vmap
 
-__all__ = ["rwkv6_scan_cuda", "rwkv6_scan_bwd_cuda", "RWKV6ScanFn", "occupancy",
-           "bwd_occupancy", "HEAD_SIZE", "DTYPES", "MAX_CHUNK", "PASSES", "BWD_PASSES"]
+__all__ = ["rwkv6_scan_cuda", "rwkv6_scan_bwd_cuda", "RWKV6ScanFn", "RWKV6ScanBwdFn",
+           "occupancy", "bwd_occupancy", "HEAD_SIZE", "DTYPES", "MAX_CHUNK", "PASSES",
+           "BWD_PASSES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZE = 64      # rwkv6-1.6b's; the kernel is built for this one
@@ -166,32 +169,98 @@ def rwkv6_scan_bwd_cuda(
     return dr, dk, dv, dlogw, du.to(u.dtype), dstate
 
 
+# the axis of each input and output that takes the lanes under ``vmap``: the heads
+_FWD_AXES = (2, 2, 2, 2, 0, 1)             # r k v logw u state
+_FWD_OUT_AXES = (2, 1, 1)                  # y s_out states
+_BWD_AXES = (2, 2, 2, 2, 0, 1, 1, 2, 1)    # r k v logw u state states dy ds_out
+_BWD_OUT_AXES = (2, 2, 2, 2, 0, 1)         # dr dk dv dlogw du dstate
+
+
+def _fold_heads(xs, in_dims, axes, n):
+    return (_vmap.fold_at(x, d, n, a) for x, d, a in zip(xs, in_dims, axes))
+
+
+def _unfold_heads(outs, axes, n):
+    """A rule's outputs and their lane axes (None for an absent output)."""
+    outs = tuple(_vmap.unfold_at(x, n, a) for x, a in zip(outs, axes))
+    return outs, tuple(None if x is None else a for x, a in zip(outs, axes))
+
+
 class RWKV6ScanFn(torch.autograd.Function):
-    """The CUDA forward with its CUDA backward, for CUDA tensors that need a
-    gradient (``ops.rwkv6_scan`` routes them here).  The forward keeps its
-    inputs and its workspace of chunk states; the backward runs
-    ``ops.rwkv6_scan_bwd``, which counts its launches, and returns a
-    gradient only where one is needed.  The final state's gradient may be
-    None (training drops the state)."""
+    """The forward with its backward, for tensors that need a gradient or
+    that a ``torch.func`` transform wraps (``ops.rwkv6_scan`` routes them
+    here).  The forward returns (y, the final state, the workspace of chunk
+    states), the workspace not differentiable (None from the plain version
+    on the CPU, which keeps none), and keeps its inputs and the workspace;
+    the backward runs ``RWKV6ScanBwdFn`` and returns a gradient only where
+    one is needed.  The final state's gradient may be None (training drops
+    the state).  Under ``torch.func.vmap`` the ``vmap`` rule folds the lanes
+    into the head axis, not the batch axis: ``u`` is one per head for every
+    batch row, and the backward sums ``du`` over the batch, so each lane
+    keeps its own ``u`` and ``du`` only as heads of its own.  Each (batch
+    row, head) block then does what it does in the lane's own call, bit for
+    bit, with one launch for all lanes.  Both passes go through ``ops``
+    (``ops._rwkv6_scan``, ``ops.rwkv6_scan_bwd``), which count the launches
+    and run the plain version for a CPU tensor."""
 
     @staticmethod
-    def forward(ctx, r, k, v, logw, u, state, chunk):
-        y, s_out, states = rwkv6_scan_cuda(r, k, v, logw, u, state, chunk=chunk,
-                                           return_states=True)
+    def forward(r, k, v, logw, u, state, chunk):
+        from . import ops   # ops imports this module
+        return ops._rwkv6_scan(r, k, v, logw, u, state, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        r, k, v, logw, u, state, chunk = inputs
+        states = output[2]
+        if states is not None:
+            ctx.mark_non_differentiable(states)
         ctx.save_for_backward(r, k, v, logw, u, state, states)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)   # an unused output's gradient stays None
-        return y, s_out
 
     @staticmethod
-    def backward(ctx, dy, ds_out):
-        from . import ops   # ops imports this module
+    def backward(ctx, dy, ds_out, _dstates):
         r, k, v, logw, u, state, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(r)
-        grads = ops.rwkv6_scan_bwd(r, k, v, logw, u, state, states, dy, ds_out,
-                                   chunk=ctx.chunk)
+        grads = RWKV6ScanBwdFn.apply(r, k, v, logw, u, state, states, dy, ds_out, ctx.chunk)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, logw, u, state, chunk):
+        n = info.batch_size
+        folded = _fold_heads((r, k, v, logw, u, state), in_dims, _FWD_AXES, n)
+        return _unfold_heads(RWKV6ScanFn.apply(*folded, chunk), _FWD_OUT_AXES, n)
+
+
+class RWKV6ScanBwdFn(torch.autograd.Function):
+    """K2's backward as a function of its own, so that ``torch.func`` can
+    carry it: its ``vmap`` rule folds the lanes of every input (the
+    workspace of chunk states stays in the forward's folded layout, so it
+    folds back as a view) into the head axis, as ``RWKV6ScanFn``'s does,
+    and launches once; ``du`` comes back one (H, N) a lane.  It has no
+    backward."""
+
+    @staticmethod
+    def forward(r, k, v, logw, u, state, states, dy, ds_out, chunk):
+        from . import ops
+        return ops.rwkv6_scan_bwd(r, k, v, logw, u, state, states, dy, ds_out, chunk=chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the RWKV-6 scan's backward has no backward of its own: a double "
+                           "backward through ops.rwkv6_scan is not supported")
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, logw, u, state, states, dy, ds_out, chunk):
+        n = info.batch_size
+        folded = _fold_heads((r, k, v, logw, u, state, states, dy, ds_out), in_dims,
+                             _BWD_AXES, n)
+        return _unfold_heads(RWKV6ScanBwdFn.apply(*folded, chunk), _BWD_OUT_AXES, n)
 
 
 @functools.lru_cache(maxsize=None)

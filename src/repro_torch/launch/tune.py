@@ -12,8 +12,8 @@ searchers, results table and closing lines, plus ``--device`` (default
 ``cuda``; with no card it raises, as ``launch/train.py`` does).  Each trial is
 a ``ModelTrainable`` on that device; on the card it trains through the
 kernels ``launch/train.py`` picks (``device_model``: flash attention, and the
-RWKV-6 and RG-LRU scans of the ssm and hybrid families, forward and
-backward), and never through their plain versions.
+RWKV-6 and RG-LRU scans and the MoE router of the ssm, hybrid and moe
+families, forward and backward), and never through their plain versions.
 
 ``--executor`` picks the execution tier over a virtual ``SlicePool`` of
 ``--total-devices``: ``serial`` (host time-slicing), ``concurrent`` (one
@@ -30,12 +30,13 @@ fetched checkpoint under ``--max-failures``) or ``vmap`` (homogeneous sweeps
 as one SPMD program: ``min(--num-samples, 8)`` trials stacked as lanes of
 one ``torch.func.vmap`` step, momentum SGD over (lr, weight_decay), each
 kernel launched once for all lanes; ``build_vmap_executor``).  ``vmap``
-takes the dense family: on the card the scan and router kernels of the
-ssm, hybrid and moe families have no ``vmap`` rule yet, and the audio and
+takes every token family (dense, ssm, hybrid, moe): on the card each of
+their kernels, forward and backward, has a ``vmap`` rule.  The audio and
 vision families' frontends take no token batch, so those exit with an
 error on either device.
 
-Vmap quickstart (three lanes of the reduced model on the CPU)::
+Vmap quickstart (three lanes of the reduced model on the CPU; any token
+arch, e.g. ``--arch rwkv6-1.6b``)::
 
     PYTHONPATH=src python -m repro_torch.launch.tune --arch smollm-135m \\
         --reduced --device cpu --executor vmap --scheduler asha \\
@@ -66,6 +67,7 @@ quickstarts), through the port's copy of the control plane.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from typing import Any, Dict, Optional, Sequence
@@ -84,14 +86,10 @@ from ..train.trainable import make_model_trainable, model_trainable_factory
 from .train import device_model
 
 # Families ``--executor vmap`` does not take, and why.
-VMAP_REFUSED = {
-    **dict.fromkeys(("ssm", "hybrid", "moe"),
-                    "on the card its kernels have no vmap rule yet (see ROADMAP.md, Queue 1: "
-                    "\"vmap rules of the scan and router kernels\")"),
-    **dict.fromkeys(("audio", "vlm"),
-                    "the vmap executor feeds token batches (SyntheticLMDataset), which its "
-                    "frontend does not take"),
-}
+VMAP_REFUSED = dict.fromkeys(
+    ("audio", "vlm"),
+    "the vmap executor feeds token batches (SyntheticLMDataset), which its frontend does not "
+    "take")
 
 SPACE = {"lr": loguniform(1e-4, 1e-1), "warmup": 5,
          "weight_decay": uniform(0.0, 0.2)}
@@ -132,12 +130,19 @@ def build_vmap_executor(cfg: ModelConfig, args: argparse.Namespace):
     m = 0.9 m + g, then p = p - lr (m + weight_decay p).  With ``--log-dir``
     the executor's object store spills to ``<log-dir>/vmap-spill``: at
     smollm-135m's full width a lane's snapshot is 1.08 GB, and the store's
-    2 GiB in memory would refuse the second."""
+    2 GiB in memory would refuse the second.
+
+    The lanes train ``cfg`` with ``remat=False``: ``torch.utils.checkpoint``
+    cannot run under ``torch.func.grad`` (it saves through saved-tensor
+    hooks, which the transform refuses), where JAX's ``jax.checkpoint``
+    composes with ``jax.vmap`` and ``jax.grad``.  Remat changes what the
+    backward keeps, not the values; the cost is memory."""
     from ..core import CheckpointManager, ObjectStore
     from ..core.vmap_executor import VectorTrainableSpec, VmapExecutor
     from ..data import DataConfig, SyntheticLMDataset
     from ..models import init_params
 
+    cfg = dataclasses.replace(cfg, remat=False)
     dev = resolve_device(args.device)
     data = SyntheticLMDataset(DataConfig(global_batch=args.batch, seq_len=args.seq_len,
                                          vocab_size=cfg.vocab_size))

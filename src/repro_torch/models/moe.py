@@ -81,11 +81,14 @@ def _dispatch_tensors(top_w: torch.Tensor, top_idx: torch.Tensor, moe: MoEConfig
       dispatch (G, S, E, C) one-hot float: token s of group g goes to slot c of expert e
       combine  (G, S, E, C): dispatch * routing weight
     Tokens past expert capacity C are dropped (standard GShard): their slot
-    row is all zero, as ``jax.nn.one_hot`` gives for an index >= C (the slot
-    one-hot is a comparison, since ``F.one_hot`` raises there)."""
+    row is all zero, as ``jax.nn.one_hot`` gives for an index >= C.  Both
+    one-hots are comparisons with an ``arange``: ``F.one_hot`` raises for
+    the slot index >= C, and reads its indices' maximum with ``.item()``,
+    which ``torch.func.vmap`` refuses."""
     E = moe.n_experts
     C = _capacity(S, moe)
-    onehot = F.one_hot(top_idx.long(), E).float()                   # (G,S,k,E)
+    experts = sharding.replicated_like(torch.arange(E, device=top_idx.device), top_idx)
+    onehot = (top_idx[..., None] == experts).float()                # (G,S,k,E)
     # position of each (token, k) among that expert's tokens, in token order.
     # The scan runs along the last axis: down axis 1 PyTorch's CUDA scan walks
     # each of the G*E columns in order on one thread.  Sums of 0/1 below 2**24

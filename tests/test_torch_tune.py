@@ -6,8 +6,8 @@ JAX package's in the same process: each package forks its workers from a
 server of its own, so the port's workers hold no module of ``jax`` or of
 ``repro``, whatever ran before them.  PBT's exploit reaches a trial only
 through ``save()``'s host copies.  The command line finishes with its results
-table, runs the lane-stacked sweep (``--executor vmap``) and refuses it for the
-families whose kernels have no vmap rule, and refuses the card when there is
+table, runs the lane-stacked sweep (``--executor vmap``) for every token
+family and refuses it for the frontends, and refuses the card when there is
 none.  On the cluster tier (``--executor cluster``) a sweep's losses
 are the process tier's, bit for bit, and a trial whose socket worker is
 SIGKILLed after its second checkpoint restarts from that checkpoint and ends
@@ -150,13 +150,19 @@ def test_tune_main_returns_the_analysis_and_binds_the_device():
     assert an.total_iterations() == 4 and np.isfinite(an.best_value())
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b", "granite-moe-3b-a800m"])
-def test_tune_refuses_the_executors_not_ported(arch, capsys):
-    """``--executor vmap`` takes the dense family; the ssm, hybrid and moe
-    families wait for their kernels' vmap rules, on either device."""
-    with pytest.raises(SystemExit):
-        tune.main(["--arch", arch, "--reduced", "--device", "cpu", "--executor", "vmap"])
-    assert "vmap rules of the scan and router kernels" in capsys.readouterr().err
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b", "granite-moe-3b-a800m",
+                                  "deepseek-moe-16b"])
+def test_tune_vmap_executor_runs_each_token_family(arch):
+    """``--executor vmap`` takes the ssm, hybrid and moe families as it
+    takes the dense one: three lanes of one stacked step under ASHA end
+    TERMINATED with finite losses."""
+    assert get_config(arch).family not in tune.VMAP_REFUSED
+    an = tune.main(["--arch", arch, "--reduced", "--device", "cpu", "--executor", "vmap",
+                    "--scheduler", "asha", "--num-samples", "3", "--max-iters", "2",
+                    "--batch", "2", "--seq-len", "16", "--steps-per-iter", "1"])
+    assert [t.status.value for t in an.trials] == ["TERMINATED"] * 3
+    assert all(np.isfinite(r.metrics["loss"]) for t in an.trials for r in t.results)
+    assert an.total_iterations() == sum(len(t.results) for t in an.trials) >= 3
 
 
 @pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b"])

@@ -1,20 +1,28 @@
-"""The port's vmap executor and K1 under ``torch.func``, on the CPU.
+"""The port's vmap executor and the kernels under ``torch.func``, on the CPU.
 
 ``repro_torch.core.vmap_executor`` runs the two contracts of
 ``tests/test_system.py``'s ``VmapExecutor`` tests with torch step functions,
 keeps a lane's state bit for bit through pause and restore and through PBT's
 ``restart_trial_with_config``, and runs the stacked step of
-``launch.tune.build_vmap_executor`` against JAX's: the JAX package's
-``init_fn`` draws each lane's weights, ``models/convert.py`` carries them
-across, and 3 stacked steps through ``jax.vmap`` and ``torch.func.vmap`` must
-agree lane by lane.  Each lane of the stacked step must equal that lane
-stepped alone.  ``FlashAttentionFn`` and ``FlashAttentionBwdFn`` under
-``vmap(grad)`` must equal ``vmap(grad)`` of the plain attention, their
-``vmap`` rules calling each pass once at the folded shape; on the card
-(``gpu``) the kernels under ``vmap`` must equal lane-by-lane calls bit for
-bit.
+``launch.tune.build_vmap_executor`` against JAX's for every token family
+(smollm-135m, rwkv6-1.6b, recurrentgemma-9b, granite-moe-3b-a800m, and
+smollm-135m with remat, which JAX runs under ``jax.checkpoint`` and the port
+without): the JAX package's ``init_fn`` draws each lane's weights,
+``models/convert.py`` carries them across, and 3 stacked steps through
+``jax.vmap`` and ``torch.func.vmap`` must agree lane by lane.  Each lane of
+the stacked step must equal that lane stepped alone.  Each kernel's
+Function and its backward's (``FlashAttentionFn``/``FlashAttentionBwdFn``,
+``RWKV6ScanFn``/``RWKV6ScanBwdFn``, ``RGLRUScanFn``/``RGLRUScanBwdFn``,
+``MoERouterFn``/``MoERouterBwdFn``) under ``vmap(grad)`` must equal
+``vmap(grad)`` of the plain version, their ``vmap`` rules calling each pass
+once at the folded shape; K2's lanes keep their own ``u`` and ``du``, and
+its workspace of chunk states reaches the backward in its forward's folded
+layout.  The MoE dispatch's one-hots are comparisons that ``vmap`` takes.
+On the card (``gpu``) the kernels under ``vmap`` must equal lane-by-lane
+calls bit for bit.
 """
 import argparse
+import dataclasses
 from unittest import mock
 
 import jax
@@ -31,12 +39,22 @@ from repro_torch.core import (ASHAScheduler, CheckpointManager, FIFOScheduler, O
                               PopulationBasedTraining, Trial, TrialRunner)
 from repro_torch.core.vmap_executor import VectorTrainableSpec, VmapExecutor
 from repro_torch.kernels import flash_attention as pfa
+from repro_torch.kernels import moe_router as prouter
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
+from repro_torch.kernels import rglru_scan as prg
+from repro_torch.kernels import rwkv6_scan as prw
 from repro_torch.launch import tune as ptune
 from repro_torch.models import convert
+from repro_torch.models import moe as pmoe
 
 ARCH = "smollm-135m"
+# The stacked step's configs: id -> (arch, remat).  With remat JAX's lanes
+# run ``jax.checkpoint``; the port's ``build_vmap_executor`` trains them without.
+VMAP_ARCHS = {"smollm-135m": (ARCH, False), "smollm-135m remat": (ARCH, True),
+              "rwkv6-1.6b": ("rwkv6-1.6b", False),
+              "recurrentgemma-9b": ("recurrentgemma-9b", False),
+              "granite-moe-3b-a800m": ("granite-moe-3b-a800m", False)}
 # Two layers of fp32 sums taken in another order than XLA's, carried over 3
 # momentum-SGD steps: the kernel tolerance of tests/test_kernels.py.
 JAX_TOL = 2e-5
@@ -197,9 +215,11 @@ def _args(**kw):
     return argparse.Namespace(**{**base, **kw})
 
 
-@pytest.fixture(scope="module")
-def specs():
-    jcfg, pcfg = jax_get_config(ARCH).reduced(), get_config(ARCH).reduced()
+@pytest.fixture(scope="module", params=list(VMAP_ARCHS))
+def specs(request):
+    arch, remat = VMAP_ARCHS[request.param]
+    jcfg, pcfg = (dataclasses.replace(get(arch).reduced(), remat=remat)
+                  for get in (jax_get_config, get_config))
     jex = jtune.build_vmap_executor(jcfg, _args())
     pex = ptune.build_vmap_executor(pcfg, _args())
     assert pex.n_lanes == jex.n_lanes == LANES
@@ -376,14 +396,284 @@ def test_double_backward_through_flash_attention_raises():
         g.sum().backward()
 
 
-def test_the_scan_and_router_kernels_refuse_a_wrapped_tensor_off_the_cpu():
-    """Without a vmap rule a wrapped tensor would reach a ctypes launch; the
-    wrappers refuse it first (a meta tensor stands in for the card)."""
-    x = torch.empty(2, 4, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="vmap rules of the scan and router"):
-        torch.func.vmap(lambda a: pops.rglru_scan(a, a))(x)
-    with pytest.raises(NotImplementedError, match="moe_router has no vmap rule"):
-        torch.func.vmap(lambda a: pops.moe_router(a, 2))(x)
+# -- K2's, K3's and K4's Functions under torch.func -----------------------------------------
+
+RWKV_CASES = {  # (N, B, S, H, chunk), state one a lane, u one a lane, final state used
+    "own state and u, final state used": ((3, 2, 12, 2, 4), True, True, True),
+    "one state for every lane, y only": ((2, 1, 9, 3, 4), False, True, False),
+    "one u for every lane": ((3, 2, 8, 2, 8), True, False, True),
+}
+RGLRU_CASES = {  # (N, B, S, R), h0: None, "lane" (one a lane) or "shared" (one for every lane)
+    "h0 None": ((3, 2, 10, 16), None),
+    "h0 one a lane": ((2, 3, 7, 8), "lane"),
+    "h0 for every lane": ((3, 1, 9, 16), "shared"),
+}
+ROUTER_CASES = {  # (N, *rows, E), top_k
+    "(G, S, E) rows": ((3, 2, 8, 6), 2),
+    "(T, E) rows": ((2, 12, 5), 3),
+}
+HEAD = 64   # the card's K2 takes this head size only
+
+
+def _rwkv_inputs(name, device="cpu", dtype=torch.float32):
+    """A case's r, k, v, logw, u, state, dy, ds (ds None when the final
+    state is not used) and the in_dims of (r, k, v, logw, u, state)."""
+    (N, B, S, H, _), own_state, own_u, final = RWKV_CASES[name]
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    n = lambda *shape, scale=1.0: torch.randn(*shape, generator=g) * scale
+    r, k, v = (n(N, B, S, H, HEAD, scale=0.5) for _ in range(3))
+    logw = -torch.exp(n(N, B, S, H, HEAD, scale=0.5) - 2.0)
+    u = n(N, H, HEAD, scale=0.3) if own_u else n(H, HEAD, scale=0.3)
+    state = n(N, B, H, HEAD, HEAD, scale=0.2) if own_state else n(B, H, HEAD, HEAD, scale=0.2)
+    dy, ds = n(N, B, S, H, HEAD), (n(N, B, H, HEAD, HEAD) if final else None)
+    xs = [x if x is None else x.to(device) for x in (r, k, v, logw, u, state, dy, ds)]
+    xs[:3] = [x.to(dtype) for x in xs[:3]]
+    return xs, (0, 0, 0, 0, 0 if own_u else None, 0 if own_state else None)
+
+
+def _rwkv_grads(scan, name, xs, dims):
+    """vmap(grad) of sum(y * dy) (+ sum(final state * ds)) with respect to
+    r, k, v, logw, u and the state."""
+    chunk = RWKV_CASES[name][0][4]
+
+    def loss(r, k, v, logw, u, st, dy, ds):
+        y, s_out = scan(r, k, v, logw, u, st, chunk)
+        out = (y.float() * dy.float()).sum()
+        return out if ds is None else out + (s_out * ds).sum()
+
+    return torch.func.vmap(torch.func.grad(loss, argnums=tuple(range(6))),
+                           in_dims=(*dims, 0, None if xs[7] is None else 0))(*xs)
+
+
+def _rwkv_fn(r, k, v, logw, u, st, chunk):
+    return prw.RWKV6ScanFn.apply(r, k, v, logw, u, st, chunk)[:2]
+
+
+def _rwkv_plain(r, k, v, logw, u, st, chunk):
+    return pref.rwkv6_scan_ref(r, k, v, logw, u, st)
+
+
+def _recorded(*names):
+    """A mock of each plain version in ``names`` (``ref``'s) that records
+    the shape of its first argument; returns (the patches, the calls)."""
+    calls = []
+
+    def spy(name):
+        real = getattr(pref, name)
+
+        def call(*a, **kw):
+            calls.append((name, tuple(a[0].shape)))
+            return real(*a, **kw)
+        return mock.patch.object(pref, name, call)
+
+    return [spy(n) for n in names], calls
+
+
+@pytest.mark.parametrize("name", RWKV_CASES)
+def test_rwkv6_functions_under_vmap_grad_match_the_plain_version(name):
+    """Each pass called once, the lanes folded into the heads: (B, S, N*H,
+    head); the gradients those of vmap(grad) of the plain scan."""
+    xs, dims = _rwkv_inputs(name)
+    patches, calls = _recorded("rwkv6_scan_ref", "rwkv6_scan_bwd_ref")
+    with patches[0], patches[1]:
+        got = _rwkv_grads(_rwkv_fn, name, xs, dims)
+    want = _rwkv_grads(_rwkv_plain, name, xs, dims)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+    N, B, S, H, _ = RWKV_CASES[name][0]
+    folded = (B, S, N * H, HEAD)
+    # the plain backward is autograd of the plain forward, which it runs again inside
+    assert calls == [("rwkv6_scan_ref", folded), ("rwkv6_scan_bwd_ref", folded),
+                     ("rwkv6_scan_ref", folded)]
+
+
+def test_each_lane_of_rwkv6_keeps_its_own_u_and_du():
+    """u is one per head for every batch row and du sums over the batch:
+    folded into the heads, every lane's du is the one it takes alone, and
+    the lanes' du differ (folded into the batch they would all be lane 0's
+    u, and one sum)."""
+    name = "own state and u, final state used"
+    xs, dims = _rwkv_inputs(name)
+    du = _rwkv_grads(_rwkv_fn, name, xs, dims)[4]
+    chunk = RWKV_CASES[name][0][4]
+    for lane in range(du.shape[0]):
+        r, k, v, logw, u, st, dy, ds = (x[lane] for x in xs)
+
+        def loss(u):
+            y, s_out = _rwkv_fn(r, k, v, logw, u, st, chunk)
+            return (y * dy).sum() + (s_out * ds).sum()
+
+        torch.testing.assert_close(du[lane], torch.func.grad(loss)(u), rtol=0, atol=1e-5)
+        if lane:
+            assert float((du[lane] - du[0]).abs().max()) > 1e-2, "the lanes share one du"
+
+
+def _chunk_states(r, k, v, logw, u, state, chunk):
+    """The state entering each chunk after the first, (B, H, nc - 1, N, N),
+    as the card's forward keeps it: the plain scan run to each chunk's
+    start."""
+    S = r.shape[1]
+    L = min(chunk, S)
+    states = [pref.rwkv6_scan_ref(r[:, :c], k[:, :c], v[:, :c], logw[:, :c], u, state)[1]
+              for c in range(L, S, L)]
+    return torch.stack(states, dim=2)
+
+
+def test_the_rwkv6_workspace_reaches_the_backward_in_its_forwards_layout():
+    """On the card ``RWKV6ScanFn`` keeps its folded call's workspace of
+    chunk states (B, N*H, nc-1, head, head), hands it out with the lanes
+    split from the heads, and the backward's rule folds it back.  With
+    stand-ins for the card's forward (the plain scan, and the chunk states
+    made from the folded inputs) and backward (which makes them again from
+    its own folded inputs), the backward gets for every folded head the
+    states its forward made, once, and the gradients are the plain
+    version's."""
+    name = "own state and u, final state used"
+    xs, dims = _rwkv_inputs(name)
+    seen = []
+
+    def forward(r, k, v, logw, u, state, chunk):
+        return (*pref.rwkv6_scan_ref(r, k, v, logw, u, state),
+                _chunk_states(r, k, v, logw, u, state, chunk))
+
+    def backward(r, k, v, logw, u, state, states, dy, ds_out=None, chunk=32):
+        assert torch.equal(states, _chunk_states(r, k, v, logw, u, state, chunk))
+        seen.append(tuple(states.shape))
+        return pref.rwkv6_scan_bwd_ref(r, k, v, logw, u, state, dy, ds_out)
+
+    with mock.patch.object(pops, "_rwkv6_scan", forward), \
+            mock.patch.object(pops, "rwkv6_scan_bwd", backward):
+        got = _rwkv_grads(_rwkv_fn, name, xs, dims)
+    want = _rwkv_grads(_rwkv_plain, name, xs, dims)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+    N, B, S, H, chunk = RWKV_CASES[name][0]
+    assert seen == [(B, N * H, -(-S // chunk) - 1, HEAD, HEAD)]
+
+
+def _rglru_inputs(name, device="cpu"):
+    """A case's a, b, h0 (or None), dh and the in_dims of (a, b, h0)."""
+    (N, B, S, R), h0_kind = RGLRU_CASES[name]
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    a = torch.sigmoid(torch.randn(N, B, S, R, generator=g))
+    b, dh = (torch.randn(N, B, S, R, generator=g) for _ in range(2))
+    h0 = {None: None, "lane": torch.randn(N, B, R, generator=g),
+          "shared": torch.randn(B, R, generator=g)}[h0_kind]
+    xs = [x if x is None else x.to(device) for x in (a, b, h0, dh)]
+    return xs, (0, 0, 0 if h0_kind == "lane" else None)
+
+
+def _rglru_grads(scan, xs, dims):
+    """vmap(grad) of sum(h * dh) with respect to a, b and h0 (if any)."""
+    argnums = (0, 1) if xs[2] is None else (0, 1, 2)
+    return torch.func.vmap(torch.func.grad(lambda a, b, h0, dh: (scan(a, b, h0) * dh).sum(),
+                                           argnums=argnums), in_dims=(*dims, 0))(*xs)
+
+
+@pytest.mark.parametrize("name", RGLRU_CASES)
+def test_rglru_functions_under_vmap_grad_match_the_plain_version(name):
+    """Each pass called once, the lanes folded into the batch (an h0 for
+    every lane expanded, None kept None); the gradients those of vmap(grad)
+    of the plain scan."""
+    xs, dims = _rglru_inputs(name)
+    patches, calls = _recorded("rglru_scan_ref", "rglru_scan_bwd_ref")
+    with patches[0], patches[1]:
+        got = _rglru_grads(prg.RGLRUScanFn.apply, xs, dims)
+    want = _rglru_grads(pref.rglru_scan_ref, xs, dims)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    N, B, S, R = RGLRU_CASES[name][0]
+    assert calls == [("rglru_scan_ref", (N * B, S, R)), ("rglru_scan_bwd_ref", (N * B, S, R))]
+
+
+def _router_inputs(name, device="cpu", dtype=torch.float32):
+    (N, *rows, E), top_k = ROUTER_CASES[name]
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    logits = torch.randn(N, *rows, E, generator=g) * 2.0
+    dw = torch.randn(N, *rows, top_k, generator=g)
+    return logits.to(device, dtype), dw.to(device), top_k
+
+
+def _router_grads(route, logits, dw):
+    return torch.func.vmap(torch.func.grad(lambda x, d: (route(x)[0] * d).sum()))(logits, dw)
+
+
+@pytest.mark.parametrize("name", ROUTER_CASES)
+def test_moe_router_functions_under_vmap_grad_match_the_plain_version(name):
+    """Each pass called once, the lanes first as one more row axis; the
+    weights, experts and dlogits those of the plain router under vmap."""
+    logits, dw, top_k = _router_inputs(name)
+    patches, calls = _recorded("moe_router_ref", "moe_router_bwd_ref")
+    with patches[0], patches[1]:
+        got = _router_grads(lambda x: prouter.MoERouterFn.apply(x, top_k), logits, dw)
+    assert calls == [("moe_router_ref", tuple(logits.shape)),
+                     ("moe_router_bwd_ref", tuple(logits.shape))]
+    want = _router_grads(lambda x: pref.moe_router_ref(x, top_k), logits, dw)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    w, idx, stats = torch.func.vmap(lambda x: prouter.MoERouterFn.apply(x, top_k),
+                                    out_dims=(0, 0, None))(logits)
+    pw, pidx = torch.func.vmap(lambda x: pref.moe_router_ref(x, top_k))(logits)
+    assert stats is None and torch.equal(idx, pidx)
+    torch.testing.assert_close(w, pw, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["rwkv6_scan", "rglru_scan", "moe_router"])
+def test_double_backward_through_the_scans_and_router_raises(name):
+    if name == "rwkv6_scan":
+        xs, _ = _rwkv_inputs("own state and u, final state used")
+        x = xs[0][0].clone().requires_grad_()
+        out = _rwkv_fn(x, *(t[0] for t in xs[1:6]), 4)[0]
+    elif name == "rglru_scan":
+        (a, b, _, _), _ = _rglru_inputs("h0 None")
+        x = a[0].clone().requires_grad_()
+        out = prg.RGLRUScanFn.apply(x, b[0], None)
+    else:
+        logits, _, top_k = _router_inputs("(G, S, E) rows")
+        x = logits[0].clone().requires_grad_()
+        out = prouter.MoERouterFn.apply(x, top_k)[0]
+    (g,) = torch.autograd.grad(out.square().sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match="no backward of its own"):
+        g.sum().backward()
+
+
+# -- the MoE dispatch under vmap -------------------------------------------------------------
+
+def _one_hot_dispatch(top_w, top_idx, moe, S):
+    """``moe._dispatch_tensors`` as it was built on ``F.one_hot`` (which
+    reads its indices' maximum with ``.item()``, refused under vmap)."""
+    E, C = moe.n_experts, pmoe._capacity(S, moe)
+    onehot = torch.nn.functional.one_hot(top_idx.long(), E).float()
+    flat = onehot.reshape(onehot.shape[0], -1, E)
+    pos = (torch.cumsum(flat.transpose(1, 2), dim=-1).transpose(1, 2) - flat).reshape(onehot.shape)
+    in_cap = (pos < C).float() * onehot
+    slot = (pos.long()[..., None] == torch.arange(C)).float()
+    disp_k = in_cap[..., None] * slot
+    return disp_k.sum(2), (disp_k * top_w[..., None, None]).sum(2)
+
+
+def test_moe_dispatch_is_the_one_hot_versions_and_runs_under_vmap():
+    """The dispatch and combine tensors equal the ``F.one_hot`` version's on
+    the same experts (tokens past capacity dropped), and under ``vmap`` each
+    lane's are its own call's."""
+    # 8 experts, top 2, capacity 2 of 16 tokens: most choices past capacity
+    moe = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced().moe, n_experts=8,
+                              top_k=2, capacity_factor=0.5)
+    N, G, S = 3, 2, 16
+    g = torch.Generator().manual_seed(5)
+    lanes = [pref.moe_router_ref(torch.randn(G, S, moe.n_experts, generator=g) * 2.0,
+                                 moe.top_k) for _ in range(N)]
+    top_w, top_idx = (torch.stack(xs) for xs in zip(*lanes))
+    for n in range(N):
+        got = pmoe._dispatch_tensors(top_w[n], top_idx[n], moe, S)
+        for a, b in zip(got, _one_hot_dispatch(top_w[n], top_idx[n], moe, S)):
+            assert torch.equal(a, b)
+        assert 0 < float(got[0].sum()) < G * S * moe.top_k, "no choice kept, or none dropped"
+    vmapped = torch.func.vmap(lambda w, i: pmoe._dispatch_tensors(w, i, moe, S))(top_w, top_idx)
+    for n in range(N):
+        for a, b in zip(vmapped, pmoe._dispatch_tensors(top_w[n], top_idx[n], moe, S)):
+            assert torch.equal(a[n], b)
 
 
 # -- on the card ---------------------------------------------------------------------------
@@ -421,3 +711,62 @@ def test_kernels_under_vmap_are_the_lane_by_lane_calls_bit_for_bit(cuda_device, 
         grads = pfa.flash_attention_bwd_cuda(*lane, *lp, o, lse, dout[n], **kw)
         for a, b in zip(got, grads):
             assert torch.equal(a[n], b)
+
+
+def _lane_inputs(xs, dims, n):
+    """Lane ``n``'s inputs of a case: a shared (unbatched) input as it is."""
+    return [x if x is None or d is None else x[n] for x, d in zip(xs, dims)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(RWKV_CASES))
+def test_rwkv6_under_vmap_is_the_lane_by_lane_calls_bit_for_bit(cuda_device, name, dtype):
+    xs, dims = _rwkv_inputs(name, cuda_device, dtype)
+    chunk = RWKV_CASES[name][0][4]
+    f0, b0 = pops.rwkv6_scan.launches, pops.rwkv6_scan_bwd.launches
+    got = _rwkv_grads(pops.rwkv6_scan, name, xs, dims)
+    y, s_out = torch.func.vmap(lambda *a: pops.rwkv6_scan(*a, chunk), in_dims=dims)(*xs[:6])
+    torch.cuda.synchronize()
+    assert (pops.rwkv6_scan.launches - f0, pops.rwkv6_scan_bwd.launches - b0) == (2, 1)
+    for n in range(xs[0].shape[0]):
+        r, k, v, logw, u, st = _lane_inputs(xs[:6], dims, n)
+        y1, s1, ws = prw.rwkv6_scan_cuda(r, k, v, logw, u, st, chunk=chunk, return_states=True)
+        assert torch.equal(y[n], y1) and torch.equal(s_out[n], s1)
+        ds = None if xs[7] is None else xs[7][n]
+        lane = prw.rwkv6_scan_bwd_cuda(r, k, v, logw, u, st, ws, xs[6][n], ds, chunk=chunk)
+        for a, b in zip(got, lane):
+            assert torch.equal(a[n], b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(RGLRU_CASES))
+def test_rglru_under_vmap_is_the_lane_by_lane_calls_bit_for_bit(cuda_device, name):
+    xs, dims = _rglru_inputs(name, cuda_device)
+    f0, b0 = pops.rglru_scan.launches, pops.rglru_scan_bwd.launches
+    got = _rglru_grads(pops.rglru_scan, xs, dims)
+    h = torch.func.vmap(pops.rglru_scan, in_dims=dims)(*xs[:3])
+    torch.cuda.synchronize()
+    assert (pops.rglru_scan.launches - f0, pops.rglru_scan_bwd.launches - b0) == (2, 1)
+    for n in range(xs[0].shape[0]):
+        a, b, h0 = _lane_inputs(xs[:3], dims, n)
+        h1 = prg.rglru_scan_cuda(a, b, h0)
+        assert torch.equal(h[n], h1)
+        for x, y in zip(got, prg.rglru_scan_bwd_cuda(a, h0, h1, xs[3][n])):
+            assert torch.equal(x[n], y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(ROUTER_CASES))
+def test_moe_router_under_vmap_is_the_lane_by_lane_calls_bit_for_bit(cuda_device, name, dtype):
+    logits, dw, top_k = _router_inputs(name, cuda_device, dtype)
+    f0, b0 = pops.moe_router.launches, pops.moe_router_bwd.launches
+    got = _router_grads(lambda x: pops.moe_router(x, top_k), logits, dw)
+    w, idx = torch.func.vmap(lambda x: pops.moe_router(x, top_k))(logits)
+    torch.cuda.synchronize()
+    assert (pops.moe_router.launches - f0, pops.moe_router_bwd.launches - b0) == (2, 1)
+    for n in range(logits.shape[0]):
+        w1, idx1, stats = prouter.moe_router_cuda(logits[n], top_k, return_stats=True)
+        assert torch.equal(w[n], w1) and torch.equal(idx[n], idx1)
+        assert torch.equal(got[n], prouter.moe_router_bwd_cuda(logits[n], w1, idx1, dw[n], stats))
