@@ -26,7 +26,7 @@ non-zero exit:
    train shape, bidirectional, and ragged lengths both ways, forward and
    backward, fp32 and bf16) and at paligemma-3b's prefill (768 positions,
    MQA, hd 256); K1 under ``torch.func.vmap``, forward and ``vmap(grad)``,
-   at 4 lanes of smollm's train shape, fp32 and bf16: one launch of each
+   at 8 lanes of smollm's train shape, fp32 and bf16: one launch of each
    pass a call, every lane's output and gradients bit for bit the
    lane-by-lane calls, and within K1's limits of ``vmap`` of the plain
    version, the vmapped calls timed; K2, K3 and K4 under ``torch.func.vmap``
@@ -112,31 +112,41 @@ non-zero exit:
    process's exit, the requeue, the controller's export copy, the fetch to
    the host, the new worker's fork and dial-in, its trainable and fresh CUDA
    context, the restore and the first step.
-3g. vmap: 3b's sweep through ``launch.tune`` with ``--executor vmap``: the
-   4 trials are the 4 lanes of one ``torch.func.vmap`` step of
-   ``build_vmap_executor`` (momentum SGD over lr and weight_decay, a
-   checkpoint of each live lane every iteration, its store spilling under
-   the temp log directory), K1's forward and backward each launched once a
-   layer for all lanes: 30 each way a stacked step, every launch count set
-   to 0 just before and read just after.  Every trial must end TERMINATED
-   and the device memory in use must come back within 64 MiB.  Then 4
-   lanes of different weights and batches under the sweep's
-   hyperparameters: each lane's first-step loss and gradients against the
-   plain path under the same ``vmap`` within the train phase's limits, and
-   each lane's loss against the lane stepped alone through the unvmapped
-   ``step_fn``.  Printed: wall time and trials/hour beside 3b's, each
-   stacked call's time and the checkpoints' share, peak memory, the
-   stacked step's time beside 4 train-phase steps, tokens/s over all lanes
-   and a trace of one warm stacked step.
+3g. vmap: 3b's sweep through ``launch.tune`` with ``--executor vmap`` and
+   ``--num-samples 6``, the most lanes that fit the card at B=8, S=512 (7
+   run out of it in an iteration's second step, the CLI's default 8 in its
+   first): the 6 trials are the 6 lanes of
+   one ``torch.func.vmap`` step of ``build_vmap_executor`` (momentum SGD
+   over lr and weight_decay, a checkpoint of each live lane every
+   iteration, its store spilling under the temp log directory; the lanes'
+   gradients pulled back without a graph of the backward), K1's forward
+   and backward each launched once a layer for all lanes: 30 each way a
+   stacked step, every launch count set to 0 just before and read just
+   after.  Every trial must end TERMINATED and the device memory in use
+   must come back within 64 MiB.  Then 6 lanes of different weights and
+   batches under the sweep's hyperparameters: each lane's first-step loss
+   and gradients against the plain path under the same ``vmap`` (2 lanes
+   at a time) within the train phase's limits, and each lane's loss
+   against the lane stepped alone through the unvmapped ``step_fn``.
+   Printed: wall time and trials/hour beside 3b's, each stacked call's
+   time and the checkpoints' share, peak memory, the stacked step's time
+   beside 6 train-phase steps, tokens/s over all lanes and a trace of one
+   warm stacked step.  Then one lane's step, in turns, with its gradients
+   through ``loss_and_grads``, ``torch.func.grad_and_value`` and autograd's
+   backward of ``forward_train``: each way's peak memory, the losses
+   within the train phase's limit, and ``loss_and_grads``' peak at most
+   two thirds of ``grad_and_value``'s.
 3k. vmap of the other token families: 3g's sweep through ``launch.tune
    --executor vmap`` for rwkv6-1.6b (4 lanes, 3 of its 24 layers, B=8),
    recurrentgemma-9b (2 lanes, one repeat: 3 of its 38 layers, B=2) and
    granite-moe-3b-a800m (4 lanes, 3 of its 32 layers, B=8), each at full
    width (S=512, fp32, ASHA over 2 iterations of 1 step, no checkpoints),
-   with remat off as ``build_vmap_executor`` trains: every launch count set
-   to 0 just before and read just after, K1, K2, K3 and K4 forward and
-   backward each once a layer for all lanes (``expected_train_launches``),
-   every trial TERMINATED and the device memory in use back within 64 MiB.
+   each with its config's remat (recurrentgemma-9b's: each repeat run
+   forward without autograd, then again for its gradients): every launch
+   count set to 0 just before and read just after, K1, K2, K3 and K4
+   forward and backward each once a layer for all lanes, and each forward
+   twice under remat (``expected_train_launches``), every trial
+   TERMINATED and the device memory in use back within 64 MiB.
    Then lanes of different weights and batches: each lane's first-step
    loss and gradients against the plain path under the same ``vmap``
    within phases 3c's and 3d's limits (rwkv6 against float64 on the
@@ -199,9 +209,10 @@ non-zero exit:
    version and, where one exists, the PyTorch library call (CUDA events),
    each printed with the card.  K1 is
    timed at the smollm, granite-moe and recurrentgemma shapes, at
-   hubert-xlarge's (hd 80, bidirectional) and at phase 3g's 4 smollm lanes
-   folded into one batch of 32, in fp32 and bf16, beside
-   ``scaled_dot_product_attention`` (``is_causal`` as the shape's mask;
+   hubert-xlarge's (hd 80, bidirectional), at 8 smollm lanes (the CLI's
+   default count) folded into one batch of 64 and at phase 3j's 8 x 4096,
+   in fp32 and bf16, beside ``scaled_dot_product_attention`` in fp32 and
+   bf16 (``is_causal`` as the shape's mask;
    and the CUDA kernel it launched, by its profiler name) and both of its
    bounds.  K2 is timed
    in fp32 and bf16 beside its bound and its two-kernel design's floor,
@@ -576,18 +587,19 @@ def attention_bound(q, k, v, qp, kp, causal=True, window=None):
     """Least time for the function on this card: operations (4*hd per allowed
     (query, key) pair, counted from these positions) over the fp32 CUDA-core
     peak, or bytes (each input read once, the output written once) over HBM.
-    Then the bound of K1's tensor-core scheme: fp32 runs each product as
-    three TF32 products (3 x operations over the TF32 peak); bf16 runs
-    Q K^T once and P V twice (P as bf16 hi + lo), 1.5 x operations over the
-    bf16 peak; or bytes, whichever is larger.  Returns (ms, bound_by, flops,
-    bytes, tensor-core ms, its bound_by)."""
+    Then the bound on the tensor cores: fp32 as K1 runs each product, three
+    TF32 products (3 x operations over the TF32 peak); bf16 the function's
+    operations over the bf16 peak (K1 itself runs P V twice, P as bf16 hi +
+    lo, so 1.5 x that is its scheme's floor); or bytes, whichever is
+    larger.  Returns (ms, bound_by, flops, bytes, tensor-core ms, its
+    bound_by)."""
     import torch
     H, hd = q.shape[2], q.shape[3]
     flops = 4.0 * hd * H * allowed_pairs(qp, kp, causal, window)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, qp, kp)) \
         + q.numel() * q.element_size()
     if q.dtype == torch.bfloat16:
-        t_ops = 1.5 * flops / PEAK_BF16_FLOPS
+        t_ops = flops / PEAK_BF16_FLOPS
     else:
         t_ops = 3.0 * flops / PEAK_TF32_FLOPS
     t_bytes = nbytes / PEAK_HBM_BYTES
@@ -1169,7 +1181,7 @@ def check_flash_attention_bwd(torch, dev, ops, ref) -> float:
 # lane's output and gradients must be the lane-by-lane calls' bits; against
 # vmap of the plain version (the plain forward in fp32 on the same values)
 # K1's own limits hold: ATOL for the forward, FN_TOL for the gradients.
-VMAP_LANES = 4
+VMAP_LANES = 8
 VMAP_SHAPE = (8, 512, 512, 9, 3, 64)
 
 
@@ -1236,14 +1248,15 @@ def check_flash_attention_vmap(torch, dev, ops, ref, card) -> dict:
     return out_fig
 
 
-# K2, K3 and K4 under torch.func.vmap, forward and vmap(grad), at VMAP_LANES
-# lanes of each kernel's training shape: K2 (B=8 S=512 H=32 N=64, chunk 32)
-# folds the lanes into its heads, K3 (B=8 S=512 R=4096) into its batch, K4
-# (granite's 16 groups x 256 tokens, E=40 k=8) puts them first as one more
-# row axis.  Every (batch row, head), (batch row, channel) and row is then
-# worked as in the lane's own call, so every lane's outputs and gradients
-# must be the lane-by-lane ``*_cuda`` calls' bits, with one launch of each
-# pass a call.
+# K2, K3 and K4 under torch.func.vmap, forward and vmap(grad), at
+# VMAP_SCAN_LANES lanes of each kernel's training shape (phase 3k runs 2-4):
+# K2 (B=8 S=512 H=32 N=64, chunk 32) folds the lanes into its heads, K3
+# (B=8 S=512 R=4096) into its batch, K4 (granite's 16 groups x 256 tokens,
+# E=40 k=8) puts them first as one more row axis.  Every (batch row,
+# head), (batch row, channel) and row is then worked as in the lane's own
+# call, so every lane's outputs and gradients must be the lane-by-lane
+# ``*_cuda`` calls' bits, with one launch of each pass a call.
+VMAP_SCAN_LANES = 4
 VMAP_K2 = (8, 512, 32, 64)
 VMAP_K3 = (8, 512, 4096)
 VMAP_K4 = (16, 256, 40, 8)
@@ -1257,8 +1270,8 @@ def vmap_launches(ops, names, fn):
 
 
 def check_scans_router_vmap(torch, dev, ops, card) -> dict:
-    """K2's, K3's and K4's forwards and ``vmap(grad)`` of them at VMAP_LANES
-    lanes of their training shapes, fp32 and, where the kernel takes it,
+    """K2's, K3's and K4's forwards and ``vmap(grad)`` of them at
+    VMAP_SCAN_LANES lanes of their training shapes, fp32 and, where the kernel takes it,
     bf16: one launch of each pass a call, and every lane bit for bit the
     lane-by-lane calls.  K2's cases give every lane its own ``u`` (each
     lane's ``du`` must be its own) and its own initial state with a
@@ -1269,7 +1282,7 @@ def check_scans_router_vmap(torch, dev, ops, card) -> dict:
     from repro_torch.kernels import moe_router as k4
     from repro_torch.kernels import rglru_scan as k3
     from repro_torch.kernels import rwkv6_scan as k2
-    n, fig = VMAP_LANES, {}
+    n, fig = VMAP_SCAN_LANES, {}
     grad_of = lambda loss, argnums, dims: torch.func.vmap(
         torch.func.grad(loss, argnums=argnums), in_dims=dims)
 
@@ -2158,10 +2171,15 @@ def run_train_sharded(card: str, torch, ops, dev, train: dict) -> dict:
 # Phase 3c: the ssm and hybrid families trained through ``launch.train`` at
 # full width, fp32, B x S tokens a step, TRAIN_R_STEPS steps each, on the
 # scan kernels and their backwards: rwkv6-1.6b at full depth (24 layers, no
-# remat), then recurrentgemma-9b with its depth cut to one repeat of
-# (rglru, rglru, local_attn), 3 of its 38 layers (remat as configured, so
-# the repeat's forward runs again in the backward; at two repeats, 2.36 B
-# parameters, the first step's AdamW update ran out of the card's 80 GB).
+# remat; at 12 layers ``wkv_bwd_precision``'s ratios ran from 0.16 to 3.66
+# over three weight draws on an H100, ``chip_probe.py --k2-backward``: where
+# the plain chunked scan's own error falls below an fp32 ulp of max |g|,
+# any kernel error of a few ulps reads as a large ratio; at 24 layers they
+# stay within the limit of 2), then recurrentgemma-9b with its depth cut to one
+# repeat of (rglru, rglru, local_attn), 3 of its 38 layers (remat as
+# configured, so the repeat's forward runs again in the backward; at two
+# repeats, 2.36 B parameters, the first step's AdamW update ran out of the
+# card's 80 GB).
 # Kernel path against the plain path (``attn_impl="naive"``,
 # ``kernel_impl="jnp"``, with remat: it leaves the gradients as they are,
 # and rwkv6's plain chunked scan keeps a (B, L, L, H, N) tensor for each
@@ -2198,7 +2216,8 @@ def expected_train_launches(cfg, steps: int) -> dict:
     """Launches of each wrapper in ``steps`` train steps of ``cfg`` on the
     kernel path: a forward and a backward for each attention, RWKV-6,
     RG-LRU and MoE layer (every attention layer of the moe family), and
-    with remat one more forward (``torch.utils.checkpoint`` runs each
+    with remat one more forward (``torch.utils.checkpoint``, or the vmapped
+    lanes' chain of stages in ``launch.tune.loss_and_grads``, runs each
     repeat's forward again in the backward)."""
     pattern = cfg.pattern_for_layers()
     fwd = 2 if cfg.remat else 1
@@ -3444,24 +3463,41 @@ def restart_split(rows, killed: dict, fetches: list) -> dict:
 
 
 # The vmap phase (3g): phase 3b's sweep through ``repro_torch.launch.tune``
-# with ``--executor vmap``: the 4 trials are the 4 lanes of one
-# ``torch.func.vmap`` step (momentum SGD over lr and weight_decay,
-# ``build_vmap_executor``), K1's forward and backward each launched once a
-# layer for all lanes.  Every trial must end TERMINATED, K1's launches must
+# with ``--executor vmap`` and VMAP_SWEEP_LANES samples: its trials are the
+# lanes of one ``torch.func.vmap`` step (momentum SGD over lr and
+# weight_decay, ``build_vmap_executor``), K1's forward and backward each
+# launched once a layer for all lanes.  In the second step of an iteration
+# a lane holds two states (the executor's input and the first step's
+# output; p and m, 1.08 GB each) beside its step's peak over its state:
+# 9,128 MiB through ``loss_and_grads`` or autograd, 16,097 MiB through
+# ``torch.func.grad``, which keeps a graph of the backward (on an H100 80GB
+# HBM3 at 700 W).  So 6 lanes peak at ~67 GiB; 7 ran out of the card's
+# 79.18 GiB in the second step, 8 in the first; 4 fitted under
+# ``torch.func.grad``.  Every trial must end
+# TERMINATED, K1's launches must
 # be 30 each way a stacked step (a step of all lanes), and the device memory
 # in use must come back within SWEEP_MEM_SLACK.  Then, on a stacked state of
-# 4 lanes with different weights (seeds 0-3) at different steps of the
-# bank (i = 0-3), so that a lane mixed up with another shows, and the
+# the lanes with different weights (seeds 0-5) at different steps of the
+# bank (i = 0-5), so that a lane mixed up with another shows, and the
 # sweep's own lr and weight_decay: each lane's first-step loss and
 # gradients against the plain path (``attn_impl="naive"``) under the same
 # vmap, within the train phase's limits, and each lane's loss against that
 # lane stepped alone through the unvmapped ``step_fn``, within the train
 # phase's loss limit (``vmap_lane_checks``, which phase 3k runs too).
-VMAP_SWEEP_ARGS = with_flags(SWEEP_ARGS, executor="vmap")
-# The plain path's lanes in one vmap: its S x S attention scores for all 4
+VMAP_SWEEP_LANES = 6     # the CLI's default is 8
+VMAP_SWEEP_ARGS = with_flags(SWEEP_ARGS, executor="vmap", num_samples=VMAP_SWEEP_LANES)
+# The plain path's lanes in one vmap: its S x S attention scores for all
 # lanes do not fit beside the stacked state on an 80 GB card.
 VMAP_PLAIN_LANES = 2
 VMAP_TIMED_STEPS = 3
+# One lane's step three ways (``lane_step_peaks``): its gradients through
+# ``loss_and_grads`` (a pull-back without a graph of the backward), through
+# ``torch.func.grad_and_value`` (its backward with ``create_graph=True``)
+# and through autograd's backward of ``forward_train``; the turns' order.
+LANE_PEAK_WAYS = ("loss_and_grads", "grad_and_value", "autograd")
+LANE_PEAK_TURNS = LANE_PEAK_WAYS + LANE_PEAK_WAYS[::-1]
+# loss_and_grads' peak must be at most this share of grad_and_value's.
+LANE_PEAK_SHARE = 2 / 3
 
 
 # The vmap phase of the other token families (3k): phase 3g's sweep through
@@ -3469,11 +3505,13 @@ VMAP_TIMED_STEPS = 3
 # and granite-moe-3b-a800m at full width (d_model, heads, head size, experts,
 # vocab), K2, K3 and K4 forward and backward each launched once a layer for
 # all lanes beside K1 in the hybrid's local attention and the MoE's
-# attention.  ``build_vmap_executor`` trains with remat off (``torch.func``
-# takes no ``torch.utils.checkpoint``), so a lane keeps every layer's
-# activations for its backward, and a lane of momentum SGD holds about 20 B a
-# parameter at its update (p, m, the gradients, the new p and m).  Each
-# arch's cut, (lanes, layers, batch), with its reckoning on an 80 GB card:
+# attention.  ``build_vmap_executor`` trains each config's remat: rwkv6's and
+# granite's have none, so a lane keeps every layer's activations for its
+# backward; recurrentgemma-9b's has it, so a lane keeps its repeat's input
+# and runs the repeat again for its gradients (``loss_and_grads``).  A lane
+# of momentum SGD holds about 20 B a parameter at its update (p, m, the
+# gradients, the new p and m).  Each arch's cut, (lanes, layers, batch),
+# with its reckoning on an 80 GB card (made without remat):
 # - rwkv6-1.6b (24 layers, 55.5 M parameters a layer, 268 M in its
 #   embedding and head): 4 lanes of 3 layers, B=8: 435 M parameters, 35 GB
 #   of lanes at the update; the backward holds the lanes' activations (~1.5
@@ -3503,6 +3541,12 @@ VMAP_TIMED_STEPS = 3
 VMAP_FAMILIES = (("rwkv6-1.6b", 4, 3, 8), ("recurrentgemma-9b", 2, 3, 2),
                  ("granite-moe-3b-a800m", 4, 3, 8))
 VMAP_FAMILY_ITERS = 2
+# Each family's peak over the stacked steps (MiB) when the lanes' gradients
+# came through ``torch.func.grad`` (its backward kept a graph of itself) and
+# recurrentgemma-9b's lanes ran without remat, read on an H100 80GB HBM3 at
+# 700 W: printed beside this run's.
+VMAP_FAMILY_GRAD_PEAKS = {"rwkv6-1.6b": 68162.3, "recurrentgemma-9b": 68099.1,
+                          "granite-moe-3b-a800m": 59828.2}
 # The lane checks' limits: the train phases' (3, 3c, 3d); rwkv6's gradients
 # are held against float64 instead (``check_grads_vs_f64``).
 VMAP_GRAD_TOL = {TRAIN_ARCH: TRAIN_GRAD_TOL,
@@ -3567,7 +3611,7 @@ def vmap_sweep(card: str, torch, ops, argv, tag: str, n_lanes: int, n_layers=Non
     with tempfile.TemporaryDirectory() as tmp, patched(tune, "build_vmap_executor", timed_build), \
             patched(tune, "get_config", config):
         args = tune.parser().parse_args(argv)
-        cfg = dataclasses.replace(tune.sweep_model(args), remat=False)   # the lanes' config
+        cfg = tune.sweep_model(args)   # the lanes' config, its remat too
         for name in KERNELS:
             getattr(ops, name).launches = 0
         t0 = time.perf_counter()
@@ -3739,7 +3783,7 @@ def vmap_lane_checks(card: str, torch, ops, dev, cfg, args, configs, tag: str) -
     if routing is not None:
         routing.settle()
         out["routing_flips"] = routing.report(f"[vmap] {tag} first step",
-                                              train_call(cfg.n_layers, remat=False))
+                                              train_call(cfg.n_layers, remat=cfg.remat))
     rel = {(name, lane): normwise(plain_g[name][lane], g[lane])
            for name, g in kernel_g.items() for lane in range(n)}
     worst = max(rel, key=rel.get)
@@ -3826,18 +3870,76 @@ def vmap_lane_checks(card: str, torch, ops, dev, cfg, args, configs, tag: str) -
             "idle_share": traced and traced["idle_share"]}
 
 
+def lane_step_peaks(card: str, torch, dev, cfg, args) -> dict:
+    """One lane of phase 3g's stacked step (seed 0's weights, batch 0 of the
+    bank, lr 0.01 and weight_decay 0.1), through ``step_fn`` unvmapped with
+    its gradients taken each of LANE_PEAK_WAYS, in the turns of
+    LANE_PEAK_TURNS: the peak device memory of each step over what was in
+    use before it (the lane's state and the bank).  The three ways' losses
+    must agree within TRAIN_LOSS_TOL, and ``loss_and_grads``' peak be at
+    most LANE_PEAK_SHARE of ``grad_and_value``'s.  Returns {way: the least
+    of its peaks in bytes}.  (What holds ``loss_and_grads``' peak, which
+    keeps the sweep from more lanes: ``chip_probe.py --lane-memory``.)"""
+    from repro_torch.launch import tune
+
+    spec = tune.build_vmap_executor(cfg, args).spec
+    state = spec.init_fn(0, {})
+    hypers = {"lr": torch.tensor(0.01, device=dev), "weight_decay": torch.tensor(0.1, device=dev)}
+
+    def grad_and_value(module, params, batch):
+        return torch.func.grad_and_value(
+            lambda p: torch.func.functional_call(module, p, (batch,)), has_aux=True)(params)
+
+    def autograd(module, params, batch):
+        p = {n: t.detach().requires_grad_() for n, t in params.items()}
+        loss, metrics = torch.func.functional_call(module, p, (batch,))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return dict(zip(p, grads)), (loss.detach(), {k: v.detach() for k, v in metrics.items()})
+
+    ways = {"loss_and_grads": tune.loss_and_grads, "grad_and_value": grad_and_value,
+            "autograd": autograd}
+    peaks, losses = {way: [] for way in ways}, {}
+    for way in LANE_PEAK_TURNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with patched(tune, "loss_and_grads", ways[way]):
+            new, metrics = spec.step_fn(state, hypers)
+            losses[way] = float(metrics["loss"])
+        peaks[way].append(torch.cuda.max_memory_allocated() - before)
+        del new, metrics
+    least = {way: min(p) for way, p in peaks.items()}
+    log(f"[vmap] {TRAIN_ARCH} one lane's step (B={args.batch} S={args.seq_len}, step_fn "
+        f"unvmapped), peak device memory over the lane's state, in turns {LANE_PEAK_TURNS}: "
+        + "; ".join(f"{way} {[f'{b / 2**20:.1f}' for b in p]} MiB" for way, p in peaks.items())
+        + f"; losses {losses} {card}")
+    gaps = [abs(x - losses["autograd"]) / max(1.0, abs(x)) for x in losses.values()]
+    assert max(gaps) <= TRAIN_LOSS_TOL, f"one lane's step: the ways' losses differ: {losses}"
+    assert least["loss_and_grads"] <= LANE_PEAK_SHARE * least["grad_and_value"], \
+        f"loss_and_grads holds {least['loss_and_grads']} B, " \
+        f"grad_and_value {least['grad_and_value']} B"
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return least
+
+
 def run_vmap_sweep(card: str, torch, ops, dev, sweep: dict, train: dict) -> dict:
     """Phase 3g: the lane-stacked sweep of TRAIN_ARCH (``vmap_sweep``),
     beside phase 3b's serial one, then ``vmap_lane_checks``; the stacked
-    step beside 4 train-phase steps."""
-    cfg, args, configs, fig = vmap_sweep(card, torch, ops, VMAP_SWEEP_ARGS, TRAIN_ARCH, 4)
+    step beside as many train-phase steps; then ``lane_step_peaks``."""
+    cfg, args, configs, fig = vmap_sweep(card, torch, ops, VMAP_SWEEP_ARGS, TRAIN_ARCH,
+                                         VMAP_SWEEP_LANES)
     log(f"[vmap] {TRAIN_ARCH}: {fig['trials_per_hour']!r} trials/hour; 3b's serial executor "
         f"in this run: {sweep['trials_per_hour']!r} {card}")
     lanes = vmap_lane_checks(card, torch, ops, dev, cfg, args, configs, TRAIN_ARCH)
     n = len(configs)
     log(f"[time] {TRAIN_ARCH} vmap stacked step {lanes['stacked_step_s']!r} s; the train phase's "
         f"step {train['steady_step_s']!r} s x {n} = {n * train['steady_step_s']!r} s {card}")
-    return {**fig, **lanes}
+    peaks = lane_step_peaks(card, torch, dev, cfg, args)
+    return {**fig, **lanes, "lane_step_peak_bytes": peaks}
 
 
 def run_vmap_family(card: str, torch, ops, dev, arch: str, n_lanes: int, n_layers: int,
@@ -3855,8 +3957,11 @@ def run_vmap_family(card: str, torch, ops, dev, arch: str, n_lanes: int, n_layer
             "--devices-per-trial", "2", "--seed", "0", "--device", dev.type)
     cfg, args, configs, fig = vmap_sweep(card, torch, ops, argv, tag, n_lanes, n_layers,
                                          checkpoints=False)
-    return {**fig, "lanes": n_lanes, "layers": n_layers, "batch": batch,
-            **vmap_lane_checks(card, torch, ops, dev, cfg, args, configs, tag)}
+    lanes = vmap_lane_checks(card, torch, ops, dev, cfg, args, configs, tag)
+    log(f"[vmap] {tag} peak over the stacked steps {lanes['step_peak_bytes'] / 2**20:.1f} MiB "
+        f"{card}; through torch.func.grad, remat off: {VMAP_FAMILY_GRAD_PEAKS[arch]} MiB "
+        f"(an H100 80GB HBM3 at 700 W)")
+    return {**fig, "lanes": n_lanes, "layers": n_layers, "batch": batch, **lanes}
 
 
 def run_path(arch: str, card: str, torch, ops, serve, prefill, decode_step, get_config,
@@ -3990,7 +4095,10 @@ ATTN_SHAPES = (
     ("recurrentgemma local_attn", (8, 512, 512, 16, 1, 256), 2048, 107, True),
     ("hubert-xlarge", (8, 512, 512, 16, 16, 80), None, 119, False),
     # phase 3g's stacked step: VMAP_LANES lanes of smollm folded into B
-    ("smollm, 4 lanes folded", (32, 512, 512, 9, 3, 64), None, 700, True),
+    (f"smollm, {VMAP_LANES} lanes folded", (VMAP_LANES * 8, 512, 512, 9, 3, 64), None, 700,
+     True),
+    # phase 3j's train step: smollm-135m under dryrun_config, bf16 in the model
+    ("smollm dry-run config S=4096", (8, 4096, 4096, 9, 3, 64), None, 126, True),
 )
 
 
@@ -4025,8 +4133,9 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causa
                    lib_kernels) -> dict:
     """K1 at one serving shape: fp32 kernel and plain version interleaved,
     the bf16 kernel, PyTorch's ``scaled_dot_product_attention`` on the same
-    fp32 inputs (kv heads expanded beforehand, not timed) beside the kernels
-    it launched (``lib_kernels``, from ``sdpa_kernels``), and both bounds."""
+    fp32 and bf16 inputs (kv heads expanded beforehand, not timed) beside
+    the kernels it launched in fp32 (``lib_kernels``, from
+    ``sdpa_kernels``), and both bounds."""
     q, k, v, qp, kp = attention_inputs(torch, dev, seed, *shape, torch.float32)
     sdpa = sdpa_call(torch, q, k, v, causal)
     plain = lambda: ref.flash_attention_ref(q, k, v, qp, kp, causal=causal, window=window)
@@ -4037,6 +4146,7 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causa
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     bf16_ms = time_ms(lambda: ops.flash_attention(qb, kb, vb, qp, kp, causal=causal,
                                                   window=window))
+    library_bf16_ms = time_ms(sdpa_call(torch, qb, kb, vb, causal))
     bound = attention_bound(q, k, v, qp, kp, causal=causal, window=window)
     bound_bf16 = attention_bound(qb, kb, vb, qp, kp, causal=causal, window=window)
     B, S, _, H, K, hd = shape
@@ -4048,12 +4158,14 @@ def time_attention(torch, dev, ops, ref, card, label, shape, window, seed, causa
     log(f"[time] torch scaled_dot_product_attention fp32 {where} (kv heads expanded "
         f"beforehand, is_causal={causal}; max_abs_err vs plain {lib_err!r}): {library_ms!r} ms "
         f"{card}; its kernels (name, launches the profiler kept of 10, device ms a launch): "
-        f"{lib_kernels}")
+        f"{lib_kernels}; bf16 {library_bf16_ms!r} ms {card}")
     log(f"[time] flash_attention bounds {where}: fp32 {bound[0]!r} ms by {bound[1]} on the "
         f"CUDA cores, {bound[4]!r} ms by {bound[5]} as 3xTF32 on the tensor cores; bf16 "
-        f"{bound_bf16[4]!r} ms by {bound_bf16[5]} on the tensor cores ({bound[2]:.4g} flop, "
-        f"{bound[3]:.4g} bytes fp32) {card}")
+        f"{bound_bf16[4]!r} ms by {bound_bf16[5]} on the tensor cores (the function's; K1's "
+        f"hi + lo P V floor 1.5x its operations) ({bound[2]:.4g} flop, {bound[3]:.4g} bytes "
+        f"fp32) {card}")
     return {"ms": kms, "bf16_ms": bf16_ms, "plain_ms": pms, "library_ms": library_ms,
+            "library_bf16_ms": library_bf16_ms,
             "library_kernels": [name for name, _, _ in lib_kernels], "bound": bound[:4],
             "bound_ms": bound[0], "tensor_core_bound_ms": bound[4],
             "bf16_tensor_core_bound_ms": bound_bf16[4]}
@@ -4063,9 +4175,9 @@ def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed,
                        causal) -> dict:
     """K1's backward at one of K1's shapes: the fp32 kernel and its plain
     version interleaved, the bf16 kernel, the backward of PyTorch's
-    ``scaled_dot_product_attention`` on the same fp32 inputs (kv heads
-    expanded beforehand, not timed) and the kernels it launched, and both
-    bounds."""
+    ``scaled_dot_product_attention`` on the same fp32 and bf16 inputs (kv
+    heads expanded beforehand, not timed) and the kernels it launched in
+    fp32, and both bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B_, S_, _, H, K, hd = shape
@@ -4093,6 +4205,12 @@ def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed,
     lib_err = max(normwise(a, b) for a, b in zip(
         (gq.transpose(1, 2), regroup(gk), regroup(gv)), plain()))
     library_ms = time_ms(sdpa_bwd)
+    qtb, ktb, vtb = (x.detach().to(torch.bfloat16).requires_grad_() for x in (qt, kt, vt))
+    otb = F.scaled_dot_product_attention(qtb, ktb, vtb, is_causal=causal)
+    dotb = dot.to(torch.bfloat16)
+    library_bf16_ms = time_ms(
+        lambda: torch.autograd.grad(otb, (qtb, ktb, vtb), dotb, retain_graph=True))
+    del qtb, ktb, vtb, otb, dotb
     lib_kernels = [(name, n, ms / n) for name, n, ms in
                    device_kernels(torch, f"scaled_dot_product_attention backward {label}", sdpa_bwd)
                    or []]
@@ -4106,12 +4224,14 @@ def time_attention_bwd(torch, dev, ops, ref, card, label, shape, window, seed,
     log(f"[time] torch scaled_dot_product_attention backward fp32 {where} (kv heads expanded "
         f"beforehand, is_causal={causal}; max normwise err vs plain {lib_err!r}): "
         f"{library_ms!r} ms {card}; its "
-        f"kernels (name, launches the profiler kept of 10, device ms a launch): {lib_kernels}")
+        f"kernels (name, launches the profiler kept of 10, device ms a launch): {lib_kernels}; "
+        f"bf16 {library_bf16_ms!r} ms {card}")
     log(f"[time] flash_attention_bwd bounds {where}: fp32 {bound[0]!r} ms by {bound[1]} on the "
         f"CUDA cores, {bound[4]!r} ms by {bound[5]} as 3xTF32 on the tensor cores; bf16 "
         f"{bound_bf16[4]!r} ms by {bound_bf16[5]} on the tensor cores ({bound[2]:.4g} flop, "
         f"{bound[3]:.4g} bytes fp32) {card}")
     return {"ms": kms, "bf16_ms": bf16_ms, "plain_ms": pms, "library_ms": library_ms,
+            "library_bf16_ms": library_bf16_ms,
             "library_kernels": [name for name, _, _ in lib_kernels], "bound": bound[:4],
             "bound_ms": bound[0], "tensor_core_bound_ms": bound[4],
             "bf16_tensor_core_bound_ms": bound_bf16[4]}
@@ -4648,29 +4768,33 @@ def main() -> int:
     per_path = {f"{TRAIN_ARCH} train": train["launches"]}
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("3")
 
     # -- 3h. the same step on DTensor: a world of one rank, a (1,1) mesh -------------------------
     sharded = run_train_sharded(card, torch, ops, dev, train)
     per_path[f"{TRAIN_ARCH} sharded train"] = sharded["launches"]
+    phase_done("3h")
 
     # -- 3b. an ASHA sweep of it through launch.tune, and one trial in a worker process ------
     sweep = run_sweep(card, torch, ops)
     per_path[f"{TRAIN_ARCH} sweep"] = sweep["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("3b")
 
     # -- 3e. the same sweep on the cluster tier, then a worker killed and restored -------------
     cluster = run_cluster(card, torch, sweep)
     per_path[f"{TRAIN_ARCH} cluster sweep"] = cluster["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("3e")
 
     # -- 3g. the sweep as lanes of one vmapped step ---------------------------------------------
     vmap_sweep = run_vmap_sweep(card, torch, ops, dev, sweep, train)
     per_path[f"{TRAIN_ARCH} vmap sweep"] = vmap_sweep["launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    phase_done("3, 3h, 3b, 3e, 3g")
+    phase_done("3g")
 
     # -- 3k. the ssm, hybrid and moe families' sweeps as lanes of one vmapped step --------------
     vmap_families = {}
@@ -4688,19 +4812,21 @@ def main() -> int:
         per_path[f"{arch} train"] = train_r[arch]["launches"]
         gc.collect()
         torch.cuda.empty_cache()
+        phase_done(f"3c {arch}")
 
     # -- 3d. train granite-moe-3b-a800m through K4's forward and backward ------------------------
     train_moe = run_train_moe(card, torch, ops, dev)
     per_path[f"{TRAIN_MOE} train"] = train_moe["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("3d")
 
     # -- 3f. train hubert-xlarge at full width and depth through K1 at hd 80 ---------------------
     train_audio = run_train_audio(card, torch, ops, dev)
     per_path[f"{TRAIN_AUDIO} train"] = train_audio["launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    phase_done("3c, 3d, 3f")
+    phase_done("3f")
 
     # -- 4 and 5. serve each model at full width, then its times -----------------------------------
     for arch in ARCHS:
@@ -4708,8 +4834,7 @@ def main() -> int:
                                   get_config, leaves)
         gc.collect()
         torch.cuda.empty_cache()
-
-    phase_done("4")
+        phase_done(f"4 {arch}")
 
     # -- 5. kernel times at the serving and training shapes -----------------------------------
     f32, bf16 = torch.float32, torch.bfloat16
@@ -4768,14 +4893,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile = run_profile(card, torch, ops, dev)
     per_path[f"{TRAIN_ARCH} profiled trial"] = profile["launches"]
+    phase_done("3i")
 
     # -- 3j. the dry-run on this machine, then the record's config on the card ----------------
     gc.collect()
     torch.cuda.empty_cache()
     dry_cli = run_dryrun_cli(card, torch)
+    phase_done("3j's dry-run CLI")
     dry_cfg = run_dryrun_config(card, torch, ops, dev)
     per_path[f"{TRAIN_ARCH} dry-run config"] = dry_cfg["launches"]
-    phase_done("3i, 3j")
+    phase_done("3j")
 
     # The backwards are the gradients of the same TPU kernels (forward-only in JAX)
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:77",

@@ -29,7 +29,8 @@ heartbeating is evicted, its trials restarting elsewhere from their last
 fetched checkpoint under ``--max-failures``) or ``vmap`` (homogeneous sweeps
 as one SPMD program: ``min(--num-samples, 8)`` trials stacked as lanes of
 one ``torch.func.vmap`` step, momentum SGD over (lr, weight_decay), each
-kernel launched once for all lanes; ``build_vmap_executor``).  ``vmap``
+kernel launched once for all lanes, the config's remat kept;
+``build_vmap_executor``).  ``vmap``
 takes every token family (dense, ssm, hybrid, moe): on the card each of
 their kernels, forward and backward, has a ``vmap`` rule.  The audio and
 vision families' frontends take no token batch, so those exit with an
@@ -67,7 +68,6 @@ quickstarts), through the port's copy of the control plane.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 from typing import Any, Dict, Optional, Sequence
@@ -81,7 +81,8 @@ from ..core import (ASHAScheduler, FIFOScheduler, GPSearcher,
                     PopulationBasedTraining, Resources, TPESearcher,
                     RandomSearcher, loguniform, run_experiments, uniform)
 from ..dist.submesh import SlicePool
-from ..models import LM, ModelConfig, forward_train
+from ..models import (LM, ModelConfig, aux_loss_coef, forward_train, train_loss,
+                      train_stages)
 from ..train.trainable import make_model_trainable, model_trainable_factory
 from .train import device_model
 
@@ -101,22 +102,100 @@ VMAP_BANKED = 8
 class TrainForward(LM):
     """An ``LM`` with no weights of its own (the meta device) whose forward
     is ``forward_train``: the module ``torch.func.functional_call`` runs on
-    a lane's weights, which ``LM``, with no forward, cannot be."""
+    a lane's weights, which ``LM``, with no forward, cannot be.  With
+    ``stage``, one stage of ``train_stages`` runs instead, on ``xs``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__(cfg, None, torch.device("meta"))
         self.cfg = cfg
 
-    def forward(self, batch):
-        return forward_train(self, batch, self.cfg)
+    def forward(self, *xs, stage=None):
+        return forward_train(self, xs[0], self.cfg) if stage is None else stage(self, *xs)
 
 
 def loss_and_grads(module: TrainForward, params: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor]):
     """(gradients by parameter name, (loss, metrics)) of ``forward_train``
-    at ``params``, through ``torch.func`` (so that ``vmap`` can take it)."""
-    return torch.func.grad_and_value(
-        lambda p: torch.func.functional_call(module, p, (batch,)), has_aux=True)(params)
+    at ``params``, through ``torch.func`` (so that ``vmap`` can take it).
+
+    The gradients come from ``torch.func.vjp``'s pull-back called with
+    ``create_graph=False``: ``torch.func.grad`` runs autograd with
+    ``create_graph=True``, so its backward records a graph of itself, which
+    keeps the activations and every intermediate gradient alive until the
+    last gradient of the step is out.  With ``cfg.remat`` the forward is
+    rematerialised a repeat at a time, as JAX's ``jax.checkpoint`` on the
+    scan body does (``_remat_loss_and_grads``)."""
+    if module.cfg.remat:
+        return _remat_loss_and_grads(module, params, batch)
+    loss, pull, metrics = torch.func.vjp(
+        lambda p: torch.func.functional_call(module, p, (batch,)), params, has_aux=True)
+    (grads,) = _pull(pull, torch.ones_like(loss))
+    return grads, (loss, metrics)
+
+
+def _pull(pull, cotangents):
+    """A ``torch.func.vjp`` pull-back run once, without a graph of itself
+    and freeing what its forward saved (the wrapper's defaults keep the
+    graph and, with grad mode on, record one)."""
+    return pull(cotangents, retain_graph=False, create_graph=False)
+
+
+def _remat_loss_and_grads(module: TrainForward, params: Dict[str, torch.Tensor],
+                          batch: Dict[str, torch.Tensor]):
+    """``loss_and_grads`` as a chain of ``train_stages``, each a function of
+    its own parameters only (a ``vjp`` over the whole dict would make a
+    zero gradient of every parameter at every stage).  The embedding keeps
+    its pull-back; the repeats run forward without autograd and keep only
+    their inputs; the head and the loss run through ``vjp``; then each
+    repeat, from the top, runs again through ``vjp`` and is pulled back at
+    once (the cotangent of its aux loss is the loss's coefficient of it),
+    its input dropped.  ``torch.utils.checkpoint``, the autograd paths'
+    remat, cannot run under ``torch.func`` (it saves through saved-tensor
+    hooks); nor can an ``autograd.Function`` that recomputes a repeat in its
+    backward once that backward runs without a graph (functorch's batching
+    asserts)."""
+    cfg = module.cfg
+    embed, repeats, head = train_stages(cfg, batch)
+    coef = aux_loss_coef(cfg)
+
+    def own(stage):
+        return {n: t for n, t in params.items() if n.startswith(stage.prefixes)}
+
+    def call(stage):
+        return lambda p, *xs: torch.func.functional_call(module, p, xs, {"stage": stage.fn})
+
+    grads: Dict[str, torch.Tensor] = {}
+
+    def add(g):
+        for n, t in g.items():
+            grads[n] = grads[n] + t if n in grads else t
+
+    x, embed_pull = torch.func.vjp(call(embed), own(embed))
+    inputs, auxes = [], []
+    with torch.no_grad():
+        for stage in repeats:
+            inputs.append(x)
+            x, aux = call(stage)(own(stage), x)
+            auxes.append(aux)
+    ce, pull, acc = torch.func.vjp(call(head), own(head), x, has_aux=True)
+    del x
+    dp, dx = _pull(pull, torch.ones_like(ce))
+    add(dp)
+    for stage, aux in zip(reversed(repeats), reversed(auxes)):
+        run = call(stage)
+        if aux is None:
+            _, pull = torch.func.vjp(lambda p, x: run(p, x)[0], own(stage), inputs.pop())
+            dp, dx = _pull(pull, dx)
+        else:
+            _, pull = torch.func.vjp(run, own(stage), inputs.pop())
+            dp, dx = _pull(pull, (dx, torch.full_like(aux, coef)))
+        add(dp)
+    add(_pull(embed_pull, dx)[0])
+    aux_total = torch.zeros((), dtype=torch.float32, device=ce.device)
+    for aux in auxes:
+        if aux is not None:
+            aux_total = aux_total + aux
+    return {n: grads[n] for n in params}, train_loss(ce, acc, aux_total, cfg)
 
 
 def build_vmap_executor(cfg: ModelConfig, args: argparse.Namespace):
@@ -132,17 +211,17 @@ def build_vmap_executor(cfg: ModelConfig, args: argparse.Namespace):
     smollm-135m's full width a lane's snapshot is 1.08 GB, and the store's
     2 GiB in memory would refuse the second.
 
-    The lanes train ``cfg`` with ``remat=False``: ``torch.utils.checkpoint``
-    cannot run under ``torch.func.grad`` (it saves through saved-tensor
-    hooks, which the transform refuses), where JAX's ``jax.checkpoint``
-    composes with ``jax.vmap`` and ``jax.grad``.  Remat changes what the
-    backward keeps, not the values; the cost is memory."""
+    The lanes train ``cfg`` as given, its remat too, as JAX's lanes do:
+    ``loss_and_grads`` pulls the gradients back without a graph of the
+    backward, and with ``cfg.remat`` keeps only each repeat's input between
+    the forward and the backward, running the repeat again for its
+    gradients (each kernel of a repeat runs its forward twice a step and its
+    backward once, for all lanes at a time)."""
     from ..core import CheckpointManager, ObjectStore
     from ..core.vmap_executor import VectorTrainableSpec, VmapExecutor
     from ..data import DataConfig, SyntheticLMDataset
     from ..models import init_params
 
-    cfg = dataclasses.replace(cfg, remat=False)
     dev = resolve_device(args.device)
     data = SyntheticLMDataset(DataConfig(global_batch=args.batch, seq_len=args.seq_len,
                                          vocab_size=cfg.vocab_size))

@@ -17,7 +17,7 @@ embeddings (PaliGemma's prefix-LM layout).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -122,13 +122,55 @@ def forward_train(params: LM, batch: Dict[str, torch.Tensor],
     ``logits[:, P:]`` without computing the rest."""
     x = _embed_inputs(params, batch, cfg)
     x, _, aux = T.apply_stack(params.stack, cfg, x, _positions(x), None, mode="train")
+    ce, acc = _head_loss(params, x, batch, cfg)
+    return train_loss(ce, acc, aux, cfg)
+
+
+def _head_loss(params: LM, x: torch.Tensor, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cross-entropy, accuracy) of the stack's output ``x``."""
     if cfg.frontend == "vision_stub":
         x = x[:, batch["patch_embeds"].shape[1]:]
-    logits = _logits(params, x, cfg)
-    ce, acc = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
-    aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
-    loss = ce + aux_coef * aux
-    return loss, {"loss": ce, "aux_loss": aux, "accuracy": acc}
+    return cross_entropy(_logits(params, x, cfg), batch["labels"], batch.get("loss_mask"))
+
+
+def aux_loss_coef(cfg: ModelConfig) -> float:
+    return cfg.moe.aux_loss_coef if cfg.moe else 0.0
+
+
+def train_loss(ce: torch.Tensor, acc: torch.Tensor, aux: torch.Tensor,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``forward_train``'s (total_loss, metrics) from its cross-entropy,
+    accuracy and the stack's aux loss."""
+    return ce + aux_loss_coef(cfg) * aux, {"loss": ce, "aux_loss": aux, "accuracy": acc}
+
+
+class TrainStage(NamedTuple):
+    """A stage of ``forward_train``: ``fn(params, *xs)`` reads only the
+    parameters whose names start with one of ``prefixes``."""
+    prefixes: Tuple[str, ...]
+    fn: Callable
+
+
+def train_stages(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[TrainStage, List[TrainStage], TrainStage]:
+    """``forward_train`` cut where remat cuts it (JAX's ``jax.checkpoint``
+    on each repeat of a segment): (the embedding, ``fn(params) -> x``; each
+    repeat of each segment in order, ``fn(params, x) -> (x, aux or None)``;
+    the head and the loss, ``fn(params, x) -> (ce, accuracy)``).  Chained,
+    and with ``train_loss`` over the repeats' aux losses summed from 0 in
+    order, they compute ``forward_train``'s values; a caller that
+    differentiates each stage on its own keeps only each stage's input
+    between the forward and the backward."""
+    embed = TrainStage(("embed.", "frontend."), lambda params: _embed_inputs(params, batch, cfg))
+    repeats = [TrainStage(tuple(f"stack.{p}" for p in rep.prefixes),
+                          lambda params, x, rep=rep: rep.apply(params.stack, cfg, x,
+                                                               _positions(x)))
+               for rep in T.stack_repeats(cfg)]
+    tied = ("embed.",) if cfg.tie_embeddings else ()
+    head = TrainStage(("final_norm.", "lm_head.", *tied),
+                      lambda params, x: _head_loss(params, x, batch, cfg))
+    return embed, repeats, head
 
 
 def forward_encode(params: LM, batch: Dict[str, torch.Tensor],

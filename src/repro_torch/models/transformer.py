@@ -19,7 +19,7 @@ scan body does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -47,6 +47,37 @@ def segment_specs(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     if rem:
         segs.append((tuple(pattern[n_full * period:]), 1))
     return segs
+
+
+class Repeat(NamedTuple):
+    """One repeat of a segment (JAX's scan body): repeat ``index`` of
+    segment ``segment``, whose blocks are of ``types``."""
+    segment: int
+    index: int
+    types: Tuple[str, ...]
+
+    @property
+    def prefixes(self) -> Tuple[str, ...]:
+        """The names of its blocks' parameters in the stack start with these."""
+        return tuple(f"{self.segment}.{bi}.{self.index}." for bi in range(len(self.types)))
+
+    def apply(self, stack: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, states=None, mode: str = "train",
+              remat: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``_apply_repeat`` on its blocks of ``stack`` (states None: no
+        caches); with ``remat`` under ``torch.utils.checkpoint``."""
+        blocks = [stack[self.segment][bi][self.index] for bi in range(len(self.types))]
+        states = [None] * len(self.types) if states is None else states
+        if remat:
+            return checkpoint(_apply_repeat, blocks, cfg, self.types, x, positions, states,
+                              mode, use_reentrant=False)
+        return _apply_repeat(blocks, cfg, self.types, x, positions, states, mode)
+
+
+def stack_repeats(cfg: ModelConfig) -> List[Repeat]:
+    """Every repeat of every segment, in the order the stack runs them."""
+    return [Repeat(si, r, types) for si, (types, n) in enumerate(segment_specs(cfg))
+            for r in range(n)]
 
 
 # -- init ----------------------------------------------------------------------------
@@ -181,18 +212,13 @@ def apply_stack(stack: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
     """
     aux_total = replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
     remat = cfg.remat and mode == "train"
-    for si, (types, n) in enumerate(segment_specs(cfg)):
-        for r in range(n):
-            blocks = [stack[si][bi][r] for bi in range(len(types))]
-            states = [None] * len(types) if caches is None else \
-                [_tree_map(lambda t: t[r], caches[si][bi]) for bi in range(len(types))]
-            if remat:
-                x, aux = checkpoint(_apply_repeat, blocks, cfg, types, x, positions, states,
-                                    mode, use_reentrant=False)
-            else:
-                x, aux = _apply_repeat(blocks, cfg, types, x, positions, states, mode)
-            if aux is not None:
-                aux_total = aux_total + aux
+    for rep in stack_repeats(cfg):
+        states = None if caches is None else \
+            [_tree_map(lambda t: t[rep.index], caches[rep.segment][bi])
+             for bi in range(len(rep.types))]
+        x, aux = rep.apply(stack, cfg, x, positions, states, mode, remat)
+        if aux is not None:
+            aux_total = aux_total + aux
     return x, caches, aux_total
 
 

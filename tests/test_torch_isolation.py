@@ -1,5 +1,5 @@
-"""The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py, imports ``jax`` or anything of ``repro``, or names such a
+"""The port stands alone: no file under src/repro_torch/, and neither
+chip_smoke.py nor chip_probe.py, imports ``jax`` or anything of ``repro``, or names such a
 module in a string (a forkserver preload, a ``"module:attr"`` factory
 target), where no import statement shows it."""
 import ast
@@ -16,7 +16,7 @@ import torch  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # A string that is a dotted module name, optionally with ":attr".
 MODULE_STRING = re.compile(r"[A-Za-z_]\w*(\.\w+)*(:[\w.]+)?")
@@ -51,7 +51,7 @@ def _module_strings(path: Path):
 
 
 def test_the_scan_sees_every_file():
-    assert (ROOT / "chip_smoke.py").exists()
+    assert (ROOT / "chip_smoke.py").exists() and (ROOT / "chip_probe.py").exists()
     names = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
     assert {"kernels/ops.py", "kernels/rwkv6_scan.py", "kernels/rglru_scan.py",
             "kernels/moe_router.py", "models/layers.py", "models/rwkv6.py",

@@ -6,11 +6,14 @@ keeps a lane's state bit for bit through pause and restore and through PBT's
 ``restart_trial_with_config``, and runs the stacked step of
 ``launch.tune.build_vmap_executor`` against JAX's for every token family
 (smollm-135m, rwkv6-1.6b, recurrentgemma-9b, granite-moe-3b-a800m, and
-smollm-135m with remat, which JAX runs under ``jax.checkpoint`` and the port
-without): the JAX package's ``init_fn`` draws each lane's weights,
+smollm-135m, recurrentgemma-9b and granite-moe-3b-a800m with remat, which JAX
+runs under ``jax.checkpoint`` and the port a repeat at a time through
+``loss_and_grads``' chain of stages): the JAX package's ``init_fn`` draws each lane's weights,
 ``models/convert.py`` carries them across, and 3 stacked steps through
 ``jax.vmap`` and ``torch.func.vmap`` must agree lane by lane.  Each lane of
-the stacked step must equal that lane stepped alone.  Each kernel's
+the stacked step must equal that lane stepped alone; with remat the port's
+stacked step must equal itself without, each repeat run twice a step, and
+the lanes' backward must run with grad mode off (no graph of the backward).  Each kernel's
 Function and its backward's (``FlashAttentionFn``/``FlashAttentionBwdFn``,
 ``RWKV6ScanFn``/``RWKV6ScanBwdFn``, ``RGLRUScanFn``/``RGLRUScanBwdFn``,
 ``MoERouterFn``/``MoERouterBwdFn``) under ``vmap(grad)`` must equal
@@ -50,11 +53,16 @@ from repro_torch.models import moe as pmoe
 
 ARCH = "smollm-135m"
 # The stacked step's configs: id -> (arch, remat).  With remat JAX's lanes
-# run ``jax.checkpoint``; the port's ``build_vmap_executor`` trains them without.
+# run ``jax.checkpoint`` on each repeat, and the port's ``loss_and_grads``
+# runs each repeat again for its gradients; granite's carries the MoE aux
+# loss through the chain of stages.
 VMAP_ARCHS = {"smollm-135m": (ARCH, False), "smollm-135m remat": (ARCH, True),
               "rwkv6-1.6b": ("rwkv6-1.6b", False),
               "recurrentgemma-9b": ("recurrentgemma-9b", False),
-              "granite-moe-3b-a800m": ("granite-moe-3b-a800m", False)}
+              "recurrentgemma-9b remat": ("recurrentgemma-9b", True),
+              "granite-moe-3b-a800m": ("granite-moe-3b-a800m", False),
+              "granite-moe-3b-a800m remat": ("granite-moe-3b-a800m", True)}
+TOKEN_FAMILIES = (ARCH, "rwkv6-1.6b", "recurrentgemma-9b", "granite-moe-3b-a800m")
 # Two layers of fp32 sums taken in another order than XLA's, carried over 3
 # momentum-SGD steps: the kernel tolerance of tests/test_kernels.py.
 JAX_TOL = 2e-5
@@ -286,6 +294,104 @@ def test_vmap_executor_spills_to_the_log_dir(tmp_path):
     assert ex.ckpt.store.spill_dir == str(tmp_path / "vmap-spill")
     assert ptune.build_vmap_executor(get_config(ARCH).reduced(),
                                      _args()).ckpt.store.spill_dir is None
+
+
+# -- the lanes' gradients: remat a repeat at a time, no graph of the backward ----------------
+
+def _stacked_port_lanes(spec):
+    """Three lanes of the port's own ``init_fn`` (seeds 0-2) at steps 0, 3, 5."""
+    lanes = [spec.init_fn(seed, {}) for seed in range(LANES)]
+    state = {part: {k: torch.stack([s[part][k] for s in lanes]) for k in lanes[0][part]}
+             for part in ("p", "m")}
+    state["i"] = torch.tensor((0, 3, 5), dtype=torch.int32)
+    return state
+
+
+@pytest.mark.parametrize("arch", TOKEN_FAMILIES)
+def test_the_stacked_step_with_remat_is_the_step_without(arch):
+    """The same weights and batches through ``loss_and_grads`` with and
+    without remat: equal within LANE_TOL; each repeat runs twice a step
+    with remat (its forward without autograd, again under ``vjp``) and
+    once without."""
+    from repro_torch.models import segment_specs
+    from repro_torch.models import transformer as ptransformer
+
+    base = get_config(arch).reduced()
+    n_repeats = sum(n for _, n in segment_specs(base))
+    ph = {"lr": torch.tensor(LRS), "weight_decay": torch.tensor(WDS)}
+    out = {}
+    for remat in (False, True):
+        spec = ptune.build_vmap_executor(dataclasses.replace(base, remat=remat), _args()).spec
+        state = _stacked_port_lanes(spec)
+        with mock.patch.object(ptransformer, "_apply_repeat",
+                               wraps=ptransformer._apply_repeat) as repeat:
+            out[remat] = torch.func.vmap(spec.step_fn)(state, ph)
+        assert repeat.call_count == (2 if remat else 1) * n_repeats, (remat, repeat.call_count)
+    (plain, plain_m), (remat, remat_m) = out[False], out[True]
+    torch.testing.assert_close(remat_m["loss"], plain_m["loss"], rtol=0, atol=LANE_TOL)
+    assert list(remat["p"]) == list(plain["p"])
+    for part in ("p", "m"):
+        for name, w in plain[part].items():
+            torch.testing.assert_close(remat[part][name], w, rtol=0, atol=LANE_TOL)
+
+
+class _GradModeProbe(torch.autograd.Function):
+    """The identity, recording ``torch.is_grad_enabled()`` in its backward."""
+    seen = []
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        _GradModeProbe.seen.append(torch.is_grad_enabled())
+        return g
+
+
+class _ProbeModule(torch.nn.Module):
+    """A module ``loss_and_grads`` takes: one weight, one probed op."""
+
+    def __init__(self):
+        super().__init__()
+        self.cfg = dataclasses.replace(get_config(ARCH).reduced(), remat=False)
+        self.w = torch.nn.Parameter(torch.ones(3))
+
+    def forward(self, batch):
+        loss = (_GradModeProbe.apply(self.w * batch["x"]) ** 2).sum()
+        return loss, {"loss": loss}
+
+
+def test_the_lanes_backward_runs_without_a_graph():
+    """``torch.func.grad`` runs its backward with ``create_graph=True``
+    (grad mode on, a graph of the backward kept until the last gradient);
+    ``loss_and_grads`` must pull back without one, with and without remat."""
+    module, x = _ProbeModule(), torch.tensor([1.0, 2.0, 3.0])
+    _GradModeProbe.seen.clear()
+    grads, (loss, _) = ptune.loss_and_grads(module, {"w": torch.ones(3)}, {"x": x})
+    assert _GradModeProbe.seen == [False]
+    torch.testing.assert_close(grads["w"], 2 * x * x, rtol=0, atol=0)
+    assert float(loss) == 14.0
+
+    from repro_torch.models import transformer as ptransformer
+    real = ptransformer._apply_repeat
+
+    def probed(blocks, cfg, types, x, *rest):
+        return real(blocks, cfg, types, _GradModeProbe.apply(x), *rest)
+
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), remat=True)
+    spec = ptune.build_vmap_executor(cfg, _args()).spec
+    state = _stacked_port_lanes(spec)
+    _GradModeProbe.seen.clear()
+    with mock.patch.object(ptransformer, "_apply_repeat", probed):
+        torch.func.vmap(spec.step_fn)(state, {"lr": torch.tensor(LRS),
+                                              "weight_decay": torch.tensor(WDS)})
+    assert _GradModeProbe.seen == [False] * cfg.n_layers
 
 
 # -- K1's Functions under torch.func -------------------------------------------------------
