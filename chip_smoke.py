@@ -72,7 +72,24 @@ non-zero exit:
    gradients (``full_tensor()``) against phase 3's unsharded kernel path
    within the train phase's limits; the steady step beside phase 3's, the
    launches a step, and a trace of one warm step (idle share, NCCL's
-   kernels).  The group is destroyed before the next phase.
+   kernels).  Then, in the same world and on the same mesh, the ssm,
+   hybrid and moe families at full width, fp32, batch 8, sequence 512, 3
+   steps each, their scans and router on each rank's shards under
+   ``local_map`` (``local_rwkv6_scan``, ``local_rglru_scan``,
+   ``local_moe_router``): rwkv6-1.6b at 3 of 24 layers (3 K2 forwards and
+   3 backwards a step), recurrentgemma-9b at one repeat, 3 of 38 layers,
+   with its remat (4 K3 and 2 K1 forwards, 2 K3 and 1 K1 backwards a step)
+   and granite-moe-3b-a800m at 3 of 32 layers with phase 3d's remat (6 K1
+   and 6 K4 forwards, 3 of each backward a step).  Each against the
+   unsharded kernel path of the same config on the same weights and
+   batches: the launch counts of both equal ``expected_train_launches``;
+   the first step's loss and every gradient (``full_tensor()``) and every
+   step's loss bit for bit, or within phases 3c's and 3d's limits with the
+   gap printed (rwkv6: where its chaotic gradients are not bit for bit,
+   each K2 forward's outputs of the first step bit for bit, and the losses
+   within 4e-3).  Printed: each path's steady step, peak memory and the
+   idle share of a traced warm step.  The group is destroyed before the
+   next phase.
 3b. sweep: the paper's workload, ``repro_torch.launch.tune`` in-process on
    smollm-135m at full width (fp32, batch 8, sequence 512): ASHA (max_t 4,
    grace 1, reduction 3) over 4 samples of the launcher's space, seed 0, 2
@@ -2149,6 +2166,10 @@ def run_train_sharded(card: str, torch, ops, dev, train: dict) -> dict:
                 one_step()                                            # warm-up
                 traced = trace(f"{TRAIN_ARCH} sharded train step (warm)", one_step, card, ops)
             del held, state, sbatches
+            gc.collect()
+            torch.cuda.empty_cache()
+            families = {arch: run_family_sharded(card, torch, ops, dev, mesh, arch, layers, remat)
+                        for arch, layers, remat in SHARDED_FAMILIES}
         finally:
             dist.destroy_process_group()
     per_step = {name: n // TRAIN_STEPS for name, n in launches.items() if n}
@@ -2165,7 +2186,7 @@ def run_train_sharded(card: str, torch, ops, dev, train: dict) -> dict:
     return {"launches": launches, "steady_step_s": steady, "first_step_s": step_s[0],
             "unsharded_steady_step_s": train["steady_step_s"],
             "idle_share": traced and traced["idle_share"], "nccl_kernels": nccl,
-            "grad_rel_err": rel[worst], "loss_rel_err": max(loss_err)}
+            "grad_rel_err": rel[worst], "loss_rel_err": max(loss_err), "families": families}
 
 
 # Phase 3c: the ssm and hybrid families trained through ``launch.train`` at
@@ -2493,6 +2514,183 @@ def run_train_moe(card, torch, ops, dev) -> dict:
             "loss_rel_err": max(loss_err), "layers": cfg.n_layers, "routing_flips": flips,
             "first_step_routing_flips": first_flips,
             "k4_bwd_trace_ms": None if k4_bwd is None else k4_bwd[0]}
+
+
+# Phase 3h's other token families, after smollm-135m and in the same world
+# and on the same (1,1) mesh, ``fsdp_tp`` and ``activation_policy``: each
+# at full width, fp32, B x S tokens a step, SHARDED_FAMILY_STEPS steps
+# through ``make_train_state`` / ``make_train_step``, its kernels on each
+# rank's shards under ``local_map`` (``dist.sharding.local_rwkv6_scan``,
+# ``local_rglru_scan``, ``local_moe_router``, and K1's ``local_shards``).
+# (arch, layers, remat), phase 3k's depths: rwkv6-1.6b 3 of 24 layers (3
+# K2 each way a step), recurrentgemma-9b one repeat, 3 of 38 layers, with
+# its config's remat (4 K3 and 2 K1 forwards, 2 K3 and 1 K1 backwards a
+# step), granite-moe-3b-a800m 3 of 32 layers with phase 3d's remat (6 K1
+# and 6 K4 forwards, 3 of each backward).  Held against the unsharded
+# kernel path of the same config on the same weights (seed 0 on the card)
+# and batches: the launch counts equal (``expected_train_launches``), and
+# on a mesh of one rank the same kernels run on the same tensors, so the
+# first step's loss and every parameter's gradient (``full_tensor()``) and
+# every step's loss are expected bit for bit; where not, within phases
+# 3c's and 3d's limits (TRAIN_R_GRAD_TOL, TRAIN_R_LOSS_TOL,
+# TRAIN_MOE_GRAD_TOL, TRAIN_MOE_LOSS_TOL; rwkv6's losses within 4e-3), the
+# gap printed.  rwkv6's random-init gradients are chaotic (phase 3c), so
+# where they are not bit for bit, each K2 forward's outputs of the first
+# step must be, between the two paths.
+SHARDED_FAMILIES = (("rwkv6-1.6b", 3, False), ("recurrentgemma-9b", 3, True),
+                    ("granite-moe-3b-a800m", 3, True))
+SHARDED_FAMILY_STEPS = 3
+SHARDED_GRAD_TOL = {"recurrentgemma-9b": TRAIN_R_GRAD_TOL["recurrentgemma-9b"],
+                    "granite-moe-3b-a800m": TRAIN_MOE_GRAD_TOL}
+SHARDED_LOSS_TOL = {**TRAIN_R_LOSS_TOL, "granite-moe-3b-a800m": TRAIN_MOE_LOSS_TOL}
+
+
+def run_family_sharded(card: str, torch, ops, dev, mesh, arch: str, n_layers: int,
+                       remat: bool) -> dict:
+    """Phase 3h for one of ``SHARDED_FAMILIES`` on ``mesh``: the first
+    step's loss and gradients and then SHARDED_FAMILY_STEPS steps, each on
+    the sharded state and on the unsharded one (every launch count set to 0
+    just before the steps and read just after), held against each other;
+    each path's steady step, peak memory and a trace of one warm step."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import rwkv6_scan as k2
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import forward_train
+    from repro_torch.train import adamw, linear_warmup_cosine, make_train_state, make_train_step
+
+    full, steps = get_config(arch), SHARDED_FAMILY_STEPS
+    cfg = launch_train.device_model(dataclasses.replace(full, n_layers=n_layers, remat=remat),
+                                    dev)
+    tag = f"{arch} ({n_layers} of {full.n_layers} layers)"
+    batch_at = launch_train.batch_source(cfg, B, S)
+    batches = [{k: torch.from_numpy(x).to(dev) for k, x in batch_at(i).items()}
+               for i in range(steps)]
+    opt = adamw(linear_warmup_cosine(3e-4, 10, steps))   # launch.train's defaults
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    k2_out = {"unsharded": [], "sharded": []}   # each K2 forward's (y, final state)
+
+    def keeping(path):
+        def keep(*a, **kw):
+            out = real_k2(*a, **kw)
+            k2_out[path].append([t.detach().clone() for t in out[:2]])
+            return out
+        return patched(k2, "rwkv6_scan_cuda", keep)
+
+    def policy(path):
+        """The sharded path's strategy and activation policy; none for the other."""
+        return contextlib.nullcontext() if path == "unsharded" else _sharded_policy(shd, mesh)
+
+    def state_and_batches(path):
+        state = make_train_state(gen(), cfg, opt, dev)
+        if path == "unsharded":
+            return state, batches
+        return shd.shard_train_state(state, mesh, cfg), [shd.shard_batch(b, mesh) for b in batches]
+
+    # the first step's loss and gradients, unsharded then sharded, one state at a time
+    real_k2, first = k2.rwkv6_scan_cuda, {}
+    for path in ("unsharded", "sharded"):
+        with policy(path), keeping(path):
+            state, sb = state_and_batches(path)
+            loss, grads = first_step_grads(torch, forward_train, state.params, sb[0], cfg)
+            first[path] = (loss, {n: g.full_tensor() if hasattr(g, "full_tensor") else g
+                                  for n, g in grads.items()})
+        del state, sb, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_loss, ref_grads = first["unsharded"]
+    loss, grads = first["sharded"]
+    rel = {n: normwise(ref_grads[n], g) for n, g in grads.items()}
+    del first, grads, ref_grads
+    worst = max(rel, key=rel.get)
+    grad_bitwise = max(rel.values()) == 0 and loss == ref_loss
+    how = "bit for bit" if grad_bitwise else \
+        f"max abs err over max(1, max |g|) {rel[worst]!r} ({worst}; median over the {len(rel)} " \
+        f"parameters {statistics.median(rel.values())!r})"
+    log(f"[sharded] {tag} first-step gradients, sharded vs the unsharded kernel path: {how}; "
+        f"loss {loss!r} vs {ref_loss!r}" +
+        (f" (limit {SHARDED_GRAD_TOL[arch]})" if arch in SHARDED_GRAD_TOL else ""))
+    k2_bitwise = None
+    if cfg.family == "ssm":
+        outs = k2_out.values()
+        assert all(len(o) == n_layers for o in outs), {p: len(o) for p, o in k2_out.items()}
+        k2_bitwise = all(torch.equal(a, b) for u, s in zip(*outs) for a, b in zip(u, s))
+        log(f"[sharded] {tag} the first step's {n_layers} K2 forwards' outputs (y, final "
+            f"state), sharded vs unsharded: {'bit for bit' if k2_bitwise else 'differ'}")
+        assert grad_bitwise or k2_bitwise, f"{arch} sharded: K2's outputs differ"
+    else:
+        assert rel[worst] <= SHARDED_GRAD_TOL[arch], f"{arch} sharded first-step gradient {worst}"
+    del k2_out
+
+    # the steps, sharded then unsharded, each from seed 0's weights
+    runs = {}
+    for path in ("sharded", "unsharded"):
+        with policy(path):
+            state, sb = state_and_batches(path)
+            step = make_train_step(cfg, opt)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            for name in KERNELS:
+                getattr(ops, name).launches = 0
+            losses, step_s = [], []
+            for b in sb:
+                t0 = time.perf_counter()
+                state, metrics = step(state, b)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+            launches = {name: getattr(ops, name).launches for name in KERNELS}
+            peak = torch.cuda.max_memory_allocated()
+            expect = expected_train_launches(cfg, steps)
+            log(f"[sharded] {tag} {path}: kernel launches on the main path: {launches} ({steps} "
+                f"steps; remat {cfg.remat}; expected {expect})")
+            assert launches == expect, f"{arch} {path} train: expected {expect} launches"
+            assert all(math.isfinite(x) for x in losses)
+            held = {"state": state}
+            del state
+
+            def one_step():
+                held["state"], _ = step(held["state"], sb[0])
+
+            one_step()                                            # warm-up
+            traced = trace(f"{tag} {path} train step (warm)", one_step, card, ops)
+            del held, sb, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[path] = {"launches": launches, "losses": losses, "step_s": step_s,
+                      "steady": min(step_s[1:]), "peak": peak, "trace": traced}
+    sh, un = runs["sharded"], runs["unsharded"]
+    loss_err = [abs(p - k) / max(1.0, abs(k)) for p, k in zip(sh["losses"], un["losses"])]
+    how = "bit for bit" if max(loss_err) == 0 else f"differences over max(1, |loss|) {loss_err}"
+    log(f"[sharded] {tag} losses {sh['losses']} vs unsharded {un['losses']}: {how} (limit "
+        f"{SHARDED_LOSS_TOL[arch]})")
+    assert max(loss_err) <= SHARDED_LOSS_TOL[arch], f"{arch} sharded losses differ: {loss_err}"
+    idle = {p: r["trace"] and r["trace"]["idle_share"] for p, r in runs.items()}
+    nccl = sh["trace"] and sh["trace"]["nccl"]
+    ratio = sh["steady"] / un["steady"]
+    log(f"[time] {tag} sharded train step B={B} S={S} fp32, mesh (1,1): first "
+        f"{sh['step_s'][0]!r} s, steady (min of the other {steps - 1}) {sh['steady']!r} s (steps "
+        f"{sh['step_s']}) vs unsharded steady {un['steady']!r} s (steps {un['step_s']}; "
+        f"{ratio!r}x); peak device memory {sh['peak'] / 2**20:.1f} MiB vs unsharded "
+        f"{un['peak'] / 2**20:.1f} MiB; idle share of a warm step {idle['sharded']!r} vs "
+        f"unsharded {idle['unsharded']!r}; NCCL kernels in the warm step's trace: "
+        f"{nccl[0] if nccl else 'not measured'} launches {card}")
+    return {"launches": sh["launches"], "steady_step_s": sh["steady"],
+            "unsharded_steady_step_s": un["steady"], "ratio": ratio,
+            "first_step_s": sh["step_s"][0], "peak_bytes": sh["peak"],
+            "unsharded_peak_bytes": un["peak"], "idle_share": idle["sharded"],
+            "unsharded_idle_share": idle["unsharded"], "nccl_kernels": nccl,
+            "grad_rel_err": rel[worst], "grad_bitwise": grad_bitwise,
+            "k2_outputs_bitwise": k2_bitwise, "loss_rel_err": max(loss_err)}
+
+
+@contextlib.contextmanager
+def _sharded_policy(shd, mesh):
+    """Phase 3h's ``fsdp_tp`` strategy and activation policy on ``mesh``."""
+    with shd.sharding_strategy(SHARDED_STRATEGY), shd.activation_policy(mesh):
+        yield
 
 
 # Phase 3f: the audio family trained through ``launch.train`` at full width
@@ -4773,6 +4971,8 @@ def main() -> int:
     # -- 3h. the same step on DTensor: a world of one rank, a (1,1) mesh -------------------------
     sharded = run_train_sharded(card, torch, ops, dev, train)
     per_path[f"{TRAIN_ARCH} sharded train"] = sharded["launches"]
+    for arch, fam in sharded["families"].items():
+        per_path[f"{arch} sharded train"] = fam["launches"]
     phase_done("3h")
 
     # -- 3b. an ASHA sweep of it through launch.tune, and one trial in a worker process ------
@@ -4946,6 +5146,10 @@ def main() -> int:
         train_step={k: v for k, v in train_r["rwkv6-1.6b"].items() if k != "launches"})
     kernels[KERNELS.index("rglru_scan_bwd")]["train_step"] = {
         k: v for k, v in train_r["recurrentgemma-9b"].items() if k != "launches"}
+    for name, arch in (("rwkv6_scan_bwd", "rwkv6-1.6b"), ("rglru_scan_bwd", "recurrentgemma-9b"),
+                       ("moe_router_bwd", "granite-moe-3b-a800m")):
+        kernels[KERNELS.index(name)]["sharded_train_step"] = {
+            k: v for k, v in sharded["families"][arch].items() if k != "launches"}
     for name, arch in (("rwkv6_scan", "rwkv6-1.6b"), ("rglru_scan", "recurrentgemma-9b"),
                        ("moe_router", "granite-moe-3b-a800m")):
         kernels[KERNELS.index(name)]["vmap"] = {
@@ -4962,7 +5166,8 @@ def main() -> int:
         shapes={label: {key: val for key, val in r.items() if key != "bound"}
                 for label, r in attn_bwd.items()},
         train_step={key: val for key, val in train.items() if key not in ("launches", "losses")},
-        sharded_train_step={key: val for key, val in sharded.items() if key != "launches"},
+        sharded_train_step={key: val for key, val in sharded.items()
+                            if key not in ("launches", "families")},
         audio_train_step={key: val for key, val in train_audio.items() if key != "launches"},
         sweep={key: val for key, val in sweep.items() if key not in ("launches", "losses")},
         cluster_sweep={key: val for key, val in cluster.items() if key != "launches"},

@@ -48,7 +48,9 @@ What differs from the original:
   plain tensor raises, so that nothing runs unsharded unseen.
 * ``local_shards`` runs attention, the kernel's wrapper or the plain
   version, on each rank's shards (``local_map``), which XLA's partitioner
-  does for a Pallas call and for a batch- and head-local product.
+  does for a Pallas call and for a batch- and head-local product;
+  ``local_rwkv6_scan``, ``local_rglru_scan`` and ``local_moe_router`` do
+  the same for the scans' and the router's wrappers.
 * DTensor chooses each op's placements by the cost of communication, not
   of compute, and leaves sums partial; XLA's partitioner splits the work.
   Under an active policy the model asks for XLA's choices: ``gathered``
@@ -74,7 +76,8 @@ __all__ = [
     "activation_policy", "STRATEGIES", "shard_train_state", "shard_batch",
     "shard_params", "shard_caches", "policy_caches", "microbatch",
     "pin_grad", "gathered", "spread_over_idle", "spread_product", "lookup",
-    "local_shards", "replicated_like", "whole_on", "placed_like", "full_value",
+    "local_shards", "local_rwkv6_scan", "local_rglru_scan", "local_moe_router",
+    "replicated_like", "whole_on", "placed_like", "full_value",
 ]
 
 STRATEGIES = ("fsdp_tp", "dp_only")
@@ -784,6 +787,104 @@ def local_shards(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     mapped = local_map(lambda *a: fn(*a, **kwargs), out_placements=(qkv,),
                        in_placements=(qkv, qkv, qkv, pos, pos), device_mesh=q.device_mesh)
     return mapped(*args)
+
+
+def _scan_placements(x: DTensor, dim: int) -> Tuple[Any, ...]:
+    """Placements under which a scan or a router runs on each rank's
+    shards alone, from those of ``x`` (its batch first): per mesh dim of
+    more than one rank, the batch split where x's is, else ``dim`` (the
+    heads or channels) split where it divides, with the splits before it,
+    else replicated; the sequence is never split.  A mesh dim of one rank
+    keeps x's own placement (a partial one as replicated): it holds the
+    same values whatever it is."""
+    out, split = [], 1
+    for n, p in zip(x.device_mesh.shape, x.placements):
+        if n == 1:
+            out.append(Replicate() if isinstance(p, Partial) else p)
+        elif p == Shard(0):
+            out.append(p)
+        elif x.shape[dim] % (split * n) == 0:
+            split *= n
+            out.append(Shard(dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _follow(placements: Sequence[Any], dims: Dict[int, int]) -> Tuple[Any, ...]:
+    """``placements`` of one tensor carried to another: ``Shard(d)`` becomes
+    ``Shard(dims[d])``, any other placement (and a shard of a dim the other
+    tensor lacks) ``Replicate()``."""
+    return tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims else Replicate()
+                 for p in placements)
+
+
+def _placed(t: DTensor, placements: Tuple[Any, ...]) -> DTensor:
+    """``t`` redistributed to ``placements``."""
+    return t if tuple(t.placements) == placements else t.redistribute(t.device_mesh, placements)
+
+
+def local_rwkv6_scan(fn: Callable, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                     **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fn(r, k, v, logw, u, state, **kwargs)`` (the RWKV-6 scan's wrapper)
+    on each rank's local shards when ``r`` is a DTensor, under
+    ``local_map``: r, k, v and logw (B, S, H, N) split by batch where r's
+    batch is split and by heads on the other mesh dims where H divides
+    (``_scan_placements``), the sequence and N whole; ``state`` (B, H, N,
+    N) and ``u`` (H, N) split alike.  The outputs are placed so: y as r,
+    the final state as ``state``.  ``u`` is one parameter for every batch
+    row, so its local gradient is a sum over the rank's rows only: it is
+    declared partial on each mesh dim that splits the batch, and
+    autograd's backward sums it there.  A plain ``r`` calls ``fn`` as it
+    is."""
+    if not isinstance(r, DTensor):
+        return fn(r, k, v, logw, u, state, **kwargs)
+    rkv = _scan_placements(r, 2)
+    st, up = _follow(rkv, {0: 0, 2: 1}), _follow(rkv, {2: 0})
+    u_grad = tuple(Partial() if p == Shard(0) and n > 1 else q
+                   for p, q, n in zip(rkv, up, r.device_mesh.shape))
+    places = (rkv,) * 4 + (up, st)
+    mapped = local_map(lambda *a: fn(*a, **kwargs), out_placements=(rkv, st),
+                       in_placements=places, in_grad_placements=(rkv,) * 4 + (u_grad, st),
+                       device_mesh=r.device_mesh)
+    return mapped(*(_placed(t, pl) for t, pl in zip((r, k, v, logw, u, state), places)))
+
+
+def local_rglru_scan(fn: Callable, a: torch.Tensor, b: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fn(a, b, h0)`` (the RG-LRU scan's wrapper) on each rank's local
+    shards when ``a`` is a DTensor, under ``local_map``: a and b (B, S, R)
+    split by batch where a's batch is split and by channels on the other
+    mesh dims where R divides (``_scan_placements``), the sequence whole;
+    ``h0`` (B, R), when given, split alike; h placed as a.  A plain ``a``
+    calls ``fn`` as it is."""
+    if not isinstance(a, DTensor):
+        return fn(a, b, h0)
+    pl = _scan_placements(a, 2)
+    args, places = [_placed(a, pl), _placed(b, pl)], [pl, pl]
+    if h0 is not None:
+        places.append(_follow(pl, {0: 0, 2: 1}))
+        args.append(_placed(h0, places[-1]))
+    mapped = local_map(lambda a, b, h0=None: fn(a, b, h0), out_placements=(pl,),
+                       in_placements=tuple(places), device_mesh=a.device_mesh)
+    return mapped(*args)
+
+
+def local_moe_router(fn: Callable, logits: torch.Tensor,
+                     top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fn(logits, top_k)`` (the MoE router's wrapper) on each rank's local
+    rows when ``logits`` is a DTensor, under ``local_map``: the expert dim
+    whole first (``whole_on``), the rows as they are split; the weights and
+    the indices (..., k) placed as the rows.  The indices carry no
+    gradient.  A plain ``logits`` calls ``fn`` as it is."""
+    if not isinstance(logits, DTensor):
+        return fn(logits, top_k)
+    logits = whole_on(logits, -1)
+    pl = tuple(logits.placements)
+    mapped = local_map(lambda x: fn(x, top_k), out_placements=(pl, pl), in_placements=(pl,),
+                       device_mesh=logits.device_mesh)
+    return mapped(logits)
 
 
 def _repeat_heads(t: torch.Tensor, H: int) -> torch.Tensor:

@@ -49,15 +49,16 @@ def _wrapped(*tensors: Optional[torch.Tensor]) -> bool:
 
 def _no_dtensor(name: str, *tensors: Optional[torch.Tensor]) -> None:
     """Refuse a DTensor: a kernel reads one device's storage.  The model
-    runs flash attention on each rank's shards
-    (``dist.sharding.local_shards``); the scans and the router have no such
-    call yet."""
+    runs each kernel on each rank's shards through its helper in
+    ``dist.sharding`` (``_LOCAL``), under ``local_map``."""
     if any(isinstance(t, DTensor) for t in tensors):
-        how = ("call it on each rank's shards (dist.sharding.local_shards)"
-               if name == "flash_attention" else
-               "see ROADMAP.md, Queue 1: \"The sharded step for the ssm, hybrid and moe "
-               "families\"")
-        raise NotImplementedError(f"{name} takes no DTensor: {how}")
+        raise NotImplementedError(f"{name} takes no DTensor: call it on each rank's shards "
+                                  f"(dist.sharding.{_LOCAL[name]})")
+
+
+# The helper of ``dist.sharding`` that runs each wrapper on local shards.
+_LOCAL = {"flash_attention": "local_shards", "rwkv6_scan": "local_rwkv6_scan",
+          "rglru_scan": "local_rglru_scan", "moe_router": "local_moe_router"}
 
 
 def flash_attention(

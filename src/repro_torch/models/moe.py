@@ -68,8 +68,10 @@ def _route(logits: torch.Tensor, moe: MoEConfig, kernel_impl: str = "jnp"
     costs the host a few microseconds, once per MoE layer of every decode
     step)."""
     probs = torch.softmax(logits.float(), dim=-1)
-    router = kops.moe_router if kernel_impl == "pallas" else kref.moe_router_ref
-    top_w, top_idx = router(logits, moe.top_k)
+    if kernel_impl == "pallas":   # a DTensor's rows each on their rank (local_map)
+        top_w, top_idx = sharding.local_moe_router(kops.moe_router, logits, moe.top_k)
+    else:
+        top_w, top_idx = kref.moe_router_ref(logits, moe.top_k)
     return top_w, top_idx, probs
 
 
@@ -193,7 +195,9 @@ def apply_moe_layer(p: MoELayer, x: torch.Tensor, cfg: ModelConfig
     if n_tokens % g:
         # pad the token count to a multiple of the group size
         pad = n_groups * g + (g if n_tokens > n_groups * g else 0) - n_tokens
-        xt = F.pad(xt, (0, 0, 0, pad))
+        # (a zero block appended: torch 2.11's DTensor pad loses a 2-D mesh's placements)
+        zeros = torch.zeros((pad, D), dtype=xt.dtype, device=xt.device)
+        xt = torch.cat([xt, sharding.replicated_like(zeros, xt)])
         n_groups = xt.shape[0] // g
     # a DTensor's gradient comes back as the groups were placed: from the
     # dispatch it may come split over two mesh axes, which DTensor cannot
@@ -222,7 +226,10 @@ def apply_moe_layer(p: MoELayer, x: torch.Tensor, cfg: ModelConfig
         expert_in = sharding.spread_over_idle(expert_in, dim=2, over="data")  # (E,G,C,D)
         # (placed as its input: DTensor may split the slots unevenly inside)
         expert_out = sharding.placed_like(_experts_ffn(p, expert_in, cfg, "egcd"), expert_in)
-        routed = torch.einsum("gsec,egcd->gsd", combine.to(dtype), expert_out)  # (G,S,D)
+        # (the experts' label sorts before the slots': einsum flattens the summed
+        # dims in label order, and torch 2.11's DTensor refuses a flatten whose
+        # inner dim is split, as the experts are over the model axis)
+        routed = torch.einsum("gsac,agcd->gsd", combine.to(dtype), expert_out)  # (G,S,D)
 
     # a DTensor's groups back on the batch's placements first: DTensor mis-splits
     # a token dim split over more ranks than the batch dim it unflattens into

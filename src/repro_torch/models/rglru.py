@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import replicated_like
+from ..dist.sharding import local_rglru_scan, replicated_like
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import _dtype, _linear, _normal
@@ -129,7 +129,8 @@ def apply_rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
         h_last = a[:, 0] * h_prev + gated_in[:, 0]
         h = h_last[:, None]
     elif cfg.kernel_impl == "pallas":
-        h = kops.rglru_scan(a, gated_in, h0)
+        # a DTensor's scan runs on each rank's batch and channels (local_map)
+        h = local_rglru_scan(kops.rglru_scan, a, gated_in, h0)
         h_last = h[:, -1]
     else:
         h = _rglru_scan(a, gated_in, h0)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import replicated_like, whole_on
+from ..dist.sharding import local_rwkv6_scan, replicated_like, whole_on
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import _dtype, _linear, _normal
@@ -93,9 +93,13 @@ def _ddlerp(p: TimeMix, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     lora = torch.tanh(p.maa_w1(xm))                               # (B,S,5*r)
     # a DTensor's 5*r dim whole first: 5 mixes do not split over the model axis
     lora = whole_on(lora, -1).reshape(*lora.shape[:-1], _N_MIX, _LORA_MIX)
-    m = torch.einsum("bsnr,nrd->nbsd", lora, p.maa_w2.to(x.dtype))
+    # and maa_w2's r dim whole, so that lora's gradient comes back with it
+    # whole (torch 2.11's DTensor refuses to flatten a split inner dim)
+    m = torch.einsum("bsnr,nrd->nbsd", lora, whole_on(p.maa_w2, 1).to(x.dtype))
     m = m + p.mu_rkvwg.to(x.dtype)[:, None, None, :]
-    return x[None] + (s - x)[None] * m
+    # a DTensor's 5 mixes whole, so that they unbind (on a mesh dim of one
+    # rank DTensor may leave them "split")
+    return whole_on(x[None] + (s - x)[None] * m, 0)
 
 
 def _decay(p: TimeMix, xw: torch.Tensor) -> torch.Tensor:
@@ -186,7 +190,8 @@ def apply_time_mix(p: TimeMix, x: torch.Tensor, cfg: ModelConfig,
         y, wkv = _wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p.u, wkv0)
         y = y[:, None]
     elif cfg.kernel_impl == "pallas":
-        y, wkv = kops.rwkv6_scan(r, k, v, logw, p.u, wkv0, chunk=chunk)
+        # a DTensor's scan runs on each rank's batch and heads (local_map)
+        y, wkv = local_rwkv6_scan(kops.rwkv6_scan, r, k, v, logw, p.u, wkv0, chunk=chunk)
     else:
         y, wkv = _wkv_chunked(r, k, v, logw, p.u, wkv0, chunk)
 

@@ -1,24 +1,33 @@
 """The port's sharded train step on 8 gloo ranks of the CPU.
 
-    OMP_NUM_THREADS=1 PYTHONPATH=src python tests/_torch_sharded_worker.py
+    OMP_NUM_THREADS=1 PYTHONPATH=src python tests/_torch_sharded_worker.py [ARCH]
 
-trains the reduced smollm-135m (remat, ``attn_impl="pallas"``: K1's wrapper
-on each rank's shards, its plain version on the CPU) for 5 AdamW steps
-from weights drawn by the port (seed 0) on a (1,1) mesh, then on (4,2)
-under ``fsdp_tp`` and under ``dp_only``, and prints each setup's losses and
-its largest relative gap from the (1,1) run's.  ``test_torch_multidevice.py``
-runs the same ranks on JAX's weights.
+trains a reduced config (``reduced_config``: smollm-135m by default, with
+remat and ``attn_impl="pallas"``, so that K1's wrapper runs on each rank's
+shards, its plain version on the CPU; rwkv6-1.6b, recurrentgemma-9b and
+granite-moe-3b-a800m with ``kernel_impl="pallas"`` too, so that K2, K3 and
+K4 run there as well) for 5 AdamW steps from weights drawn by the port
+(seed 0) on a (1,1) mesh, then on (4,2) under ``fsdp_tp`` and under
+``dp_only``, and prints each setup's losses, its largest relative gap from
+the (1,1) run's and the local shapes each kernel's wrapper saw.
+``test_torch_multidevice.py`` and ``test_torch_multidevice_{ssm,hybrid,
+moe}.py`` run the same ranks on JAX's weights.
 
 Imports ``torch`` and ``repro_torch`` only: each rank is a process started
 with ``spawn``, which imports this module, never the test file (that imports
 ``jax``).  ``run`` joins a gloo process group through a file store, builds
 each setup's mesh from a device-mode ``SlicePool`` over the group's ranks,
-and trains the same weights on the same batches under that setup.  Then
-every rank runs the mesh, refusal and roofline checks;
-``test_torch_roofline.py`` spawns 2 ranks with no setup for the last.
+and trains the same weights on the same batches under that setup,
+keeping the first step's gradients; asked to (``spawn_ranks``' ``serve``,
+as ``test_torch_multidevice_{ssm,hybrid,moe}.py`` ask), it also prefills
+(and for the moe family decodes one step) on the (1,1) and the (4,2)
+``fsdp_tp`` meshes.  Then every rank runs the mesh, refusal and roofline
+checks; ``test_torch_roofline.py`` spawns 2 ranks with no setup
+for the last.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import multiprocessing as mp
 import os
@@ -28,6 +37,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,6 +46,17 @@ AXES = ("data", "model")
 WORLD, STEPS, B, S = 8, 5, 8, 64
 SETUPS = [("(1,1)", (1, 1), "fsdp_tp"), ("(4,2) fsdp_tp", (4, 2), "fsdp_tp"),
           ("(4,2) dp_only", (4, 2), "dp_only")]
+# The setups that also prefill (and for the moe family decode one step), and
+# the prompt: the first PROMPT tokens of the first batch, caches of MAX_LEN.
+SERVE_SETUPS, PROMPT, MAX_LEN = ("(1,1)", "(4,2) fsdp_tp"), 32, 40
+# The kernel wrappers each rank records the calls of.
+WRAPPERS = ("flash_attention", "rwkv6_scan", "rglru_scan", "moe_router")
+# Each arch's reduced config: the token families run their kernels' wrappers
+# (plain versions on the CPU); granite-moe-3b-a800m keeps 16 of its 40
+# experts, so that its top 8 make a choice, as tests/test_torch_serve.py
+# reduces it.
+ARCHS = {"smollm-135m": {}, "rwkv6-1.6b": {}, "recurrentgemma-9b": {},
+         "granite-moe-3b-a800m": {"n_experts": 16}}
 ROOFLINE_SHAPE = (3, 5)     # each rank's tensor in ``roofline_checks``' all-gather
 
 
@@ -43,33 +64,88 @@ def _placements(t) -> tuple:
     return tuple(t.placements)
 
 
-def train_setup(cfg, weights, batches, mesh, strategy: str) -> dict:
-    """AdamW steps of ``cfg`` from ``weights`` (a state dict of numpy
-    arrays in the port's names and layouts) on ``mesh``
-    under ``strategy``, one a batch, through ``make_train_step``: the
-    losses, every parameter and moment whose placements after the steps
-    differ from ``make_shardings``', the parameters sharded on some mesh
-    dim, and the shapes and types that K1's wrapper was called on."""
-    from repro_torch.dist import sharding as S
+@contextlib.contextmanager
+def recorded(calls: dict):
+    """Each wrapper of ``WRAPPERS`` in ``kernels.ops`` replaced, inside the
+    block, by one that adds (the type and shape of its first argument) to
+    ``calls[name]`` and calls it."""
     from repro_torch.kernels import ops
-    from repro_torch.models import init_params
-    from repro_torch.train import TrainState, adamw, make_train_step
+    real = {name: getattr(ops, name) for name in WRAPPERS}
 
-    opt = adamw(1e-3)
+    def recording(name):
+        def call(x, *args, **kwargs):
+            calls.setdefault(name, set()).add((type(x).__name__, tuple(x.shape)))
+            return real[name](x, *args, **kwargs)
+        return call
+
+    for name in WRAPPERS:
+        setattr(ops, name, recording(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+
+def _loaded(cfg, weights):
+    from repro_torch.models import init_params
     model = init_params(None, cfg, "meta")
     model.load_state_dict({k: torch.tensor(v) for k, v in weights.items()}, strict=True,
                           assign=True)
+    return model
+
+
+def replicas(params, mesh) -> Tuple[list, list]:
+    """(the parameters replicated over some mesh dim of more than one rank,
+    those whose local values differ between the ranks of such a dim): each
+    such dim's ranks all-gather their local values."""
+    checked, bad = [], []
+    for name, p in params.named_parameters():
+        local = p.to_local().detach().contiguous()
+        for i, pl in enumerate(p.placements):
+            if mesh.shape[i] == 1 or not pl.is_replicate():
+                continue
+            got = [torch.empty_like(local) for _ in range(mesh.shape[i])]
+            dist.all_gather(got, local, group=mesh.get_group(i))
+            checked.append(name)
+            if any(not torch.equal(g, got[0]) for g in got):
+                bad.append(name)
+                break
+    return sorted(set(checked)), bad
+
+
+def train_setup(cfg, weights, batches, mesh, strategy: str, serve: bool = False) -> dict:
+    """AdamW steps of ``cfg`` from ``weights`` (a state dict of numpy
+    arrays in the port's names and layouts) on ``mesh`` under
+    ``strategy``, one a batch, through ``make_train_step``: the losses, the
+    first step's gradients as the optimizer took them (full values, numpy,
+    on the mesh's first rank), every parameter and moment whose
+    placements after the steps differ from ``make_shardings``', the
+    parameters replicated over a mesh dim of more than one rank and those of
+    them whose replicas differ after the steps, the parameters sharded
+    on some mesh dim, and the types and shapes that each kernel wrapper was
+    called on.  With ``serve``, also a prefill of the first batch's prompt
+    from ``weights`` (and for the moe family one greedy decode step): its
+    logits and caches (full values) and the wrappers' calls there."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.train import Optimizer, TrainState, adamw, make_train_step
+
+    base, grads = adamw(1e-3), {}
+
+    def update(g, opt_state, params):
+        """AdamW's update; the first step's gradients (placed as their
+        parameters by ``make_train_step``) kept as full values."""
+        if not grads:
+            grads.update((n, S.full_value(t).numpy().copy()) for n, t in g.items())
+        return base.update(g, opt_state, params)
+
+    opt = Optimizer(init=base.init, update=update)
+    model = _loaded(cfg, weights)
     state = TrainState(model, opt.init(dict(model.named_parameters())), 0)
-    seen = set()
-    wrapper = ops.flash_attention
-
-    def recording(q, *args, **kwargs):
-        seen.add((type(q).__name__, tuple(q.shape)))
-        return wrapper(q, *args, **kwargs)
-
-    ops.flash_attention = recording
-    try:
-        with S.sharding_strategy(strategy), S.activation_policy(mesh):
+    calls, out, t0 = {}, {}, time.perf_counter()
+    first = mesh.get_rank() == mesh.mesh.flatten()[0].item()
+    with S.sharding_strategy(strategy), S.activation_policy(mesh):
+        with recorded(calls):
             want = S.make_shardings(S.train_state_specs(state, mesh, cfg), mesh)
             state = S.shard_train_state(state, mesh, cfg)
             step = make_train_step(cfg, opt)
@@ -78,16 +154,57 @@ def train_setup(cfg, weights, batches, mesh, strategy: str) -> dict:
                 b = S.shard_batch({k: torch.from_numpy(v) for k, v in b.items()}, mesh)
                 state, metrics = step(state, b)
                 losses.append(float(metrics["loss"]))
-    finally:
-        ops.flash_attention = wrapper
+        if serve:
+            serve_calls = {}
+            with recorded(serve_calls):
+                out["serve"] = serve_setup(cfg, weights, batches[0], mesh, first)
+            out["serve_calls"] = {name: sorted(c) for name, c in serve_calls.items()}
+    out["seconds"] = time.perf_counter() - t0
     wrong = [n for n, p in state.params.named_parameters()
              if _placements(p) != want.params[n]]
     for key in ("m", "v"):
         wrong += [f"{key}:{n}" for n, t in state.opt_state[key].items()
                   if _placements(t) != want.opt_state[key][n]]
-    return {"losses": losses, "misplaced": wrong, "attention_calls": sorted(seen),
+    replicated, unequal = replicas(state.params, mesh)
+    return {**out, "losses": losses, "misplaced": wrong, "replicated": replicated,
+            "unequal_replicas": unequal,
+            "grads": grads if first else None,
+            "calls": {name: sorted(c) for name, c in calls.items()},
             "sharded": sorted(n for n, pl in want.params.items()
                               if any(not p.is_replicate() for p in pl))}
+
+
+def serve_setup(cfg, weights, batch, mesh, first: bool) -> dict:
+    """Under the active strategy and policy: ``prefill`` of ``batch``'s
+    first PROMPT tokens from ``weights`` placed by ``shard_params`` (its
+    caches placed by ``policy_caches``), then for the moe family one
+    ``decode_step`` of the greedy next tokens.  Full values (numpy, on the
+    mesh's first rank): the prefill's logits and cache leaves, the decode
+    step's logits and cache leaves."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.transformer import leaves
+
+    def full(logits, caches) -> dict:
+        got = {"logits": S.full_value(logits)}
+        for si, seg in enumerate(caches):
+            for bi, tree in enumerate(seg):
+                got.update((".".join((str(si), str(bi)) + path), S.full_value(t))
+                           for path, t in leaves(tree))
+        # copies: a replicated DTensor's full value is its local tensor, which
+        # the decode step writes into
+        return {k: v.numpy().copy() for k, v in got.items()} if first else None
+
+    params = S.shard_params(_loaded(cfg, weights), mesh, cfg)
+    tokens = torch.from_numpy(batch["tokens"][:, :PROMPT])
+    logits, caches = prefill(params, S.shard_batch({"tokens": tokens}, mesh), cfg, MAX_LEN)
+    out = {"prefill": full(logits, caches)}
+    if cfg.family == "moe":
+        nxt = S.full_value(logits).argmax(-1)
+        logits, caches = decode_step(params, caches, S.shard_batch({"tokens": nxt}, mesh)["tokens"],
+                                     PROMPT, cfg)
+        out["decode"] = full(logits, caches)
+    return out
 
 
 def mesh_checks(world: int) -> dict:
@@ -177,16 +294,18 @@ def roofline_checks(world: int) -> dict:
 
 
 def run(rank: int, world: int, store: str, inputs: str, out) -> None:
-    """One rank: every setup whose mesh holds this rank, then the mesh,
-    refusal and roofline checks.  ``inputs`` is a pickle of (cfg, weights, batches, setups),
-    read here so that starting a rank sends nothing large down its pipe.
-    Puts (rank, results) or (rank, a traceback) on ``out``."""
+    """One rank: every setup whose mesh holds this rank (those of
+    SERVE_SETUPS serving too, when asked), then, when asked, the mesh,
+    refusal and roofline checks.  ``inputs`` is a pickle of (cfg, weights,
+    batches, setups, serve, checks), read here so that starting a rank
+    sends nothing large down its pipe.  Puts (rank, results) or (rank, a
+    traceback) on ``out``."""
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
     try:
         from repro_torch.dist import SlicePool
         with open(inputs, "rb") as f:
-            cfg, weights, batches, setups = pickle.load(f)
+            cfg, weights, batches, setups, serve, checks = pickle.load(f)
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                 world_size=world)
         try:
@@ -196,11 +315,13 @@ def run(rank: int, world: int, store: str, inputs: str, out) -> None:
                 sl = pool.acquire(math.prod(shape))
                 mesh = sl.make_mesh(AXES, shape)
                 if mesh.get_coordinate() is not None:
-                    results[name] = train_setup(cfg, weights, batches, mesh, strategy)
+                    results[name] = train_setup(cfg, weights, batches, mesh, strategy,
+                                                serve=serve and name in SERVE_SETUPS)
                 pool.release(sl)
-            results["mesh"] = mesh_checks(world)
-            results["refusals"] = refusals(world)
-            results["roofline"] = roofline_checks(world)
+            if checks:
+                results["mesh"] = mesh_checks(world)
+                results["refusals"] = refusals(world)
+                results["roofline"] = roofline_checks(world)
             dist.barrier()
         finally:
             dist.destroy_process_group()
@@ -211,13 +332,16 @@ def run(rank: int, world: int, store: str, inputs: str, out) -> None:
 
 
 def spawn_ranks(tmp: Path, cfg, weights, batches, deadline_s: float, setups=SETUPS,
-                world: int = WORLD) -> dict:
-    """Start ``world`` ranks (``spawn``, one thread each) on ``setups``;
-    return {rank: results}.  Raises RuntimeError with the first rank's
-    traceback, or at the deadline.  No rank outlives this."""
+                world: int = WORLD, serve: bool = False, checks: bool = True,
+                meanwhile: Optional[Callable[[], None]] = None) -> dict:
+    """Start ``world`` ranks (``spawn``, one thread each) on ``setups``
+    (with ``serve``, those of SERVE_SETUPS serving too), then ``checks``;
+    call ``meanwhile()`` while they run; return {rank: results}.  Raises
+    RuntimeError with the first rank's traceback, or at the deadline.  No
+    rank outlives this."""
     inputs = tmp / "inputs.pkl"
     with open(inputs, "wb") as f:
-        pickle.dump((cfg, weights, batches, tuple(setups)), f)
+        pickle.dump((cfg, weights, batches, tuple(setups), serve, checks), f)
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     procs = [ctx.Process(target=run, daemon=True,
@@ -235,6 +359,8 @@ def spawn_ranks(tmp: Path, cfg, weights, batches, deadline_s: float, setups=SETU
             os.environ["OMP_NUM_THREADS"] = old
     results, deadline = {}, time.monotonic() + deadline_s
     try:
+        if meanwhile is not None:
+            meanwhile()
         while len(results) < world:
             try:
                 rank, got = out.get(timeout=max(1.0, deadline - time.monotonic()))
@@ -263,28 +389,40 @@ def batches_for(cfg) -> list:
     return [data.batch_at(i) for i in range(STEPS)]
 
 
-def reduced_config():
+def reduced_config(arch: str = "smollm-135m"):
+    """``arch``'s reduced config (``ARCHS``) on the kernels' wrappers:
+    smollm-135m with remat and ``attn_impl="pallas"``; the others with
+    ``kernel_impl="pallas"`` as well, their remat as reduced."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("smollm-135m").reduced(), remat=True,
-                               attn_impl="pallas")
+    cfg = get_config(arch).reduced(**ARCHS[arch])
+    if arch == "smollm-135m":
+        return dataclasses.replace(cfg, remat=True, attn_impl="pallas")
+    return dataclasses.replace(cfg, attn_impl="pallas", kernel_impl="pallas")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
     from repro_torch.models import init_params
-    cfg = reduced_config()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("arch", nargs="?", default="smollm-135m", choices=sorted(ARCHS))
+    arch = ap.parse_args(argv).arch
+    cfg = reduced_config(arch)
     model = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     weights = {k: v.numpy() for k, v in model.state_dict().items()}
     with tempfile.TemporaryDirectory() as tmp:
         results = spawn_ranks(Path(tmp), cfg, weights, batches_for(cfg), deadline_s=600)
     ref = results[0]["(1,1)"]["losses"]
     for name, shape, strategy in SETUPS:
-        losses = results[0][name]["losses"]
-        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
-        print(f"{name:14s} losses {[round(x, 6) for x in losses]}  largest relative gap "
-              f"from (1,1) {gap:.3g}; {len(results[0][name]['sharded'])} parameters with a Shard placement, "
-              f"K1 on local q {results[0][name]['attention_calls'][0][1]}")
+        got = results[0][name]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref))
+        local = {k: [shape for _, shape in c] for k, c in got["calls"].items()}
+        print(f"{arch} {name:14s} losses {[round(x, 6) for x in got['losses']]}  largest "
+              f"relative gap from (1,1) {gap:.3g}; {len(got['sharded'])} parameters with a "
+              f"Shard placement; the wrappers' local first arguments {local}; "
+              f"{got['seconds']:.1f} s")
     print(f"roofline checks: step_costs of one all-gather {results[0]['roofline']['costs']}")
 
 

@@ -17,7 +17,9 @@ same weights, the loss falling, every parameter's and moment's placements
 after the steps equal to ``make_shardings``' output, K1's wrapper called on
 plain local shards of the expected shapes, ``MeshSlice.make_mesh`` in
 device and virtual mode, and the refusals: every kernel wrapper given a
-DTensor, ``constrain`` given a plain tensor under a policy.
+DTensor (each names its helper in ``dist.sharding``), ``constrain`` given a
+plain tensor under a policy.  ``test_torch_multidevice_{ssm,hybrid,moe}.py``
+hold the other token families to the same contract.
 """
 import dataclasses
 
@@ -48,6 +50,9 @@ DEADLINE_S = 240
 # (4 heads and 2 kv heads divide 2).
 LOCAL_Q = {"(1,1)": (8, 64, 4, 64), "(4,2) fsdp_tp": (2, 64, 2, 64),
            "(4,2) dp_only": (1, 64, 4, 64)}
+# The helper that each kernel wrapper's refusal of a DTensor names.
+HELPERS = {"flash_attention": "local_shards", "rwkv6_scan": "local_rwkv6_scan",
+           "rglru_scan": "local_rglru_scan", "moe_router": "local_moe_router"}
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +120,7 @@ def test_parameters_and_moments_keep_their_placements(runs, setup):
 @pytest.mark.parametrize("setup", [name for name, _, _ in SETUPS])
 def test_attention_runs_on_local_shards(runs, setup):
     """K1's wrapper sees plain tensors, each rank's shard of q."""
-    assert runs[0][0][setup]["attention_calls"] == [("Tensor", LOCAL_Q[setup])]
+    assert runs[0][0][setup]["calls"]["flash_attention"] == [("Tensor", LOCAL_Q[setup])]
 
 
 def test_make_mesh_device_mode_covers_the_slice_ranks(runs):
@@ -132,15 +137,15 @@ def test_make_mesh_device_mode_covers_the_slice_ranks(runs):
 @pytest.mark.parametrize("case", ["flash_attention", "rwkv6_scan", "rglru_scan", "moe_router",
                                   "constrain"])
 def test_no_silent_unsharded_run(runs, case):
-    """A kernel wrapper refuses a DTensor (K1 runs on local shards, through
-    ``local_shards``; K2-K4 have no sharded call yet), and ``constrain``
-    refuses a plain tensor under an activation policy."""
+    """A kernel wrapper refuses a DTensor and names the helper of
+    ``dist.sharding`` that runs it on each rank's shards (K1
+    ``local_shards``, K2-K4 ``local_rwkv6_scan``, ``local_rglru_scan`` and
+    ``local_moe_router``), and ``constrain`` refuses a plain tensor under an
+    activation policy."""
     got = runs[0][0]["refusals"]
     assert got["mesh"] == ((WORLD,), ("data",))   # a virtual slice of the whole group
     kind, msg = got[case]
     if case == "constrain":
         assert kind == "TypeError" and "needs a DTensor" in msg
-    elif case == "flash_attention":
-        assert kind == "NotImplementedError" and "local_shards" in msg
     else:
-        assert kind == "NotImplementedError" and "ROADMAP" in msg
+        assert kind == "NotImplementedError" and f"dist.sharding.{HELPERS[case]}" in msg
