@@ -80,7 +80,9 @@ non-zero exit:
    3 backwards a step), recurrentgemma-9b at one repeat, 3 of 38 layers,
    with its remat (4 K3 and 2 K1 forwards, 2 K3 and 1 K1 backwards a step)
    and granite-moe-3b-a800m at 3 of 32 layers with phase 3d's remat (6 K1
-   and 6 K4 forwards, 3 of each backward a step).  Each against the
+   and 6 K4 forwards, 3 of each backward a step), with its einsum dispatch
+   and then with the sort/scatter one (``moe.impl="scatter"``, on each
+   rank's groups and experts through ``local_moe_scatter``).  Each against the
    unsharded kernel path of the same config on the same weights and
    batches: the launch counts of both equal ``expected_train_launches``;
    the first step's loss and every gradient (``full_tensor()``) and every
@@ -259,12 +261,17 @@ non-zero exit:
    sessions.
 3j. dry-run: ``python -m repro_torch.launch.dryrun`` for smollm-135m on the
    single-pod mesh (every shape: 3 counted, long_500k skipped) and its
-   train_4k on the multi-pod mesh, two subprocesses at once, each counting
-   rank 0 of a fake process group of 256 or 512 ranks on the meta device.
-   Each record's dot FLOPs must equal this repository's CPU run of the same
-   command (``DRYRUN_FLOPS``), and the card's free memory must move by under
-   64 MiB around the runs; each record's roofline line and ``t_count_s``
-   are printed.  Then the record's config on one card: smollm-135m under
+   train_4k on the multi-pod mesh, and for rwkv6-1.6b's and
+   granite-moe-3b-a800m's train_4k on the single-pod mesh (their
+   kernel-free scan and router on each rank's shards), four subprocesses
+   at once, each counting rank 0 of a fake process group of 256 or 512
+   ranks on the meta device, on the host with no card visible to them
+   (``CUDA_VISIBLE_DEVICES`` empty), started before phase 4 and running
+   while phases 4, 5, 3i, the one-card config below and the examples (3l)
+   use the card (rwkv6's count takes minutes).  Each record's dot FLOPs
+   must equal this repository's CPU run of the same command
+   (``DRYRUN_FLOPS``); each record's roofline line and ``t_count_s`` are
+   printed.  Then the record's config on one card: smollm-135m under
    ``dryrun_config`` (bf16, remat) at B=8, S=4096, counted by ``lower_one``
    on a (1,1) mesh (``DRYRUN_ONE_RANK_FLOPS``), and 3 AdamW steps of it on
    the card twice from the same weights and batches, on the kernel-free
@@ -275,6 +282,9 @@ non-zero exit:
    ``arg_bytes + temp_bytes`` and its steady step beside ``step_time_s``
    (findings, not gates); the losses must be finite and the two paths'
    first-step losses within 2e-2 relative.
+3l. examples: the port's four ``examples/*_torch.py`` run on the card as
+   their scripts run with no arguments, four subprocesses at once; each
+   must exit 0, its seconds printed.
 
 The script leaves no process behind, whether it passes or fails.  It makes
 itself the reaper of its orphaned descendants, and before the last two lines
@@ -2168,8 +2178,9 @@ def run_train_sharded(card: str, torch, ops, dev, train: dict) -> dict:
             del held, state, sbatches
             gc.collect()
             torch.cuda.empty_cache()
-            families = {arch: run_family_sharded(card, torch, ops, dev, mesh, arch, layers, remat)
-                        for arch, layers, remat in SHARDED_FAMILIES}
+            families = {sharded_family_key(arch, impl): run_family_sharded(
+                card, torch, ops, dev, mesh, arch, layers, remat, impl)
+                for arch, layers, remat, impl in SHARDED_FAMILIES}
         finally:
             dist.destroy_process_group()
     per_step = {name: n // TRAIN_STEPS for name, n in launches.items() if n}
@@ -2522,11 +2533,13 @@ def run_train_moe(card, torch, ops, dev) -> dict:
 # through ``make_train_state`` / ``make_train_step``, its kernels on each
 # rank's shards under ``local_map`` (``dist.sharding.local_rwkv6_scan``,
 # ``local_rglru_scan``, ``local_moe_router``, and K1's ``local_shards``).
-# (arch, layers, remat), phase 3k's depths: rwkv6-1.6b 3 of 24 layers (3
-# K2 each way a step), recurrentgemma-9b one repeat, 3 of 38 layers, with
-# its config's remat (4 K3 and 2 K1 forwards, 2 K3 and 1 K1 backwards a
-# step), granite-moe-3b-a800m 3 of 32 layers with phase 3d's remat (6 K1
-# and 6 K4 forwards, 3 of each backward).  Held against the unsharded
+# (arch, layers, remat, MoE dispatch), phase 3k's depths: rwkv6-1.6b 3 of
+# 24 layers (3 K2 each way a step), recurrentgemma-9b one repeat, 3 of 38
+# layers, with its config's remat (4 K3 and 2 K1 forwards, 2 K3 and 1 K1
+# backwards a step), granite-moe-3b-a800m 3 of 32 layers with phase 3d's
+# remat (6 K1 and 6 K4 forwards, 3 of each backward), with its einsum
+# dispatch and with the sort/scatter one (``local_moe_scatter``; the same
+# launches).  Held against the unsharded
 # kernel path of the same config on the same weights (seed 0 on the card)
 # and batches: the launch counts equal (``expected_train_launches``), and
 # on a mesh of one rank the same kernels run on the same tensors, so the
@@ -2537,16 +2550,23 @@ def run_train_moe(card, torch, ops, dev) -> dict:
 # gap printed.  rwkv6's random-init gradients are chaotic (phase 3c), so
 # where they are not bit for bit, each K2 forward's outputs of the first
 # step must be, between the two paths.
-SHARDED_FAMILIES = (("rwkv6-1.6b", 3, False), ("recurrentgemma-9b", 3, True),
-                    ("granite-moe-3b-a800m", 3, True))
+SHARDED_FAMILIES = (("rwkv6-1.6b", 3, False, None), ("recurrentgemma-9b", 3, True, None),
+                    ("granite-moe-3b-a800m", 3, True, None),
+                    ("granite-moe-3b-a800m", 3, True, "scatter"))
 SHARDED_FAMILY_STEPS = 3
 SHARDED_GRAD_TOL = {"recurrentgemma-9b": TRAIN_R_GRAD_TOL["recurrentgemma-9b"],
                     "granite-moe-3b-a800m": TRAIN_MOE_GRAD_TOL}
 SHARDED_LOSS_TOL = {**TRAIN_R_LOSS_TOL, "granite-moe-3b-a800m": TRAIN_MOE_LOSS_TOL}
 
 
+def sharded_family_key(arch: str, moe_impl) -> str:
+    """A ``SHARDED_FAMILIES`` entry's name: the arch, and the MoE dispatch
+    where one is named."""
+    return f"{arch} {moe_impl}" if moe_impl else arch
+
+
 def run_family_sharded(card: str, torch, ops, dev, mesh, arch: str, n_layers: int,
-                       remat: bool) -> dict:
+                       remat: bool, moe_impl=None) -> dict:
     """Phase 3h for one of ``SHARDED_FAMILIES`` on ``mesh``: the first
     step's loss and gradients and then SHARDED_FAMILY_STEPS steps, each on
     the sharded state and on the unsharded one (every launch count set to 0
@@ -2560,9 +2580,11 @@ def run_family_sharded(card: str, torch, ops, dev, mesh, arch: str, n_layers: in
     from repro_torch.train import adamw, linear_warmup_cosine, make_train_state, make_train_step
 
     full, steps = get_config(arch), SHARDED_FAMILY_STEPS
-    cfg = launch_train.device_model(dataclasses.replace(full, n_layers=n_layers, remat=remat),
-                                    dev)
-    tag = f"{arch} ({n_layers} of {full.n_layers} layers)"
+    cfg = dataclasses.replace(full, n_layers=n_layers, remat=remat)
+    if moe_impl:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl=moe_impl))
+    cfg = launch_train.device_model(cfg, dev)
+    tag = f"{sharded_family_key(arch, moe_impl)} ({n_layers} of {full.n_layers} layers)"
     batch_at = launch_train.batch_source(cfg, B, S)
     batches = [{k: torch.from_numpy(x).to(dev) for k, x in batch_at(i).items()}
                for i in range(steps)]
@@ -4716,46 +4738,78 @@ def run_profile(card: str, torch, ops, dev) -> dict:
 
 # Phase 3j: the dry-run (``repro_torch.launch.dryrun``) on the card's machine.
 # Each record's dot FLOPs of one rank, as this repository's CPU run of the
-# same commands counts them (counts, not speeds): (mesh, shape) -> FLOPs.
-DRYRUN_FLOPS = {("pod16x16", "train_4k"): 97_235_912_097_792,
-                ("pod16x16", "prefill_32k"): 151_749_925_797_888,
-                ("pod16x16", "decode_32k"): 18_652_004_352,
-                ("pods2x16x16", "train_4k"): 48_617_956_048_896}
+# same commands counts them (counts, not speeds; torch 2.13 there, the
+# card's machine's own torch here): (arch, mesh, shape) -> FLOPs.
+DRYRUN_FLOPS = {("smollm-135m", "pod16x16", "train_4k"): 97_235_912_097_792,
+                ("smollm-135m", "pod16x16", "prefill_32k"): 151_749_925_797_888,
+                ("smollm-135m", "pod16x16", "decode_32k"): 18_652_004_352,
+                ("smollm-135m", "pods2x16x16", "train_4k"): 48_617_956_048_896,
+                ("rwkv6-1.6b", "pod16x16", "train_4k"): 47_159_747_543_040,
+                ("granite-moe-3b-a800m", "pod16x16", "train_4k"): 378_985_431_171_072}
+# The runs, all at once: name -> (the CLI's arguments, its summary line)
+DRYRUN_RUNS = {
+    "single": (["--arch", "smollm-135m", "--mesh", "single"],
+               "3 counted, 1 skipped (documented), 0 errors"),
+    "multi": (["--arch", "smollm-135m", "--shape", "train_4k", "--mesh", "multi"],
+              "1 counted, 0 skipped (documented), 0 errors"),
+    # the kernel-free scan and router on each rank's shards (torch 2.11's
+    # DTensor refuses the chunked scan's einsums and the plain router's sort)
+    "rwkv6": (["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--mesh", "single"],
+              "1 counted, 0 skipped (documented), 0 errors"),
+    "granite": (["--arch", "granite-moe-3b-a800m", "--shape", "train_4k", "--mesh", "single"],
+                "1 counted, 0 skipped (documented), 0 errors")}
 # The record's config on one card: smollm-135m under dryrun_config, B x S
 DRYRUN_B, DRYRUN_S, DRYRUN_STEPS = 8, 4096, 3
 DRYRUN_ONE_RANK_FLOPS = 73_405_286_055_936   # lower_one's count of it on a (1,1) mesh
 DRYRUN_LOSS_TOL = 2e-2
-DRYRUN_MEM_SLACK = 64 * 2**20
 
 
-def run_dryrun_cli(card: str, torch) -> dict:
-    """Phase 3j (a): ``python -m repro_torch.launch.dryrun`` for smollm-135m
-    on the single-pod mesh (every shape) and for its train_4k on the
-    multi-pod mesh, as two subprocesses at once (a fake process group of
-    256 or 512 ranks each, on the meta device); their summaries, their
-    records' dot FLOPs against ``DRYRUN_FLOPS``, and the card's free memory
-    before and after them."""
+def start_dryrun_cli() -> dict:
+    """Phase 3j (a), started: ``python -m repro_torch.launch.dryrun`` for
+    smollm-135m on the single-pod mesh (every shape) and for its train_4k
+    on the multi-pod mesh, and for rwkv6-1.6b's and granite-moe-3b-a800m's
+    train_4k on the single-pod mesh (``DRYRUN_RUNS``), as subprocesses all
+    at once, each a fake process group of 256 or 512 ranks on the meta
+    device, with no card visible to them (``CUDA_VISIBLE_DEVICES`` empty: a
+    count that touched the card would fail).  They run on the host while
+    the phases after them use the card (rwkv6's count takes minutes of
+    host time); ``finish_dryrun_cli`` collects them."""
+    import os
     import tempfile
-    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
-    runs = {"single": (["--arch", TRAIN_ARCH, "--mesh", "single"],
-                       "3 counted, 1 skipped (documented), 0 errors"),
-            "multi": (["--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh", "multi"],
-                      "1 counted, 0 skipped (documented), 0 errors")}
-    free0 = free_device_memory(torch)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out:
-        procs = {name: subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
-            for name, (args, _) in runs.items()}
-        outs = {name: p.communicate(timeout=900) for name, p in procs.items()}
-        wall = time.perf_counter() - t0
-        records = {name: json.loads((Path(out) / f"dryrun_{name}.json").read_text())
-                   for name in runs if (Path(out) / f"dryrun_{name}.json").exists()}
-    free1 = free_device_memory(torch)
-    for name, (stdout, stderr) in outs.items():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = Path(tempfile.mkdtemp(prefix="dryrun-"))
+    procs = {}
+    for name, (args, _) in DRYRUN_RUNS.items():
+        # their output to files: nothing reads a pipe while the card's phases run
+        with open(out / f"{name}.out", "w") as stdout, open(out / f"{name}.err", "w") as stderr:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+                 str(out / name)], stdout=stdout, stderr=stderr, env=env, cwd=ROOT)
+    return {"procs": procs, "out": out, "t0": time.perf_counter()}
+
+
+def finish_dryrun_cli(card: str, started: dict) -> dict:
+    """Phase 3j (a), collected: each run's summary and the seconds from the
+    common start to its end; each record's dot FLOPs against
+    ``DRYRUN_FLOPS``."""
+    import shutil
+    runs, procs, t0 = DRYRUN_RUNS, started["procs"], started["t0"]
+    with ThreadPoolExecutor(len(procs)) as pool:
+        def finish(name):
+            procs[name].wait(timeout=900)
+            return time.perf_counter() - t0
+        ends = dict(zip(procs, pool.map(finish, procs)))
+    wall, out = time.perf_counter() - t0, started["out"]
+    records = {name: json.loads(path.read_text()) for name, (args, _) in runs.items()
+               for path in [out / name / f"dryrun_{args[args.index('--mesh') + 1]}.json"]
+               if path.exists()}
+    done = {name: (((out / f"{name}.out").read_text(), (out / f"{name}.err").read_text()), took)
+            for name, took in ends.items()}
+    shutil.rmtree(out, ignore_errors=True)
+    for name, ((stdout, stderr), took) in done.items():
         summary = [ln for ln in stdout.splitlines() if ln.startswith("[dryrun] ") and "counted" in ln]
-        log(f"[dryrun] --mesh {name}: rc {procs[name].returncode}, {summary[-1] if summary else stdout[-400:]!r}")
+        log(f"[dryrun] {' '.join(runs[name][0])}: rc {procs[name].returncode}, "
+            f"{summary[-1] if summary else stdout[-400:]!r}, done by {took!r} s")
         assert procs[name].returncode == 0, stderr[-3000:]
         assert summary and summary[-1] == f"[dryrun] {runs[name][1]}", summary
     counted = {}
@@ -4764,7 +4818,7 @@ def run_dryrun_cli(card: str, torch) -> dict:
             if r["status"] != "counted":
                 log(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: {r['status']} ({r.get('reason')})")
                 continue
-            counted[(r["mesh"], r["shape"])] = r
+            counted[(r["arch"], r["mesh"], r["shape"])] = r
             log(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']} ({r['chips']} ranks, rank 0): "
                 f"dot_flops {r['device_flops']!r}, bytes {r['device_bytes']!r}, collectives "
                 f"{r['collectives_by_kind']}, arg/temp/output {r['arg_bytes']}/{r['temp_bytes']}/"
@@ -4772,15 +4826,46 @@ def run_dryrun_cli(card: str, torch) -> dict:
                 f"{r['memory_s'] * 1e3:.3f} ms collective {r['collective_s'] * 1e3:.3f} ms -> "
                 f"{r['dominant']}-bound, useful-flops {r['useful_flops_ratio']:.4f}, "
                 f"hbm/dev {r['hbm_per_device_gib']:.2f} GiB; t_count_s {r['t_count_s']}")
-    log(f"[dryrun] both runs {wall!r} s wall (at once, on the host); the card's free memory "
-        f"before {free0}, after {free1} bytes {card}")
+    log(f"[dryrun] the {len(runs)} runs {wall!r} s wall (at once on the host, no card visible to "
+        f"them, beside phases 4, 5, 3i, the one-card config and the examples) {card}")
     assert set(counted) == set(DRYRUN_FLOPS), sorted(counted)
     for key, flops in DRYRUN_FLOPS.items():
         assert counted[key]["device_flops"] == flops, (key, counted[key]["device_flops"], flops)
-    assert abs(free1 - free0) <= DRYRUN_MEM_SLACK, (free0, free1)
-    return {"wall_s": wall, "t_count_s": {f"{m} {s}": r["t_count_s"] for (m, s), r in counted.items()},
-            "device_flops": {f"{m} {s}": r["device_flops"] for (m, s), r in counted.items()},
-            "memory_delta": free0 - free1}
+    return {"wall_s": wall, "t_count_s": {" ".join(k): r["t_count_s"] for k, r in counted.items()},
+            "device_flops": {" ".join(k): r["device_flops"] for k, r in counted.items()},
+            "seconds": ends}
+
+
+# The port's examples, each run on the card as a user runs it (no
+# arguments: the scripts' own sizes, ``--device`` cuda), all four at once.
+EXAMPLES = ("tune_transformer_torch.py", "vmap_sweep_torch.py", "serve_batch_torch.py",
+            "pbt_population_torch.py")
+
+
+def run_examples(card: str) -> dict:
+    """The examples (``EXAMPLES``) as subprocesses started together, each
+    with two host threads; every one must exit 0.  Each one's seconds from
+    the common start to its exit, and the wall time of all four."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / name)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                    env=env, cwd=ROOT)
+             for name in EXAMPLES}
+    with ThreadPoolExecutor(len(procs)) as pool:
+        def finish(name):
+            out = procs[name].communicate(timeout=600)
+            return out, time.perf_counter() - t0
+        done = dict(zip(procs, pool.map(finish, procs)))
+    wall = time.perf_counter() - t0
+    for name, ((stdout, stderr), took) in done.items():
+        tail = stdout.strip().splitlines()[-1:] or ["(no output)"]
+        log(f"[examples] {name}: rc {procs[name].returncode}, {took!r} s (the four at once); "
+            f"its last line {tail[0]!r} {card}")
+        assert procs[name].returncode == 0, f"{name}: {stderr[-3000:]}"
+    log(f"[examples] {len(procs)} examples {wall!r} s wall {card}")
+    return {"wall_s": wall, "seconds": {name: took for name, (_, took) in done.items()}}
 
 
 def run_dryrun_config(card: str, torch, ops, dev) -> dict:
@@ -4971,8 +5056,8 @@ def main() -> int:
     # -- 3h. the same step on DTensor: a world of one rank, a (1,1) mesh -------------------------
     sharded = run_train_sharded(card, torch, ops, dev, train)
     per_path[f"{TRAIN_ARCH} sharded train"] = sharded["launches"]
-    for arch, fam in sharded["families"].items():
-        per_path[f"{arch} sharded train"] = fam["launches"]
+    for key, fam in sharded["families"].items():
+        per_path[f"{key} sharded train"] = fam["launches"]
     phase_done("3h")
 
     # -- 3b. an ASHA sweep of it through launch.tune, and one trial in a worker process ------
@@ -5027,6 +5112,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("3f")
+
+    # -- 3j's dry-run CLI starts here, on the host (no card visible to it), and runs beside
+    # phases 4, 5, 3i, 3j's one-card config and 3l, which use the card; collected after 3l
+    dry_started = start_dryrun_cli()
 
     # -- 4 and 5. serve each model at full width, then its times -----------------------------------
     for arch in ARCHS:
@@ -5095,13 +5184,18 @@ def main() -> int:
     per_path[f"{TRAIN_ARCH} profiled trial"] = profile["launches"]
     phase_done("3i")
 
-    # -- 3j. the dry-run on this machine, then the record's config on the card ----------------
+    # -- 3j. the record's config on the card, and 3l. the port's examples there; then the
+    # dry-run CLI's records ------------------------------------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    dry_cli = run_dryrun_cli(card, torch)
-    phase_done("3j's dry-run CLI")
     dry_cfg = run_dryrun_config(card, torch, ops, dev)
     per_path[f"{TRAIN_ARCH} dry-run config"] = dry_cfg["launches"]
+    phase_done("3j's one-card config")
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = run_examples(card)
+    phase_done("3l")
+    dry_cli = finish_dryrun_cli(card, dry_started)
     phase_done("3j")
 
     # The backwards are the gradients of the same TPU kernels (forward-only in JAX)
@@ -5146,10 +5240,13 @@ def main() -> int:
         train_step={k: v for k, v in train_r["rwkv6-1.6b"].items() if k != "launches"})
     kernels[KERNELS.index("rglru_scan_bwd")]["train_step"] = {
         k: v for k, v in train_r["recurrentgemma-9b"].items() if k != "launches"}
-    for name, arch in (("rwkv6_scan_bwd", "rwkv6-1.6b"), ("rglru_scan_bwd", "recurrentgemma-9b"),
-                       ("moe_router_bwd", "granite-moe-3b-a800m")):
-        kernels[KERNELS.index(name)]["sharded_train_step"] = {
-            k: v for k, v in sharded["families"][arch].items() if k != "launches"}
+    for name, key, field in (
+            ("rwkv6_scan_bwd", "rwkv6-1.6b", "sharded_train_step"),
+            ("rglru_scan_bwd", "recurrentgemma-9b", "sharded_train_step"),
+            ("moe_router_bwd", "granite-moe-3b-a800m", "sharded_train_step"),
+            ("moe_router_bwd", "granite-moe-3b-a800m scatter", "sharded_scatter_train_step")):
+        kernels[KERNELS.index(name)][field] = {
+            k: v for k, v in sharded["families"][key].items() if k != "launches"}
     for name, arch in (("rwkv6_scan", "rwkv6-1.6b"), ("rglru_scan", "recurrentgemma-9b"),
                        ("moe_router", "granite-moe-3b-a800m")):
         kernels[KERNELS.index(name)]["vmap"] = {
@@ -5173,7 +5270,8 @@ def main() -> int:
         cluster_sweep={key: val for key, val in cluster.items() if key != "launches"},
         vmap_sweep={key: val for key, val in vmap_sweep.items() if key != "launches"},
         profiled_trial={key: val for key, val in profile.items() if key != "launches"},
-        dryrun={"cli": dry_cli, "one_card": {k: v for k, v in dry_cfg.items() if k != "launches"}})
+        dryrun={"cli": dry_cli, "one_card": {k: v for k, v in dry_cfg.items() if k != "launches"}},
+        examples=examples)
     log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['retried']} retried, "
         f"{PROFILER['unmeasured']} measurements with no whole session (not measured)")
     left = stop_started_processes()

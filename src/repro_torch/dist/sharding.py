@@ -50,7 +50,9 @@ What differs from the original:
   version, on each rank's shards (``local_map``), which XLA's partitioner
   does for a Pallas call and for a batch- and head-local product;
   ``local_rwkv6_scan``, ``local_rglru_scan`` and ``local_moe_router`` do
-  the same for the scans' and the router's wrappers.
+  the same for the scans' and the router's wrappers (and their plain
+  versions), ``local_moe_scatter`` for the sort/scatter MoE dispatch and
+  ``local_einsum`` for an einsum that DTensor refuses.
 * DTensor chooses each op's placements by the cost of communication, not
   of compute, and leaves sums partial; XLA's partitioner splits the work.
   Under an active policy the model asks for XLA's choices: ``gathered``
@@ -77,7 +79,8 @@ __all__ = [
     "shard_params", "shard_caches", "policy_caches", "microbatch",
     "pin_grad", "gathered", "spread_over_idle", "spread_product", "lookup",
     "local_shards", "local_rwkv6_scan", "local_rglru_scan", "local_moe_router",
-    "replicated_like", "whole_on", "placed_like", "full_value",
+    "local_moe_scatter", "local_einsum", "replicated_like", "whole_on", "placed_like",
+    "full_value",
 ]
 
 STRATEGIES = ("fsdp_tp", "dp_only")
@@ -885,6 +888,101 @@ def local_moe_router(fn: Callable, logits: torch.Tensor,
     mapped = local_map(lambda x: fn(x, top_k), out_placements=(pl, pl), in_placements=(pl,),
                        device_mesh=logits.device_mesh)
     return mapped(logits)
+
+
+def local_moe_scatter(fn: Callable, xg: torch.Tensor, top_w: torch.Tensor,
+                      top_idx: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                      w_down: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fn(xg, top_w, top_idx, w_gate, w_up, w_down, first)`` (the
+    sort/scatter MoE dispatch, which returns the routed output (G, S, D)
+    and the kept tokens' counts (G, E)) on each rank's groups and experts
+    when ``xg`` is a DTensor, under ``local_map``; ``first`` is the id of
+    the rank's first expert (a one-element tensor), 0 for plain tensors.
+    Per mesh dim of more than one rank: where the groups (dim 0 of xg) are
+    split, the rank takes its groups and every expert; else, where the
+    expert weights split their expert dim (``_EXPERT_RULES``: over
+    ``model``), every group of its data rank and its own experts, with the
+    routed output partial there (each rank sums its experts' share), and
+    the gradients of xg and top_w too; else the groups split further where
+    they divide, as ``spread_over_idle`` splits an idle axis (E = 40 on a
+    ``model`` axis of 16 splits no expert); else both whole.  The weights'
+    ``fsdp`` dims are gathered first (``whole_on``); their gradients are
+    partial over the mesh dims that split the groups.  The counts are
+    placed as the groups.  On a mesh dim of one rank xg, top_w and top_idx
+    stay split where xg's groups are, the weights where their experts are,
+    and nothing is partial."""
+    if not isinstance(xg, DTensor):
+        return fn(xg, top_w, top_idx, w_gate, w_up, w_down, 0)
+    mesh = xg.device_mesh
+    ws = [whole_on(w, d) for w, d in ((w_gate, 1), (w_up, 1), (w_down, 2))]
+    E, G = ws[0].shape[0], xg.shape[0]
+    by_groups = (Shard(0), Replicate(), Shard(0), Shard(0), Partial())
+    by_experts = (Replicate(), Shard(0), Partial(), Partial(), Shard(0))
+    # per mesh dim: (rows, experts, output, rows' gradient, weights' gradient)
+    dims, split = [], 1
+    for i, n in enumerate(mesh.shape):
+        if n == 1:
+            row, expert = (Shard(0) if t.placements[i] == Shard(0) else Replicate()
+                           for t in (xg, ws[0]))
+            dims.append((row, expert, row, row, expert))
+        elif xg.placements[i] == Shard(0) or (ws[0].placements[i] != Shard(0)
+                                               and G % (split * n) == 0):
+            split *= n
+            dims.append(by_groups)
+        elif ws[0].placements[i] == Shard(0):
+            dims.append(by_experts)
+        else:
+            dims.append((Replicate(),) * 5)
+    rows, experts, out, rows_grad, w_grad = (tuple(pl) for pl in zip(*dims))
+    counts = tuple(Replicate() if isinstance(p, Partial) else p for p in out)
+    ids = _placed(replicated_like(torch.arange(E, device=xg.device), xg), experts)
+    mapped = local_map(lambda x, w, i, a, b, c, e: fn(x, w, i, a, b, c, e[:1]),
+                       out_placements=(out, counts), in_placements=(rows,) * 3 + (experts,) * 4,
+                       in_grad_placements=(rows_grad, rows_grad, rows) + (w_grad,) * 3
+                       + (experts,), device_mesh=mesh)
+    args = [_placed(t, rows) for t in (xg, top_w, top_idx)] + [_placed(w, experts) for w in ws]
+    return mapped(*args, ids)
+
+
+def local_einsum(spec: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(spec, *operands)`` on each rank's local shards when
+    the first operand is a DTensor, under ``local_map``: per mesh dim of
+    more than one rank, the first label that an operand splits there (in
+    operand order) is split in every operand that has it, the others whole
+    there, and the output is split there where it keeps that label, partial
+    where the label is summed over; the gradient of an operand without the
+    label is partial there.  DTensor's own einsum flattens the summed dims
+    into one, and torch 2.11's refuses a flatten whose inner dim is split;
+    where it runs, its choice of split differs between torch versions.  A
+    mesh dim of one rank keeps each operand's own placement (a partial one
+    as replicated) and the output replicated.  Plain operands: the einsum
+    as it is."""
+    if not isinstance(operands[0], DTensor):
+        return torch.einsum(spec, *operands)
+    ins, out = spec.replace(" ", "").split("->")
+    labels = ins.split(",")
+    mesh = operands[0].device_mesh
+    places: List[List[Any]] = [[] for _ in operands]
+    grads: List[List[Any]] = [[] for _ in operands]
+    out_pl: List[Any] = []
+    for i, n in enumerate(mesh.shape):
+        split = [lab[t.placements[i].dim] for lab, t in zip(labels, operands)
+                 if isinstance(t.placements[i], Shard)]
+        label = split[0] if split and n > 1 else ""
+        for pl, grad, lab, t in zip(places, grads, labels, operands):
+            own = t.placements[i]
+            if n == 1:
+                pl.append(Replicate() if isinstance(own, Partial) else own)
+            else:
+                pl.append(Shard(lab.index(label)) if label and label in lab else Replicate())
+            grad.append(Partial() if label and label not in lab else pl[-1])
+        out_pl.append(Replicate() if not label else
+                      Shard(out.index(label)) if label in out else Partial())
+    places = [tuple(pl) for pl in places]
+    mapped = local_map(lambda *a: torch.einsum(spec, *a), out_placements=(tuple(out_pl),),
+                       in_placements=tuple(places), in_grad_placements=tuple(map(tuple, grads)),
+                       device_mesh=mesh)
+    return mapped(*(_placed(t, pl) for t, pl in zip(operands, places)))
 
 
 def _repeat_heads(t: torch.Tensor, H: int) -> torch.Tensor:

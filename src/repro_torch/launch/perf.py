@@ -10,8 +10,7 @@ What differs from the original: the records go to ``--out`` (default
 ``build/repro_torch/perf/perf_iterations.json``), where JAX's go to
 ``benchmarks/results/``, which the port leaves untouched; and a variant
 that fails is recorded with status ``"error"`` and the run goes on, as
-``dryrun.main`` does (the sort/scatter dispatch, ``moe.impl="scatter"``,
-does not run on DTensors yet).
+``dryrun.main`` does.
 """
 from __future__ import annotations
 

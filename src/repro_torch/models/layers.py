@@ -304,7 +304,8 @@ def lm_logits(embed: Embedding, head: Optional[nn.Linear], x: torch.Tensor,
         logits = F.linear(x, head.weight.to(x.dtype))
     if cfg.padded_vocab and cfg.padded_vocab > cfg.vocab_size:
         # mask the padding rows: -1e30 contributes nothing to logsumexp/argmax
-        iota = torch.arange(logits.shape[-1], device=logits.device)
-        logits = torch.where(iota < cfg.vocab_size, logits,
-                             torch.tensor(-1e30, dtype=logits.dtype, device=logits.device))
+        # (the positions replicated beside a DTensor's logits)
+        iota = sharding.replicated_like(torch.arange(logits.shape[-1], device=logits.device),
+                                        logits)
+        logits = logits.masked_fill(iota >= cfg.vocab_size, -1e30)
     return logits

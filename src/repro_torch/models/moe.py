@@ -68,10 +68,10 @@ def _route(logits: torch.Tensor, moe: MoEConfig, kernel_impl: str = "jnp"
     costs the host a few microseconds, once per MoE layer of every decode
     step)."""
     probs = torch.softmax(logits.float(), dim=-1)
-    if kernel_impl == "pallas":   # a DTensor's rows each on their rank (local_map)
-        top_w, top_idx = sharding.local_moe_router(kops.moe_router, logits, moe.top_k)
-    else:
-        top_w, top_idx = kref.moe_router_ref(logits, moe.top_k)
+    router = kops.moe_router if kernel_impl == "pallas" else kref.moe_router_ref
+    # a DTensor's rows each on their rank (local_map): the plain version's
+    # stable sort, too, is differentiated by a scatter that DTensor refuses
+    top_w, top_idx = sharding.local_moe_router(router, logits, moe.top_k)
     return top_w, top_idx, probs
 
 
@@ -122,12 +122,12 @@ def _rank_within_expert(e_flat: torch.Tensor) -> torch.Tensor:
     return torch.gather(rank_sorted, 1, inv)
 
 
-def _experts_ffn(p: MoELayer, expert_in: torch.Tensor, cfg: ModelConfig,
+def _experts_ffn(we, expert_in: torch.Tensor, cfg: ModelConfig,
                  spec: str) -> torch.Tensor:
-    """Every expert's gated MLP on its buffer; ``spec`` names the buffer's
-    axes around the expert axis ``e`` (``"egcd"`` or ``"gecd"``)."""
+    """Every expert's gated MLP on its buffer: ``we`` holds the experts'
+    ``w_gate``, ``w_up`` and ``w_down``; ``spec`` names the buffer's axes
+    around the expert axis ``e`` (``"egcd"`` or ``"gecd"``)."""
     dtype = expert_in.dtype
-    we = p.experts
     hidden = spec.replace("d", "f")
     h_gate = torch.einsum(f"{spec},edf->{hidden}", expert_in, we["w_gate"].to(dtype))
     h_up = torch.einsum(f"{spec},edf->{hidden}", expert_in, we["w_up"].to(dtype))
@@ -148,38 +148,60 @@ def _apply_moe_scatter(p: MoELayer, xg: torch.Tensor, cfg: ModelConfig
     """Sort/scatter dispatch: no (G,S,E,C) one-hot tensors.
 
     xg (G, S, D) -> (out (G, S, D), aux).  Slots come from ranking tokens
-    within their expert; an indexed write builds the (G, E*C, D) expert
-    buffers, with dropped tokens sent to a trash slot E*C, and an indexed
-    read applies the combine weights."""
+    within their expert; an indexed write builds the expert buffers, with
+    dropped tokens sent to a trash slot, and an indexed read applies the
+    combine weights (``_scatter_dispatch``).  A DTensor's groups and
+    experts each on their rank (``sharding.local_moe_scatter``)."""
     moe = cfg.moe
-    G, S, D = xg.shape
-    E, k = moe.n_experts, moe.top_k
-    C = _capacity(S, moe)
-    dtype = xg.dtype
-
+    S = xg.shape[1]
     top_w, top_idx, probs = _route(_router_logits(p, xg, moe), moe, cfg.kernel_impl)
-
-    e_flat = top_idx.reshape(G, S * k).long()
-    rank = _rank_within_expert(e_flat)                          # (G, S*k)
-    keep = rank < C
-    slot = torch.where(keep, e_flat * C + rank, E * C)          # trash slot E*C
-
-    rows = torch.arange(G, device=xg.device)[:, None]
-    buf = xg.new_zeros((G, E * C + 1, D))
-    buf[rows, slot] = xg.repeat_interleave(k, dim=1)            # (G, S*k, D) in
-    expert_out = _experts_ffn(p, buf[:, :E * C].reshape(G, E, C, D), cfg, "gecd")
-
-    out_flat = torch.cat([expert_out.reshape(G, E * C, D), xg.new_zeros((G, 1, D))], dim=1)
-    y_k = out_flat[rows, slot]                                  # (G, S*k, D)
-    y = (y_k.reshape(G, S, k, D) * top_w.reshape(G, S, k, 1).to(dtype)).sum(dim=2)
+    we = p.experts
+    y, counts = sharding.local_moe_scatter(
+        lambda *a: _scatter_dispatch(*a, cfg=cfg), xg, top_w, top_idx,
+        we["w_gate"], we["w_up"], we["w_down"])
 
     # aux load-balance: dispatched fraction per expert via scatter-add counts
-    counts = torch.zeros((G, E), dtype=torch.float32, device=xg.device)
-    counts.scatter_add_(1, e_flat, keep.float())
     f = counts / (S * 1.0)
     pbar = probs.mean(1)
     aux = moe.n_experts * torch.mean(torch.sum(f * pbar, dim=-1))
     return y, aux.float()
+
+
+def _scatter_dispatch(xg: torch.Tensor, top_w: torch.Tensor, top_idx: torch.Tensor,
+                      w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                      first, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scatter dispatch through the experts ``first`` .. ``first + El
+    - 1`` that ``w_gate`` (El, D, Fe) holds: (the routed output of those
+    experts (G, S, D), the tokens kept in each of all E experts (G, E)).
+    Tokens routed to other experts go to the trash slot El*C, whose output
+    is zero."""
+    moe = cfg.moe
+    G, S, D = xg.shape
+    E, k = moe.n_experts, moe.top_k
+    El = w_gate.shape[0]
+    C = _capacity(S, moe)
+    dtype = xg.dtype
+
+    e_flat = top_idx.reshape(G, S * k).long()
+    rank = _rank_within_expert(e_flat)                          # (G, S*k)
+    kept = rank < C
+    local = e_flat - first
+    keep = kept & (local >= 0) & (local < El)
+    slot = torch.where(keep, local * C + rank, El * C)          # trash slot El*C
+
+    rows = torch.arange(G, device=xg.device)[:, None]
+    buf = xg.new_zeros((G, El * C + 1, D))
+    buf[rows, slot] = xg.repeat_interleave(k, dim=1)            # (G, S*k, D) in
+    expert_out = _experts_ffn({"w_gate": w_gate, "w_up": w_up, "w_down": w_down},
+                              buf[:, :El * C].reshape(G, El, C, D), cfg, "gecd")
+
+    out_flat = torch.cat([expert_out.reshape(G, El * C, D), xg.new_zeros((G, 1, D))], dim=1)
+    y_k = out_flat[rows, slot]                                  # (G, S*k, D)
+    y = (y_k.reshape(G, S, k, D) * top_w.reshape(G, S, k, 1).to(dtype)).sum(dim=2)
+
+    counts = torch.zeros((G, E), dtype=torch.float32, device=xg.device)
+    counts.scatter_add_(1, e_flat, kept.float())
+    return y, counts
 
 
 def apply_moe_layer(p: MoELayer, x: torch.Tensor, cfg: ModelConfig
@@ -225,11 +247,14 @@ def apply_moe_layer(p: MoELayer, x: torch.Tensor, cfg: ModelConfig
                                  sharding.spread_over_idle(xg, dim=1, over="data"))
         expert_in = sharding.spread_over_idle(expert_in, dim=2, over="data")  # (E,G,C,D)
         # (placed as its input: DTensor may split the slots unevenly inside)
-        expert_out = sharding.placed_like(_experts_ffn(p, expert_in, cfg, "egcd"), expert_in)
-        # (the experts' label sorts before the slots': einsum flattens the summed
-        # dims in label order, and torch 2.11's DTensor refuses a flatten whose
-        # inner dim is split, as the experts are over the model axis)
-        routed = torch.einsum("gsac,agcd->gsd", combine.to(dtype), expert_out)  # (G,S,D)
+        expert_out = sharding.placed_like(_experts_ffn(p.experts, expert_in, cfg, "egcd"),
+                                         expert_in)
+        # (G,S,D) on each rank's shards: in decode it sums over the experts,
+        # split over the model axis, and the slots, split over the data axes,
+        # which DTensor's einsum flattens into one dim with its inner dim
+        # split, as torch 2.11 refuses; the partial sums are summed below.
+        # The experts' label sorts first: the plain einsum sums experts-major
+        routed = sharding.local_einsum("gsac,agcd->gsd", combine.to(dtype), expert_out)
 
     # a DTensor's groups back on the batch's placements first: DTensor mis-splits
     # a token dim split over more ranks than the batch dim it unflattens into

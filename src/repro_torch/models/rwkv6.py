@@ -12,8 +12,9 @@ A prompt or a training sequence runs the exact chunked evaluation:
 launches the CUDA WKV kernel (``kernels/ops.rwkv6_scan``; in training its
 gradients come from the backward kernels through ``RWKV6ScanFn``, u's in
 u's dtype), ``"jnp"`` runs ``_wkv_chunked`` in PyTorch, differentiated by
-autograd.  Decode (one token) is the plain single-step recurrence in
-either case.
+autograd; either runs on each rank's shards of a DTensor
+(``dist.sharding.local_rwkv6_scan``).  Decode (one token) is the plain
+single-step recurrence in either case.
 ``TimeMix`` and ``ChannelMix`` are the JAX ``init_*``: parameters under the
 JAX leaf names, dense weights in ``nn.Linear``'s (out, in) layout.
 
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import local_rwkv6_scan, replicated_like, whole_on
+from ..dist.sharding import local_einsum, local_rwkv6_scan, replicated_like, whole_on
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import _dtype, _linear, _normal
@@ -93,9 +94,10 @@ def _ddlerp(p: TimeMix, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     lora = torch.tanh(p.maa_w1(xm))                               # (B,S,5*r)
     # a DTensor's 5*r dim whole first: 5 mixes do not split over the model axis
     lora = whole_on(lora, -1).reshape(*lora.shape[:-1], _N_MIX, _LORA_MIX)
-    # and maa_w2's r dim whole, so that lora's gradient comes back with it
-    # whole (torch 2.11's DTensor refuses to flatten a split inner dim)
-    m = torch.einsum("bsnr,nrd->nbsd", lora, whole_on(p.maa_w2, 1).to(x.dtype))
+    # on each rank's shards: torch 2.11's DTensor refuses to flatten lora's
+    # split inner dim in the backward, and runs the product whole where 2.13
+    # splits it
+    m = local_einsum("bsnr,nrd->nbsd", lora, p.maa_w2.to(x.dtype))
     m = m + p.mu_rkvwg.to(x.dtype)[:, None, None, :]
     # a DTensor's 5 mixes whole, so that they unbind (on a mesh dim of one
     # rank DTensor may leave them "split")
@@ -122,16 +124,16 @@ def _group_norm(p: TimeMix, y: torch.Tensor, n_heads: int, eps: float = 64e-5) -
 def _wkv_chunked(r, k, v, logw, u, state, chunk: int):
     """Exact chunked WKV in PyTorch.  r/k/v: (B,S,H,N); logw fp32 (B,S,H,N);
     u (H,N); state (B,H,N,N) fp32.  Returns (y (B,S,H,N), new_state).  A
-    Python loop over the chunks where JAX scans."""
+    Python loop over the chunks where JAX scans.  Plain tensors: a DTensor's
+    scan comes here through ``local_rwkv6_scan``."""
     B, S, H, N = r.shape
     L = min(chunk, S)
     n_chunks = -(-S // L)
     pad = n_chunks * L - S
     if pad:  # logw=0 -> w=1 (no decay) and k=0: padded steps leave the state alone
         r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, logw))
-    mask = replicated_like(
-        torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device), diagonal=-1), r)
-    eye = replicated_like(torch.eye(L, device=r.device), r)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device), diagonal=-1)
+    eye = torch.eye(L, device=r.device)
     uf = u.float()
     ys = []
     for c in range(n_chunks):
@@ -161,7 +163,9 @@ def _wkv_step(r, k, v, logw, u, state):
     """Single decode step. r/k/v/logw: (B,H,N); state (B,H,N,N) fp32."""
     r32, k32, v32 = r.float(), k.float(), v.float()
     kv = k32[..., :, None] * v32[..., None, :]                           # (B,H,N,N)
-    y = torch.einsum("bhn,bhnm->bhm", r32, state + u.float()[None, :, :, None] * kv)
+    # on each rank's shards: torch 2.11's DTensor refuses the flatten of the
+    # batch and the split heads
+    y = local_einsum("bhn,bhnm->bhm", r32, state + u.float()[None, :, :, None] * kv)
     state = torch.exp(logw)[..., None] * state + kv
     return y.to(r.dtype), state
 
@@ -189,11 +193,11 @@ def apply_time_mix(p: TimeMix, x: torch.Tensor, cfg: ModelConfig,
     if S == 1:
         y, wkv = _wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p.u, wkv0)
         y = y[:, None]
-    elif cfg.kernel_impl == "pallas":
-        # a DTensor's scan runs on each rank's batch and heads (local_map)
-        y, wkv = local_rwkv6_scan(kops.rwkv6_scan, r, k, v, logw, p.u, wkv0, chunk=chunk)
     else:
-        y, wkv = _wkv_chunked(r, k, v, logw, p.u, wkv0, chunk)
+        # a DTensor's scan runs on each rank's batch and heads (local_map): the
+        # kernel, or the chunked einsums, which torch 2.11's DTensor refuses
+        scan = kops.rwkv6_scan if cfg.kernel_impl == "pallas" else _wkv_chunked
+        y, wkv = local_rwkv6_scan(scan, r, k, v, logw, p.u, wkv0, chunk=chunk)
 
     y = _group_norm(p, y.reshape(B, S, D), H) * g
     return p.w_o(y), {"prev": x[:, -1], "wkv": wkv}

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -75,6 +75,8 @@ class Family:
     named: str
     # the serve check's limit (tests/test_torch_serve.py's), normwise
     serve_tol: float = 1e-4
+    # the MoE dispatch, where not the config's
+    moe_impl: Optional[str] = None
 
 
 def normwise(a, b) -> float:
@@ -82,12 +84,13 @@ def normwise(a, b) -> float:
     return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
 
 
-def family_runs(arch: str, tmp) -> Tuple[dict, List[float]]:
+def family_runs(arch: str, tmp, moe_impl: Optional[str] = None) -> Tuple[dict, List[float]]:
     """({rank: the worker's results}, JAX's single-device losses) of
-    ``arch``'s reduced config, on JAX's weights (seed 0); JAX trains while
-    the ranks run."""
-    cfg = worker.reduced_config(arch)
-    jcfg = jax_get_config(arch).reduced(**worker.ARCHS[arch])
+    ``arch``'s reduced config (with the MoE dispatch ``moe_impl`` in both
+    packages, where one is given), on JAX's weights (seed 0); JAX trains
+    while the ranks run."""
+    cfg = worker.reduced_config(arch, moe_impl)
+    jcfg = worker.with_moe_impl(jax_get_config(arch).reduced(**worker.ARCHS[arch]), moe_impl)
     jparams = jm.init_params(jax.random.key(0), jcfg)
     weights = convert.to_state_dict(jax.tree_util.tree_map(np.asarray, jparams),
                                     init_params(None, cfg, "meta"))

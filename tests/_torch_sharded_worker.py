@@ -1,17 +1,21 @@
 """The port's sharded train step on 8 gloo ranks of the CPU.
 
-    OMP_NUM_THREADS=1 PYTHONPATH=src python tests/_torch_sharded_worker.py [ARCH]
+    OMP_NUM_THREADS=1 PYTHONPATH=src python tests/_torch_sharded_worker.py [ARCH] \
+        [--moe-impl scatter]
 
 trains a reduced config (``reduced_config``: smollm-135m by default, with
 remat and ``attn_impl="pallas"``, so that K1's wrapper runs on each rank's
 shards, its plain version on the CPU; rwkv6-1.6b, recurrentgemma-9b and
 granite-moe-3b-a800m with ``kernel_impl="pallas"`` too, so that K2, K3 and
-K4 run there as well) for 5 AdamW steps from weights drawn by the port
-(seed 0) on a (1,1) mesh, then on (4,2) under ``fsdp_tp`` and under
-``dp_only``, and prints each setup's losses, its largest relative gap from
-the (1,1) run's and the local shapes each kernel's wrapper saw.
+K4 run there as well; ``--moe-impl scatter`` gives granite the sort/scatter
+dispatch) for 5 AdamW steps from weights drawn by the port (seed 0) on a
+(1,1) mesh, then on (4,2) under ``fsdp_tp`` and under ``dp_only``, and
+prints each setup's losses, its largest relative gap from the (1,1) run's
+and the local shapes each kernel's wrapper saw; then the (4,2) ``fsdp_tp``
+prefill's (and for the moe family the decode step's) largest normwise gap
+from the (1,1) run's, which must be within ``SERVE_TOL``.
 ``test_torch_multidevice.py`` and ``test_torch_multidevice_{ssm,hybrid,
-moe}.py`` run the same ranks on JAX's weights.
+moe,moe_scatter}.py`` run the same ranks on JAX's weights.
 
 Imports ``torch`` and ``repro_torch`` only: each rank is a process started
 with ``spawn``, which imports this module, never the test file (that imports
@@ -58,6 +62,7 @@ WRAPPERS = ("flash_attention", "rwkv6_scan", "rglru_scan", "moe_router")
 ARCHS = {"smollm-135m": {}, "rwkv6-1.6b": {}, "recurrentgemma-9b": {},
          "granite-moe-3b-a800m": {"n_experts": 16}}
 ROOFLINE_SHAPE = (3, 5)     # each rank's tensor in ``roofline_checks``' all-gather
+SERVE_TOL = 1e-4            # the served setups against (1,1), normwise (test_torch_serve.py's)
 
 
 def _placements(t) -> tuple:
@@ -389,17 +394,37 @@ def batches_for(cfg) -> list:
     return [data.batch_at(i) for i in range(STEPS)]
 
 
-def reduced_config(arch: str = "smollm-135m"):
+def with_moe_impl(cfg, moe_impl: Optional[str]):
+    """``cfg`` with its MoE dispatch ``moe_impl`` (``"einsum"`` or
+    ``"scatter"``); as it is for None.  JAX's configs take it alike."""
+    import dataclasses
+    if moe_impl is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl=moe_impl))
+
+
+def reduced_config(arch: str = "smollm-135m", moe_impl: Optional[str] = None):
     """``arch``'s reduced config (``ARCHS``) on the kernels' wrappers:
     smollm-135m with remat and ``attn_impl="pallas"``; the others with
-    ``kernel_impl="pallas"`` as well, their remat as reduced."""
+    ``kernel_impl="pallas"`` as well, their remat as reduced; an MoE
+    config with the dispatch ``moe_impl`` where one is given."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    cfg = get_config(arch).reduced(**ARCHS[arch])
+    cfg = with_moe_impl(get_config(arch).reduced(**ARCHS[arch]), moe_impl)
     if arch == "smollm-135m":
         return dataclasses.replace(cfg, remat=True, attn_impl="pallas")
     return dataclasses.replace(cfg, attn_impl="pallas", kernel_impl="pallas")
+
+
+def serve_gap(got: dict, ref: dict) -> Tuple[str, float]:
+    """(the leaf, its largest normwise gap max |got - ref| over max(1,
+    max |ref|)) of a served setup's full values against the (1,1) run's."""
+    import numpy as np
+    errs = {k: float(np.abs(v - ref[k]).max() / max(1.0, np.abs(ref[k]).max()))
+            for k, v in got.items()}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
 
 
 def main(argv=None) -> None:
@@ -408,12 +433,18 @@ def main(argv=None) -> None:
     from repro_torch.models import init_params
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("arch", nargs="?", default="smollm-135m", choices=sorted(ARCHS))
-    arch = ap.parse_args(argv).arch
-    cfg = reduced_config(arch)
+    ap.add_argument("--moe-impl", choices=("einsum", "scatter"), default=None,
+                    help="the MoE dispatch of granite-moe-3b-a800m (default: its config's)")
+    args = ap.parse_args(argv)
+    arch = args.arch
+    if args.moe_impl and arch != "granite-moe-3b-a800m":
+        ap.error("--moe-impl takes the moe family (granite-moe-3b-a800m)")
+    cfg = reduced_config(arch, args.moe_impl)
     model = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     weights = {k: v.numpy() for k, v in model.state_dict().items()}
     with tempfile.TemporaryDirectory() as tmp:
-        results = spawn_ranks(Path(tmp), cfg, weights, batches_for(cfg), deadline_s=600)
+        results = spawn_ranks(Path(tmp), cfg, weights, batches_for(cfg), deadline_s=600,
+                              serve=True)
     ref = results[0]["(1,1)"]["losses"]
     for name, shape, strategy in SETUPS:
         got = results[0][name]
@@ -424,6 +455,14 @@ def main(argv=None) -> None:
               f"Shard placement; the wrappers' local first arguments {local}; "
               f"{got['seconds']:.1f} s")
     print(f"roofline checks: step_costs of one all-gather {results[0]['roofline']['costs']}")
+    served = results[0]["(1,1)"]["serve"]
+    for name in SERVE_SETUPS[1:]:
+        for kind, got in results[0][name]["serve"].items():
+            leaf, gap = serve_gap(got, served[kind])
+            print(f"{arch} {name} {kind}: largest normwise gap from (1,1) {gap:.3g} ({leaf}; "
+                  f"limit {SERVE_TOL})")
+            if gap > SERVE_TOL:
+                raise SystemExit(f"{name} {kind} differs from (1,1) by {gap:.3g}")
 
 
 if __name__ == "__main__":

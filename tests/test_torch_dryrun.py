@@ -9,8 +9,9 @@ package's, on the CPU.
   of a fake process group, for every arch's train step and the prefill and
   decode of each family, under ``dp_only`` and on a (2, 2, 2) pod mesh,
   against JAX's ``lower_one`` on 8 of its 512 host devices (one
-  subprocess, ``get_config`` made ``.reduced()`` there as here): the dot
-  FLOPs of one rank equal one device's, but for the products named and
+  subprocess, ``get_config`` made ``.reduced()`` there as here), and
+  granite-moe's three with the sort/scatter dispatch (``MOE_IMPL``): the
+  dot FLOPs of one rank equal one device's, but for the products named and
   counted in ``DIFFERENCES``.
 - The record's keys are JAX's, with the listed renames; the CLI at full
   width; ``perf.PAIRS`` is JAX's and builds every variant's config.
@@ -163,17 +164,19 @@ sys.path.insert(0, {src!r})
 import repro.launch.dryrun as jd        # appends the 512-device flag before JAX starts
 import jax
 from repro.launch.shapes import ShapeSpec
+import dataclasses
 real = jd.get_config
 jd.get_config = lambda arch: real(arch).reduced()
 out = {{}}
-for key, arch, kind, B, mesh_shape, axes, strategy in json.loads(sys.argv[1]):
+for key, arch, kind, B, mesh_shape, axes, strategy, impl in json.loads(sys.argv[1]):
     n = 1
     for s in mesh_shape:
         n *= s
     mesh = jax.make_mesh(tuple(mesh_shape), tuple(axes), devices=jax.devices()[:n],
                          axis_types=(jax.sharding.AxisType.Auto,) * len(axes))
+    overrides = impl and {{"moe": dataclasses.replace(real(arch).reduced().moe, impl=impl)}}
     rec = jd.lower_one(arch, ShapeSpec(kind, kind, {S}, B), mesh, "m", verbose=False,
-                       strategy=strategy)
+                       strategy=strategy, cfg_overrides=overrides)
     out[key] = rec
 print(json.dumps(out, default=str))
 """
@@ -199,7 +202,11 @@ CASES = ([(f"{a}/train", a, "train", _train_batch(a), (2, 4), AXES2, "fsdp_tp")
             if not (a == "hubert-xlarge" and kind == "decode")]
          + [("smollm-135m/train dp_only", "smollm-135m", "train", 8, (2, 4), AXES2, "dp_only"),
             ("smollm-135m/train (2,2,2)", "smollm-135m", "train", 8, (2, 2, 2), AXES3,
-             "fsdp_tp")])
+             "fsdp_tp")]
+         + [(f"granite-moe-3b-a800m/{kind} scatter", "granite-moe-3b-a800m", kind, 8, (2, 4),
+             AXES2, "fsdp_tp") for kind in ("train", "prefill", "decode")])
+# case -> the MoE dispatch it counts, where not the config's (einsum)
+MOE_IMPL = {c[0]: "scatter" for c in CASES if c[0].endswith(" scatter")}
 
 
 def kv_weight_grads(cfg, B):
@@ -267,6 +274,20 @@ def accumulated_dispatch(cfg, B):
     return -mb * cfg.n_layers * 2 * T * cfg.moe.n_experts * C * cfg.d_model // RANKS
 
 
+def scatter_decode_experts(cfg, B):
+    """In a decode step's sort/scatter dispatch XLA splits the three expert
+    products over ``data`` as well (B tokens make one group, which ``data``
+    cannot split); the port runs each rank's experts (those of its
+    ``model`` rank: ``local_moe_scatter`` splits the groups and the
+    experts) on the whole group, on both ``data`` ranks.  JAX's count has
+    half of them, in every MoE layer."""
+    moe = cfg.moe
+    G = max(1, B // moe.group_size)
+    C = max(1, math.ceil(moe.group_size * moe.top_k / moe.n_experts * moe.capacity_factor))
+    whole = 3 * 2 * G * (moe.n_experts // 4) * C * cfg.d_model * moe.d_expert
+    return -cfg.n_layers * (whole - whole // 2)
+
+
 # case -> JAX's count minus the port's, per rank (absent: none)
 DIFFERENCES = {
     "smollm-135m/train": kv_weight_grads,
@@ -278,6 +299,7 @@ DIFFERENCES = {
     "granite-moe-3b-a800m/train": router_products,
     "deepseek-moe-16b/train": lambda cfg, B: (router_products(cfg, B)
                                               + accumulated_dispatch(cfg, B)),
+    "granite-moe-3b-a800m/decode scatter": scatter_decode_experts,
 }
 
 
@@ -285,7 +307,7 @@ DIFFERENCES = {
 def records():
     """(port record, JAX record) of every case; JAX's subprocess runs while
     the port counts."""
-    combos = [[key, a, kind, B, list(shape), list(axes), strategy]
+    combos = [[key, a, kind, B, list(shape), list(axes), strategy, MOE_IMPL.get(key)]
               for key, a, kind, B, shape, axes, strategy in CASES]
     jax_proc = subprocess.Popen(
         [sys.executable, "-c", JAX_SCRIPT.format(src=str(ROOT / "src"), S=S),
@@ -297,10 +319,13 @@ def records():
     try:
         deadline = time.monotonic() + DEADLINE_S
         for key, a, kind, B, shape, axes, strategy in CASES:
+            impl = MOE_IMPL.get(key)
+            overrides = impl and {"moe": dataclasses.replace(real(a).reduced().moe, impl=impl)}
             with dryrun.fake_group(math.prod(shape)):
                 mesh = make_mesh(shape, axes)
                 port[key] = dryrun.lower_one(a, ShapeSpec(kind, kind, S, B), mesh, "m",
-                                             verbose=False, strategy=strategy)
+                                             verbose=False, strategy=strategy,
+                                             cfg_overrides=overrides)
             assert time.monotonic() < deadline, f"the port's counts passed {DEADLINE_S} s at {key}"
     finally:
         dryrun.get_config = real
@@ -317,6 +342,8 @@ def test_per_device_dot_flops_match_jaxs(records, case):
     assert port["status"] == "counted" and ref["status"] == "compiled"
     _, arch, kind, B, *_ = next(c for c in CASES if c[0] == case)
     cfg = dryrun_config(get_config(arch).reduced())
+    if case in MOE_IMPL:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl=MOE_IMPL[case]))
     differ = DIFFERENCES.get(case, lambda cfg, B: 0)(cfg, B)
     assert port["device_flops"] == pytest.approx(ref["device_flops"] - differ, rel=1e-9), \
         (port["device_flops"], ref["device_flops"], port["device_flops"] / ref["device_flops"])

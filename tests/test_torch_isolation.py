@@ -1,6 +1,7 @@
-"""The port stands alone: no file under src/repro_torch/, and neither
-chip_smoke.py nor chip_probe.py, imports ``jax`` or anything of ``repro``, or names such a
-module in a string (a forkserver preload, a ``"module:attr"`` factory
+"""The port stands alone: no file under src/repro_torch/, neither
+chip_smoke.py nor chip_probe.py, and no example of the port
+(``examples/*_torch.py``), imports ``jax`` or anything of ``repro``, or names
+such a module in a string (a forkserver preload, a ``"module:attr"`` factory
 target), where no import statement shows it."""
 import ast
 import os
@@ -16,7 +17,8 @@ import torch  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_probe.py"]
+FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_probe.py"]
+         + sorted((ROOT / "examples").glob("*_torch.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # A string that is a dotted module name, optionally with ":attr".
 MODULE_STRING = re.compile(r"[A-Za-z_]\w*(\.\w+)*(:[\w.]+)?")
@@ -59,6 +61,9 @@ def test_the_scan_sees_every_file():
             "core/workers.py", "core/experiment.py", "launch/tune.py",
             "cluster/executor.py", "cluster/worker.py", "testing/scenarios.py",
             "launch/shapes.py", "launch/dryrun.py", "launch/perf.py"} <= names
+    examples = {p.name for p in FILES if p.parent == ROOT / "examples"}
+    assert examples == {"tune_transformer_torch.py", "vmap_sweep_torch.py",
+                        "serve_batch_torch.py", "pbt_population_torch.py"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
