@@ -261,15 +261,15 @@ non-zero exit:
    sessions.
 3j. dry-run: ``python -m repro_torch.launch.dryrun`` for smollm-135m on the
    single-pod mesh (every shape: 3 counted, long_500k skipped) and its
-   train_4k on the multi-pod mesh, and for rwkv6-1.6b's and
-   granite-moe-3b-a800m's train_4k on the single-pod mesh (their
-   kernel-free scan and router on each rank's shards), four subprocesses
-   at once, each counting rank 0 of a fake process group of 256 or 512
-   ranks on the meta device, on the host with no card visible to them
-   (``CUDA_VISIBLE_DEVICES`` empty), started before phase 4 and running
-   while phases 4, 5, 3i, the one-card config below and the examples (3l)
-   use the card (rwkv6's count takes minutes).  Each record's dot FLOPs
-   must equal this repository's CPU run of the same command
+   train_4k on the multi-pod mesh, for rwkv6-1.6b's, granite-moe-3b-a800m's
+   and recurrentgemma-9b's train_4k and deepseek-moe-16b's decode_32k on
+   the single-pod mesh, six subprocesses at once, each counting rank 0 of a
+   fake process group of 256 or 512 ranks on the meta device, on the host
+   with no card visible to them (``CUDA_VISIBLE_DEVICES`` empty), started
+   before phase 4 and running while phases 4, 5, 3i, the one-card config
+   below and the examples (3l) use the card (rwkv6's and recurrentgemma's
+   counts take minutes).  Each record's dot FLOPs must equal JAX's count of
+   the record less the difference named in ``tests/_torch_full_width.py``
    (``DRYRUN_FLOPS``); each record's roofline line and ``t_count_s`` are
    printed.  Then the record's config on one card: smollm-135m under
    ``dryrun_config`` (bf16, remat) at B=8, S=4096, counted by ``lower_one``
@@ -4737,15 +4737,24 @@ def run_profile(card: str, torch, ops, dev) -> dict:
 
 
 # Phase 3j: the dry-run (``repro_torch.launch.dryrun``) on the card's machine.
-# Each record's dot FLOPs of one rank, as this repository's CPU run of the
-# same commands counts them (counts, not speeds; torch 2.13 there, the
-# card's machine's own torch here): (arch, mesh, shape) -> FLOPs.
-DRYRUN_FLOPS = {("smollm-135m", "pod16x16", "train_4k"): 97_235_912_097_792,
-                ("smollm-135m", "pod16x16", "prefill_32k"): 151_749_925_797_888,
-                ("smollm-135m", "pod16x16", "decode_32k"): 18_652_004_352,
-                ("smollm-135m", "pods2x16x16", "train_4k"): 48_617_956_048_896,
-                ("rwkv6-1.6b", "pod16x16", "train_4k"): 47_159_747_543_040,
-                ("granite-moe-3b-a800m", "pod16x16", "train_4k"): 378_985_431_171_072}
+# Each record's dot FLOPs of one rank: JAX's count of the record (jax 0.9.0,
+# ``repro.launch.dryrun.lower_one`` on 256 or 512 CPU host devices) less the
+# difference that ``tests/_torch_full_width.py`` names and counts (the
+# function named beside it), where one is named.  Counts, not speeds; the
+# tests hold the CPU's torch to the same numbers: (arch, mesh, shape) -> FLOPs.
+DRYRUN_FLOPS = {("smollm-135m", "pod16x16", "train_4k"): 87_451_439_726_592,
+                ("smollm-135m", "pod16x16", "prefill_32k"): 149_303_807_705_088,
+                ("smollm-135m", "pod16x16", "decode_32k"): 18_253_873_152,
+                # less qo_whole_on_two_pods
+                ("smollm-135m", "pods2x16x16", "train_4k"):
+                    45_560_308_432_896 - 1_834_588_569_600,
+                # less wkv_products
+                ("rwkv6-1.6b", "pod16x16", "train_4k"): 47_211_488_477_184 - 51_740_934_144,
+                # less moe_down_and_combine_whole
+                ("granite-moe-3b-a800m", "pod16x16", "train_4k"):
+                    416_092_249_915_392 - 139_156_940_390_400,
+                ("recurrentgemma-9b", "pod16x16", "train_4k"): 308_756_608_974_848,
+                ("deepseek-moe-16b", "pod16x16", "decode_32k"): 9_003_073_536}
 # The runs, all at once: name -> (the CLI's arguments, its summary line)
 DRYRUN_RUNS = {
     "single": (["--arch", "smollm-135m", "--mesh", "single"],
@@ -4757,7 +4766,13 @@ DRYRUN_RUNS = {
     "rwkv6": (["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--mesh", "single"],
               "1 counted, 0 skipped (documented), 0 errors"),
     "granite": (["--arch", "granite-moe-3b-a800m", "--shape", "train_4k", "--mesh", "single"],
-                "1 counted, 0 skipped (documented), 0 errors")}
+                "1 counted, 0 skipped (documented), 0 errors"),
+    # the w_x gradient pinned to its split (torch 2.13 once ran it whole over model)
+    "recurrentgemma": (["--arch", "recurrentgemma-9b", "--shape", "train_4k", "--mesh",
+                        "single"], "1 counted, 0 skipped (documented), 0 errors"),
+    # the expert products' d_model split over the data axes (2.11 once counted 7.42x JAX's)
+    "deepseek": (["--arch", "deepseek-moe-16b", "--shape", "decode_32k", "--mesh", "single"],
+                 "1 counted, 0 skipped (documented), 0 errors")}
 # The record's config on one card: smollm-135m under dryrun_config, B x S
 DRYRUN_B, DRYRUN_S, DRYRUN_STEPS = 8, 4096, 3
 DRYRUN_ONE_RANK_FLOPS = 73_405_286_055_936   # lower_one's count of it on a (1,1) mesh
@@ -4767,13 +4782,13 @@ DRYRUN_LOSS_TOL = 2e-2
 def start_dryrun_cli() -> dict:
     """Phase 3j (a), started: ``python -m repro_torch.launch.dryrun`` for
     smollm-135m on the single-pod mesh (every shape) and for its train_4k
-    on the multi-pod mesh, and for rwkv6-1.6b's and granite-moe-3b-a800m's
-    train_4k on the single-pod mesh (``DRYRUN_RUNS``), as subprocesses all
-    at once, each a fake process group of 256 or 512 ranks on the meta
-    device, with no card visible to them (``CUDA_VISIBLE_DEVICES`` empty: a
-    count that touched the card would fail).  They run on the host while
-    the phases after them use the card (rwkv6's count takes minutes of
-    host time); ``finish_dryrun_cli`` collects them."""
+    on the multi-pod mesh, and for the other records of ``DRYRUN_RUNS`` on
+    the single-pod mesh, as subprocesses all at once, each a fake process
+    group of 256 or 512 ranks on the meta device, with no card visible to
+    them (``CUDA_VISIBLE_DEVICES`` empty: a count that touched the card
+    would fail).  They run on the host while the phases after them use the
+    card (rwkv6's count takes minutes of host time); ``finish_dryrun_cli``
+    collects them."""
     import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")

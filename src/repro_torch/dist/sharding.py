@@ -57,8 +57,9 @@ What differs from the original:
   of compute, and leaves sums partial; XLA's partitioner splits the work.
   Under an active policy the model asks for XLA's choices: ``gathered``
   (FSDP weights gathered for their use), ``constrain`` at residual adds
-  and norms, ``spread_over_idle``/``spread_product`` (a product over the
-  axes nothing else splits), ``lookup`` (the embedding on each rank's
+  and norms, ``spread_over_idle``/``spread_product``/``spread_linear`` (a
+  product over the axes nothing else splits), ``split_like`` (a weight
+  split as the activation it multiplies), ``lookup`` (the embedding on each rank's
   ids), ``policy_caches``, ``microbatch``.  On plain tensors, or without
   a policy, each leaves the unsharded path as it was.
 """
@@ -77,10 +78,10 @@ __all__ = [
     "cache_specs", "make_shardings", "constrain", "sharding_strategy",
     "activation_policy", "STRATEGIES", "shard_train_state", "shard_batch",
     "shard_params", "shard_caches", "policy_caches", "microbatch",
-    "pin_grad", "gathered", "spread_over_idle", "spread_product", "lookup",
-    "local_shards", "local_rwkv6_scan", "local_rglru_scan", "local_moe_router",
-    "local_moe_scatter", "local_einsum", "replicated_like", "whole_on", "placed_like",
-    "full_value",
+    "pin_grad", "gathered", "spread_over_idle", "spread_product", "spread_linear",
+    "split_like", "lookup", "local_shards", "local_rwkv6_scan", "local_rglru_scan",
+    "local_moe_router", "local_moe_scatter", "local_einsum", "replicated_like", "whole_on",
+    "placed_like", "full_value",
 ]
 
 STRATEGIES = ("fsdp_tp", "dp_only")
@@ -607,6 +608,21 @@ def spread_over_idle(x: torch.Tensor, w: Optional[torch.Tensor] = None,
     return x
 
 
+def _spread_rows(fn: Callable, x: DTensor, w: Optional[torch.Tensor],
+                 overs: Sequence[str]) -> Optional[torch.Tensor]:
+    """``spread_product``'s split: ``fn`` of x's rows split further over the
+    idle axes of ``overs``, placed back and unflattened; None where no
+    axis is idle or nothing divides."""
+    rows = x.reshape(-1, x.shape[-1])
+    split = rows
+    for over in overs:
+        split = spread_over_idle(split, w, dim=0, over=over)
+    if split is rows:
+        return None
+    y = placed_like(fn(split), rows)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
 def spread_product(fn: Callable, x: torch.Tensor, w: Optional[torch.Tensor] = None,
                    overs: Sequence[str] = (_MODEL_AXIS,)) -> torch.Tensor:
     """``fn(x)`` (a product of ``x`` by the weight ``w``, on x's last dim)
@@ -617,16 +633,54 @@ def spread_product(fn: Callable, x: torch.Tensor, w: Optional[torch.Tensor] = No
     one dim because DTensor does not flatten a split sequence dim into a
     matmul's rows alike in every torch version.  A plain ``x``, or one
     with no idle axis, is ``fn(x)``."""
-    if not isinstance(x, DTensor):
-        return fn(x)
-    rows = x.reshape(-1, x.shape[-1])
-    split = rows
-    for over in overs:
-        split = spread_over_idle(split, w, dim=0, over=over)
-    if split is rows:
-        return fn(x)
-    y = placed_like(fn(split), rows)
-    return y.reshape(*x.shape[:-1], y.shape[-1])
+    y = _spread_rows(fn, x, w, overs) if isinstance(x, DTensor) else None
+    return fn(x) if y is None else y
+
+
+def spread_linear(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``F.linear(x, w, bias)`` split over the ``model`` axis where the
+    weight ``w`` (out, in) is whole there, as XLA's partitioner splits it
+    (a projection that the head-aware rules keep off ``model``, an LM head
+    whose vocab does not divide it): x's rows where they divide
+    (``spread_product``), else w's output features, else the fan-in (a
+    decode step's few rows a data rank), the same share of the product
+    each; the result placed as the rows were, whole on ``model``.  A
+    weight split over ``model``, a plain ``x``, or one where nothing
+    divides: the product as it is."""
+    linear = lambda t, w=w, b=bias: torch.nn.functional.linear(t, w, b)
+    if not isinstance(x, DTensor) or not isinstance(w, DTensor):
+        return linear(x)
+    y = _spread_rows(linear, x, w, (_MODEL_AXIS,))
+    if y is not None:
+        return y
+    mesh = w.device_mesh
+    idle = [i for i, (a, n) in enumerate(zip(_axis_names(mesh), mesh.shape))
+            if a == _MODEL_AXIS and n > 1 and isinstance(w.placements[i], Replicate)
+            and isinstance(x.placements[i], Replicate)]
+    n_idle = math.prod(mesh.shape[i] for i in idle)
+    by = lambda t, d: _placed(t, tuple(Shard(d % t.ndim) if i in idle else p
+                                       for i, p in enumerate(t.placements)))
+    if idle and w.shape[0] % n_idle == 0:
+        y = linear(x, by(w, 0), None if bias is None else by(bias, 0))
+    elif idle and bias is None and w.shape[1] % n_idle == 0:
+        y = linear(by(x, -1), by(w, 1))
+    else:
+        return linear(x)
+    return whole_on(y, -1)
+
+
+def split_like(w: torch.Tensor, x: torch.Tensor, dims: Dict[int, int]) -> torch.Tensor:
+    """``w`` split, on each mesh dim where ``x`` splits a dim ``d`` of
+    ``dims`` and ``w`` is whole, on its dim ``dims[d]``: a weight whose
+    product keeps ``x``'s split (each rank slices its share, no
+    communication).  Otherwise, and for plain tensors, ``w`` as it is."""
+    if not isinstance(w, DTensor) or not isinstance(x, DTensor):
+        return w
+    placements = tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+                       and isinstance(q, Replicate) else q
+                       for p, q in zip(x.placements, w.placements))
+    return _placed(w, placements)
 
 
 def pin_grad(x: torch.Tensor) -> torch.Tensor:

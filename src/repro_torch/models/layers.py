@@ -220,10 +220,10 @@ class Attention(nn.Module):
     def _qkv(self, x: torch.Tensor, cfg: ModelConfig):
         B, S, _ = x.shape
         # DTensors: a projection off the model axis split over it, as XLA splits it
-        kv = lambda lin: sharding.spread_product(lin, x, lin.weight)
-        return (self.wq(x).reshape(B, S, cfg.n_heads, cfg.hd),
-                kv(self.wk).reshape(B, S, cfg.kv_heads, cfg.hd),
-                kv(self.wv).reshape(B, S, cfg.kv_heads, cfg.hd))
+        proj = lambda lin: sharding.spread_linear(x, lin.weight, lin.bias)
+        return (proj(self.wq).reshape(B, S, cfg.n_heads, cfg.hd),
+                proj(self.wk).reshape(B, S, cfg.kv_heads, cfg.hd),
+                proj(self.wv).reshape(B, S, cfg.kv_heads, cfg.hd))
 
     def project_qkv(self, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
         """QKV projection + RoPE.  Returns q (B,S,H,hd), k/v (B,S,K,hd)."""
@@ -238,8 +238,13 @@ class Attention(nn.Module):
         post-RoPE keys/values, so that prefill can fill decode caches."""
         q, k_new, v_new = self.project_qkv(x, cfg, positions)
         out = attend(q, k_new, v_new, positions, positions, cfg, causal, window, impl)
+        return self.project_out(out), (k_new, v_new)
+
+    def project_out(self, out: torch.Tensor) -> torch.Tensor:
+        """The output projection of attention's (B, S, H, hd); off the model
+        axis split over it, as ``_qkv``'s projections are."""
         B, S, H, hd = out.shape
-        return self.wo(out.reshape(B, S, H * hd)), (k_new, v_new)
+        return sharding.spread_linear(out.reshape(B, S, H * hd), self.wo.weight, self.wo.bias)
 
 
 # -- MLPs -------------------------------------------------------------------------
@@ -298,10 +303,10 @@ def init_lm_head(cfg: ModelConfig, generator, device) -> Optional[nn.Linear]:
 
 def lm_logits(embed: Embedding, head: Optional[nn.Linear], x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings or head is None:
-        logits = x @ embed.tok.T.to(x.dtype)
-    else:
-        logits = F.linear(x, head.weight.to(x.dtype))
+    # DTensors: a head off the model axis (a vocab that does not divide it) split
+    # over it, as XLA splits it
+    w = embed.tok if cfg.tie_embeddings or head is None else head.weight
+    logits = sharding.spread_linear(x, w.to(x.dtype))
     if cfg.padded_vocab and cfg.padded_vocab > cfg.vocab_size:
         # mask the padding rows: -1e30 contributes nothing to logsumexp/argmax
         # (the positions replicated beside a DTensor's logits)

@@ -129,10 +129,14 @@ def _experts_ffn(we, expert_in: torch.Tensor, cfg: ModelConfig,
     around the expert axis ``e`` (``"egcd"`` or ``"gecd"``)."""
     dtype = expert_in.dtype
     hidden = spec.replace("d", "f")
-    h_gate = torch.einsum(f"{spec},edf->{hidden}", expert_in, we["w_gate"].to(dtype))
-    h_up = torch.einsum(f"{spec},edf->{hidden}", expert_in, we["w_up"].to(dtype))
+    # DTensors: on each rank's shards, split as the buffer is; where its d_model
+    # is split (a decode step's one group), the products' fan-in and w_down's
+    # output are split with it, as XLA splits them, and the partial sums summed
+    h_gate, h_up = (sharding.whole_on(sharding.local_einsum(
+        f"{spec},edf->{hidden}", expert_in, we[w].to(dtype))) for w in ("w_gate", "w_up"))
     act = F.silu(h_gate) if cfg.activation == "swiglu" else F.gelu(h_gate, approximate="tanh")
-    return torch.einsum(f"{hidden},efd->{spec}", act * h_up, we["w_down"].to(dtype))
+    w_down = sharding.split_like(we["w_down"].to(dtype), expert_in, {spec.index("d"): 2})
+    return sharding.local_einsum(f"{hidden},efd->{spec}", act * h_up, w_down)
 
 
 def _router_logits(p: MoELayer, xg: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
@@ -245,7 +249,9 @@ def apply_moe_layer(p: MoELayer, x: torch.Tensor, cfg: ModelConfig
         dispatch = sharding.spread_over_idle(dispatch, dim=1, over="data")
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(dtype),
                                  sharding.spread_over_idle(xg, dim=1, over="data"))
-        expert_in = sharding.spread_over_idle(expert_in, dim=2, over="data")  # (E,G,C,D)
+        # (E,G,C,D): the slots over the data axes where these split no group, else d_model
+        expert_in = sharding.spread_over_idle(expert_in, dim=2, over="data")
+        expert_in = sharding.spread_over_idle(expert_in, dim=3, over="data")
         # (placed as its input: DTensor may split the slots unevenly inside)
         expert_out = sharding.placed_like(_experts_ffn(p.experts, expert_in, cfg, "egcd"),
                                          expert_in)

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import local_rglru_scan, replicated_like
+from ..dist.sharding import local_rglru_scan, pin_grad, replicated_like
 from ..kernels import ops as kops
 from .config import ModelConfig
 from .layers import _dtype, _linear, _normal
@@ -112,7 +112,9 @@ def apply_rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
     """x (B,S,D) -> (out (B,S,D), new_state {"h": (B,R) fp32, "conv": (B,W-1,R)});
     ``state`` is not written."""
     gate = F.gelu(p.w_gate(x), approximate="tanh")
-    u = p.w_x(x)
+    # a DTensor's gradient comes back split as u is, over the model axis, as XLA
+    # reduce-scatters it: else DTensor may run w_x's weight gradient whole there
+    u = pin_grad(p.w_x(x))
     u, conv_state = _causal_conv1d(p, u, state["conv"] if state else None)
 
     u32 = u.float()

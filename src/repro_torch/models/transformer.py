@@ -191,8 +191,7 @@ def _apply_block(bp: Block, cfg: ModelConfig, btype: str, x: torch.Tensor,
         kv.update_attn_cache(state, k_new, v_new, positions)
         (k_all, v_all), kpos = kv.attn_cache_views(state, x.shape[0])
         out = L.attend(q, k_all, v_all, positions, kpos, cfg, causal=causal, window=window)
-        B, S, H, hd = out.shape
-        h = bp.attn.wo(out.reshape(B, S, H * hd))
+        h = bp.attn.project_out(out)
     x = constrain(x + h)
     if cfg.family == "moe":
         h2, aux = moe_mod.apply_moe_layer(bp.moe, bp.norm2(x), cfg)
